@@ -1,0 +1,60 @@
+"""Ordered depth-bias shifted-window attention
+(``mde_tpu/ops/ordered_attention.py``), through kernel K2."""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .init import depth_embedding_init
+from .kernels.ordered_attention import ordered_attention
+from .tnn import LayerNorm, Linear
+from .window import cyclic_shift, cyclic_unshift, window_partition, window_reverse
+
+
+class PreNormOrderedSwinSA(nn.Module):
+    """Pre-norm residual ordered window self-attention.
+
+    ``x``: (B, H, W, C); ``indices``: (B, H, W) integer depth indices in
+    [0, num_emb). The logits of each window get ``depth_embedding[i_q - i_k
+    + num_emb - 1, head]``. The shifted variant rolls both x and the indices
+    and applies no shift mask, as the reference does."""
+
+    def __init__(self, dim: int, num_heads: int, num_emb: int, window_size: int = 8,
+                 shift_size: int = 0, bias_type: str = "depth", bias_init: str = "linear"):
+        super().__init__()
+        if bias_type not in ("depth", "none"):
+            raise NotImplementedError(f"bias_type {bias_type!r}")
+        self.num_heads = num_heads
+        self.num_emb = num_emb
+        self.window_size = window_size
+        self.shift_size = shift_size
+        self.bias_init = bias_init
+        self.norm = LayerNorm(dim)
+        self.q_proj = Linear(dim, dim)
+        self.k_proj = Linear(dim, dim)
+        self.v_proj = Linear(dim, dim)
+        self.o_proj = Linear(dim, dim)
+        self.depth_embedding = (nn.Parameter(torch.zeros(2 * num_emb - 1, num_heads))
+                                if bias_type == "depth" else None)
+
+    def init_own_parameters(self, generator: torch.Generator) -> None:
+        if self.depth_embedding is not None:
+            self.depth_embedding.data.copy_(depth_embedding_init(
+                self.num_emb, self.num_heads, self.bias_init, generator))
+
+    def forward(self, x: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+        b, h, w, c = x.shape
+        r, s = self.window_size, self.shift_size
+        identity = x
+        x = cyclic_shift(x, s)
+        xn = self.norm(window_partition(x, r))
+        q, k, v = self.q_proj(xn), self.k_proj(xn), self.v_proj(xn)
+        idx = None
+        if self.depth_embedding is not None:
+            indices = cyclic_shift(indices[..., None], s)
+            idx = window_partition(indices.to(torch.int32), r)[..., 0].contiguous()
+        out = ordered_attention(q, k, v, idx, self.depth_embedding, self.num_heads,
+                                (c // self.num_heads) ** -0.5, self.num_emb)
+        out = window_reverse(self.o_proj(out), r, h, w)
+        return cyclic_unshift(out, s) + identity

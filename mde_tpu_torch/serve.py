@@ -1,0 +1,28 @@
+"""The entry point that serves: depth maps for a batch of images.
+
+Mirrors the compute of ``mde_tpu.train.driver.Trainer.predict``: forward in
+eval mode, take the last map, resize it back to the input with
+align_corners, clip at 0. Data loading and PNG writing are not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .ops.resize import resize_bilinear
+
+
+class Predictor:
+    def __init__(self, model: nn.Module):
+        self.model = model.eval()
+        self.device = next(model.parameters()).device
+
+    @torch.no_grad()
+    def predict(self, images) -> torch.Tensor:
+        """images: (B, H, W, 3) f32 array or tensor -> (B, H, W, 1) f32 depth
+        on the model's device."""
+        x = torch.as_tensor(images, dtype=torch.float32, device=self.device)
+        pred, _ = self.model(x)
+        pred = resize_bilinear(pred, (x.shape[1], x.shape[2]), align_corners=True)
+        return pred.clamp_min(0.0)
