@@ -6,6 +6,9 @@ by hand for Hopper (``ops/kernels/csrc``); each has a plain PyTorch version
 beside it, which runs for tensors on the CPU. Entry points run on the card
 unless the caller asks for the CPU.
 
-Ported so far: the eval-mode forward of the flagship ``oda2_red_order_swin2``
-(``models.build_model``, ``serve.Predictor``). ROADMAP.md lists the rest.
+Ported so far: the flagship ``oda2_red_order_swin2`` forward
+(``models.build_model``, ``serve.Predictor``) and its train and eval steps
+(``train.step.make_train_step``, ``make_eval_step``, with the losses, the
+optimizer and the metrics), whose backward passes run through the kernels'
+backward kernels. ROADMAP.md lists the rest.
 """

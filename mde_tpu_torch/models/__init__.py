@@ -2,7 +2,10 @@
 
 ``build_model(opt, min_depth, max_depth)`` builds the model that the
 config's ``model.name`` names, with weights drawn from ``seed``, in eval
-mode, on the card unless ``device`` asks for another.
+mode (the train step switches it to training), on the card unless
+``device`` asks for another. Keyword overrides go to the model's
+constructor: ``dtype``, ``use_checkpoint`` (recompute blocks in the
+backward pass), ``path_drop_prob`` (the encoder's stochastic depth).
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""The flagship ``oda2_red_order_swin2``, eval-mode forward
-(``mde_tpu/models/oda2/red_order_swin2.py``).
+"""The flagship ``oda2_red_order_swin2``
+(``mde_tpu/models/oda2/red_order_swin2.py``), in eval and training mode.
 
 Ordered-depth iterative refinement: the head runs ``num_repeats`` rounds of
 {conv head -> one-channel logit -> sigmoid depth map; quantise the logit
@@ -23,9 +23,9 @@ import torch
 from torch import nn
 
 from ...ops.conv import Conv1x1, ConvBN
-from ...ops.drop import require_eval
 from ...ops.mlp import PreNormDWConvFF
 from ...ops.ordered_attention import PreNormOrderedSwinSA
+from ...ops.remat import checkpoint
 from ...ops.resize import resize_bilinear, upsample2d
 from ...ops.tnn import LayerNorm, Linear
 from ..swin import SwinTransformer, swin_base, swin_large
@@ -57,7 +57,8 @@ class OrderedSwinBlock(nn.Module):
 
 
 def _quantize_logit(logit: torch.Tensor, num_emb: int) -> torch.Tensor:
-    """sigmoid(logit) -> (B, H, W) int32 index map in [0, num_emb), no grad.
+    """sigmoid(logit) -> (B, H, W) int32 index map in [0, num_emb), no grad
+    (the logit is detached, as ``stop_gradient`` does at :96).
     floor(p*E - 1e-3) is -1 for p < 7.8e-6; it is clamped to 0 (the
     reference wraps it to the last row instead)."""
     p = torch.sigmoid(logit.detach())
@@ -87,13 +88,16 @@ class Upsample2d(nn.Module):
 
 class OrderedSwinRegHead(nn.Module):
     """Iterative ordered refinement head, unrolled: ``conv_layers.{i}`` and
-    ``attn_layers.{i}`` per repeat, plus the final conv head."""
+    ``attn_layers.{i}`` per repeat, plus the final conv head.
+    ``use_checkpoint`` recomputes each repeat's ``OrderedSwinBlock`` in the
+    backward pass (``mde_tpu/models/oda2/red_order_swin2.py:237-242``)."""
 
     def __init__(self, in_dims: int, num_heads: int, num_repeats: int, num_emb: int = 128,
                  window_size: int = 8, feedforward_dims: Optional[int] = None,
                  output_scale: int = 4, bias_type: str = "depth", bias_init: str = "linear",
-                 bn_eps: float = 1e-5):
+                 bn_eps: float = 1e-5, use_checkpoint: bool = False):
         super().__init__()
+        self.use_checkpoint = use_checkpoint
         if output_scale not in (2, 4):
             raise ValueError(f"output_scale must be 2 or 4, got {output_scale}")
         self.num_emb = num_emb
@@ -109,7 +113,11 @@ class OrderedSwinRegHead(nn.Module):
         for conv, attn in zip(self.conv_layers, self.attn_layers):
             logit = conv(x)
             outs.append(torch.sigmoid(logit))
-            x = attn(x, _quantize_logit(logit, self.num_emb))
+            idx = _quantize_logit(logit, self.num_emb)
+            if self.use_checkpoint and torch.is_grad_enabled():
+                x = checkpoint(attn, x, idx)
+            else:
+                x = attn(x, idx)
         outs.append(torch.sigmoid(self.conv_layers[-1](x)))
         return tuple(outs)
 
@@ -122,7 +130,7 @@ class OrderedSwin2RegDecoder(nn.Module):
     def __init__(self, enc_dims: Sequence[int], dec_dim: int = 512, num_heads: int = 8,
                  num_repeats: int = 3, num_emb: int = 128, window_size: int = 8,
                  output_scale: int = 4, bias_type: str = "depth", bias_init: str = "linear",
-                 neck_type: str = "red", bn_eps: float = 1e-5):
+                 neck_type: str = "red", bn_eps: float = 1e-5, use_checkpoint: bool = False):
         super().__init__()
         if neck_type not in NECK_TYPES:
             raise ValueError(f"Unsupported neck type {neck_type}.")
@@ -158,7 +166,8 @@ class OrderedSwin2RegDecoder(nn.Module):
         self.dec_norm = LayerNorm(d)
         self.reducer = OrderedSwinRegHead(d, num_heads, num_repeats, num_emb, window_size,
                                           output_scale=output_scale, bias_type=bias_type,
-                                          bias_init=bias_init, bn_eps=bn_eps)
+                                          bias_init=bias_init, bn_eps=bn_eps,
+                                          use_checkpoint=use_checkpoint)
 
     def forward(self, features: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
         e4, e8, e16, e32 = features
@@ -199,7 +208,12 @@ class ODA2OrderedSwin2RegModel(nn.Module):
     """The flagship: Swin encoder + ordered decoder. ``forward`` takes
     (B, H, W, 3) f32 images and returns ``(out, outs)``: the last depth map
     and all ``num_repeats + 1`` maps, f32, scaled by ``max_depth``.
-    Activations run in ``dtype`` (parameters stay f32)."""
+    Activations run in ``dtype`` (parameters stay f32). In training mode
+    BatchNorm takes batch statistics and the encoder's stochastic depth
+    draws from the ``generator`` given to ``forward``. ``use_checkpoint``
+    recomputes each Swin block and each head repeat's ordered block in the
+    backward pass; it is off by default here (the JAX model's default is
+    on), since the train step fits the card without it."""
 
     def __init__(self, dec_dim: int, min_depth: float, max_depth: float, num_heads: int,
                  num_repeats: int, num_emb: int, window_size: int = 8,
@@ -207,13 +221,14 @@ class ODA2OrderedSwin2RegModel(nn.Module):
                  bias_type: str = "depth", bias_init: str = "linear", neck_type: str = "red",
                  bn_eps: float = 1e-5, path_drop_prob: float = 0.2,
                  dtype: torch.dtype = torch.float32, resize_to_multiple: bool = True,
-                 encoder_kwargs: Optional[dict] = None):
+                 encoder_kwargs: Optional[dict] = None, use_checkpoint: bool = False):
         super().__init__()
         self.min_depth = min_depth
         self.max_depth = max_depth
         self.dtype = dtype
         self.resize_to_multiple = resize_to_multiple
-        kwargs = dict(window_size=7, path_drop_prob=path_drop_prob)
+        kwargs = dict(window_size=7, path_drop_prob=path_drop_prob,
+                      use_checkpoint=use_checkpoint)
         kwargs.update(encoder_kwargs or {})
         if encoder_type in ("base", "B"):
             self.encoder = swin_base(**kwargs)
@@ -225,20 +240,21 @@ class ODA2OrderedSwin2RegModel(nn.Module):
             raise ValueError(f"Unsupported encoder type {encoder_type}.")
         self.decoder = OrderedSwin2RegDecoder(
             self.encoder.num_features, dec_dim, num_heads, num_repeats, num_emb, window_size,
-            output_scale, bias_type, bias_init, neck_type, bn_eps)
+            output_scale, bias_type, bias_init, neck_type, bn_eps, use_checkpoint)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
-        require_eval(self)
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
         if self.resize_to_multiple:
             x = resize_bilinear(x, _resize_policy(x.shape[1], x.shape[2], self.max_depth))
-        outs = self.decoder(self.encoder(x.to(self.dtype)))
+        outs = self.decoder(self.encoder(x.to(self.dtype), generator))
         outs = tuple(o.float() * self.max_depth for o in outs)
         return outs[-1], outs
 
     @classmethod
     def build(cls, opt, min_depth: float, max_depth: float, **overrides):
         """Construct from a config's ``model`` section, with the JAX
-        package's defaults."""
+        package's defaults; ``overrides`` (``use_checkpoint``,
+        ``path_drop_prob``, ``dtype``, ...) go to the constructor."""
         kwargs = dict(
             dec_dim=opt["dec_dim"], num_heads=opt["num_heads"],
             num_repeats=opt["num_repeats"], num_emb=opt["num_emb"],

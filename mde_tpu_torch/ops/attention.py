@@ -48,9 +48,7 @@ class WindowAttention(nn.Module):
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         bw, n, c = x.shape
         nh = self.num_heads
-        qkv = self.qkv(x).reshape(bw, n, 3, c)
         bias = self.relative_position_bias_table[self.relative_position_index]
         bias = bias.reshape(n, n, nh).permute(2, 0, 1).contiguous()  # (nh, N, N) f32
-        out = window_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], bias, mask,
-                               nh, (c // nh) ** -0.5)
+        out = window_attention(self.qkv(x), bias, mask, nh, (c // nh) ** -0.5)
         return self.proj(out)

@@ -1,8 +1,9 @@
 """The port's hand-written CUDA kernels: build, load, dispatch and count.
 
 Counterpart of ``mde_tpu/ops/pallas/__init__.py``. Each kernel module here
-(``window_attention``, ``ordered_attention``, ``depthwise``) holds a wrapper
-and, beside it, the plain PyTorch version of the same function.
+(``window_attention``, ``ordered_attention``, ``depthwise``) holds a
+``torch.autograd.Function`` whose forward and backward are kernels and,
+beside each, the plain PyTorch version of the same function.
 
 Dispatch is by device and nothing else: a tensor on the CPU takes the plain
 version, a CUDA tensor launches the kernel or raises. There is no override
@@ -34,7 +35,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
-KERNELS = ("window_attention", "ordered_attention", "depthwise_conv2d")
+KERNELS = ("window_attention", "window_attention_bwd", "ordered_attention",
+           "ordered_attention_bwd", "depthwise_conv2d", "depthwise_conv2d_dxdw",
+           "depthwise_conv2d_dw")
 
 # launches of each kernel since the last reset; a wrapper adds one where it
 # launches its kernel, and nowhere else
@@ -43,8 +46,13 @@ launch_counts: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "mde_window_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    "mde_window_attention_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     "mde_ordered_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    "mde_ordered_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _F, _I, _P],
     "mde_depthwise_conv2d": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "mde_depthwise_conv2d_dxdw": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "mde_depthwise_conv2d_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -157,16 +165,20 @@ def check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
-def head_smem_bytes(n: int, hd: int, extra_floats: int = 0) -> int:
+def head_smem_bytes(n: int, hd: int, extra_floats: int = 0, backward: bool = False) -> int:
     """Shared memory of one (window, head) block of ``n`` tokens at head dim
-    ``hd``: ``window_head_smem_floats`` in ``csrc/common.cuh``, plus
+    ``hd``: ``window_head_smem_floats`` (or, for the backward,
+    ``window_head_bwd_smem_floats``) in ``csrc/common.cuh``, plus
     ``extra_floats``."""
+    if backward:
+        return (2 * n * hd + 2 * n * (hd + 1) + 2 * n * n + extra_floats) * 4
     return (3 * n * hd + n + n * n + extra_floats) * 4
 
 
-def check_head_smem(kernel: str, n: int, hd: int, extra_floats: int = 0) -> None:
+def check_head_smem(kernel: str, n: int, hd: int, extra_floats: int = 0,
+                    backward: bool = False) -> None:
     """Raise unless such a block fits a block's shared memory."""
-    need = head_smem_bytes(n, hd, extra_floats)
+    need = head_smem_bytes(n, hd, extra_floats, backward)
     if need > SMEM_LIMIT:
         raise ValueError(f"{kernel}: N={n}, head dim {hd} needs {need} bytes of shared "
                          f"memory; a block has {SMEM_LIMIT}")

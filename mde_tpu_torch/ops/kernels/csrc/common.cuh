@@ -105,6 +105,117 @@ __device__ void window_head_attention(const T* __restrict__ q, const T* __restri
   }
 }
 
+// Floats of shared memory that window_head_attention_bwd needs for n tokens
+// at head dim hd: q*scale and dO (n*hd each), k and v (n*(hd+1) each,
+// padded like k above), P and dS (n*n each).
+__host__ __device__ inline size_t window_head_bwd_smem_floats(int n, int hd) {
+  return (size_t)n * hd * 2 + (size_t)n * (hd + 1) * 2 + (size_t)n * n * 2;
+}
+
+// Gradients of softmax(qs . k^T + bias(row, col)) . v for one (window,
+// head), qs = q*scale rounded to T (the JAX backward kernels scale q in the
+// input dtype for both attentions). Recomputes S and P in f32, then
+//   dP = dO . v^T, dS = P * (dP - rowsum(dP * P)),
+//   dq = dS . k * scale, dk = dS^T . qs, dv = P^T . dO,
+// with P and dS rounded to T before those three products, as the JAX kernel
+// casts them. q, k, v point at the head's first element of the window, rows
+// `ld` apart; dout rows `ldo` apart; dq, dk, dv rows `ldg` apart.
+// sink(row, col, ds) receives every f32 dS once; the thread that calls it
+// for a given (row, col) depends only on (row, col) and blockDim, so a sink
+// may accumulate into a per-entry slot without atomics. The caller
+// synchronises before it reuses smem.
+template <typename T, typename BiasFn, typename SinkFn>
+__device__ void window_head_attention_bwd(const T* __restrict__ q, const T* __restrict__ k,
+                                          const T* __restrict__ v, const T* __restrict__ dout,
+                                          T* __restrict__ dq, T* __restrict__ dk,
+                                          T* __restrict__ dv, int n, int hd, int ld, int ldo,
+                                          int ldg, float scale, float* smem, BiasFn bias,
+                                          SinkFn sink) {
+  const int ldk = hd + 1;
+  float* sq = smem;           // q * scale, rounded to T
+  float* sdo = sq + n * hd;   // dO
+  float* sk = sdo + n * hd;   // k, rows ldk apart
+  float* sv = sk + n * ldk;   // v, rows ldk apart
+  float* sp = sv + n * ldk;   // S, then P, then P rounded to T
+  float* sd = sp + n * n;     // dP, then dS rounded to T
+  const float scale_t = to_float(from_float<T>(scale));
+  for (int i = threadIdx.x; i < n * hd; i += blockDim.x) {
+    const int r = i / hd, d = i - r * hd;
+    const size_t off = (size_t)r * ld + d;
+    sq[i] = round_to<T>(to_float(q[off]) * scale_t);
+    sk[r * ldk + d] = to_float(k[off]);
+    sv[r * ldk + d] = to_float(v[off]);
+    sdo[i] = to_float(dout[(size_t)r * ldo + d]);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n * n; i += blockDim.x) {
+    const int r = i / n, c = i - r * n;
+    const float* qr = sq + r * hd;
+    const float* dor = sdo + r * hd;
+    const float* kc = sk + c * ldk;
+    const float* vc = sv + c * ldk;
+    float s = 0.f, dp = 0.f;
+    for (int d = 0; d < hd; ++d) {
+      s = fmaf(qr[d], kc[d], s);
+      dp = fmaf(dor[d], vc[d], dp);
+    }
+    sp[i] = s + bias(r, c);
+    sd[i] = dp;
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+  for (int r = warp; r < n; r += nwarps) {
+    float* prow = sp + r * n;
+    float* drow = sd + r * n;
+    float m = -INFINITY;
+    for (int j = lane; j < n; j += 32) m = fmaxf(m, prow[j]);
+    m = warp_max(m);
+    float sum = 0.f;
+    for (int j = lane; j < n; j += 32) {
+      const float e = expf(prow[j] - m);
+      prow[j] = e;
+      sum += e;
+    }
+    const float inv = 1.f / warp_sum(sum);
+    float dot = 0.f;
+    for (int j = lane; j < n; j += 32) {
+      prow[j] *= inv;
+      dot = fmaf(drow[j], prow[j], dot);
+    }
+    dot = warp_sum(dot);
+    for (int j = lane; j < n; j += 32) {
+      const float p = prow[j];
+      const float ds = p * (drow[j] - dot);
+      sink(r, j, ds);
+      prow[j] = round_to<T>(p);
+      drow[j] = round_to<T>(ds);
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n * hd; i += blockDim.x) {
+    const int r = i / hd, d = i - r * hd;
+    float gq = 0.f, gk = 0.f, gv = 0.f;
+    for (int j = 0; j < n; ++j) {
+      gq = fmaf(sd[r * n + j], sk[j * ldk + d], gq);  // dS[r, j] k[j, d]
+      gk = fmaf(sd[j * n + r], sq[j * hd + d], gk);   // dS[j, r] qs[j, d]
+      gv = fmaf(sp[j * n + r], sdo[j * hd + d], gv);  // P[j, r] dO[j, d]
+    }
+    const size_t off = (size_t)r * ldg + d;
+    dq[off] = from_float<T>(gq * scale);
+    dk[off] = from_float<T>(gk);
+    dv[off] = from_float<T>(gv);
+  }
+}
+
+// Windows per block for the backward kernels: enough blocks to fill the
+// card several times over (132 SMs, ~8 blocks each), each walking a run of
+// windows so that its sum across windows meets device memory once.
+inline int windows_per_block(int bw, int heads) {
+  const int target = 132 * 8;
+  const long long work = (long long)bw * heads;
+  return (int)((work + target - 1) / target);
+}
+
 // Allow a kernel more than 48 KB of dynamic shared memory when it needs it.
 template <typename K> inline cudaError_t allow_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;

@@ -1,18 +1,26 @@
-"""K2: ordered depth-bias window attention, forward.
+"""K2: ordered depth-bias window attention, forward and backward.
 
 Port of ``fused_ordered_window_attention``
-(``mde_tpu/ops/pallas/ordered_attention.py:513``). The CUDA kernel is
-``csrc/ordered_attention.cu``; ``plain_ordered_attention`` is the same
-function in PyTorch, mirroring ``xla_ordered_attention`` (:83).
+(``mde_tpu/ops/pallas/ordered_attention.py:513``) and its ``custom_vjp``.
+The CUDA kernels are ``csrc/ordered_attention.cu`` and
+``csrc/ordered_attention_bwd.cu``, joined by one ``torch.autograd.Function``;
+``plain_ordered_attention`` mirrors ``xla_ordered_attention`` (:83) and
+``plain_ordered_attention_bwd`` the backward kernel body (``_bwd_kernel``,
+:299) with its table fold (:461-466).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from . import check, check_head_smem, dtype_code, is_plain, launch, ptr
+
+
+def _relative_index(idx: torch.Tensor, num_emb: int) -> torch.Tensor:
+    """(B*nW, N, N) rows of the table: idx_q - idx_k + E - 1."""
+    return idx[:, :, None].long() - idx[:, None, :].long() + (num_emb - 1)
 
 
 def plain_ordered_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -31,22 +39,57 @@ def plain_ordered_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vh = v.reshape(bw, n, num_heads, hd)
     attn = torch.einsum("bqhd,bkhd->bhqk", qh, kh).float() * scale
     if table is not None:
-        rel = idx[:, :, None].long() - idx[:, None, :].long() + (num_emb - 1)
+        rel = _relative_index(idx, num_emb)
         attn = attn + table.t()[:, rel].permute(1, 0, 2, 3).float()
     attn = attn.softmax(dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", attn, vh).reshape(bw, n, c)
 
 
-def ordered_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      idx: torch.Tensor, table: Optional[torch.Tensor],
-                      num_heads: int, scale: float, num_emb: int) -> torch.Tensor:
-    """Ordered window MHA: the plain version for CPU tensors, the CUDA
-    kernel for CUDA tensors (which clamps indices into [0, num_emb))."""
-    if is_plain(q):
-        return plain_ordered_attention(q, k, v, idx, table, num_heads, scale, num_emb)
+def plain_ordered_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                dout: torch.Tensor, idx: torch.Tensor,
+                                table: Optional[torch.Tensor], num_heads: int, scale: float,
+                                num_emb: int
+                                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                           Optional[torch.Tensor]]:
+    """(dq, dk, dv, dtable) of :func:`plain_ordered_attention`, step by step
+    as the JAX backward kernel computes them: q scaled in its dtype (the
+    backward kernel does so, though the forward's plain path scales the f32
+    logits), products in f32, P and dS cast to the input dtype before the
+    dq, dk and dv products, dq scaled in f32, and
+    dtable[a - b + E - 1, h] = sum of dS over pairs with (idx_q, idx_k) = (a, b),
+    f32. dtable is None without a table."""
+    bw, n, c = q.shape
+    hd = c // num_heads
+    dt = q.dtype
+    qs = q * torch.tensor(scale, dtype=dt)
+    qh, kh, vh, doh = (t.reshape(bw, n, num_heads, hd).float() for t in (qs, k, v, dout))
+    s = torch.einsum("bqhd,bkhd->bhqk", qh, kh)
+    if table is not None:
+        rel = _relative_index(idx, num_emb)
+        s = s + table.t()[:, rel].permute(1, 0, 2, 3).float()
+    p = s.softmax(dim=-1)
+    dp = torch.einsum("bqhd,bkhd->bhqk", doh, vh)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    p_lo = p.to(dout.dtype).float()
+    ds_lo = ds.to(dt).float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", p_lo, doh)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds_lo, kh) * torch.tensor(scale, dtype=torch.float32)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds_lo, qh)
+    dtable = None
+    if table is not None:
+        per_head = ds.permute(1, 0, 2, 3).reshape(num_heads, -1)
+        dtable = torch.zeros((num_heads, 2 * num_emb - 1), dtype=torch.float32,
+                             device=q.device).index_add_(1, rel.reshape(-1), per_head).t()
+    return (dq.to(dt).reshape(bw, n, c), dk.to(dt).reshape(bw, n, c),
+            dv.to(dt).reshape(bw, n, c), dtable)
+
+
+def _check_inputs(q, k, v, idx, table, num_heads, num_emb, backward: bool = False) -> None:
+    """Raise on what the forward (or backward) kernel does not take."""
     bw, n, c = q.shape
     for name, t in (("q", q), ("k", k), ("v", v)):
         check(name, t, (bw, n, c), q.dtype, q.device)
+    dtype_code(q)
     if c % num_heads:
         raise ValueError(f"ordered_attention: {c} channels do not split into "
                          f"{num_heads} heads")
@@ -54,10 +97,67 @@ def ordered_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if table is not None:
         check("idx", idx, (bw, n), torch.int32, q.device)
         check("table", table, (2 * num_emb - 1, num_heads), torch.float32, q.device)
-        extra = 2 * num_emb - 1 + n
-    check_head_smem("ordered_attention", n, c // num_heads, extra)
-    out = torch.empty((bw, n, c), dtype=q.dtype, device=q.device)
-    launch("ordered_attention", "mde_ordered_attention", q.device,
-           ptr(q), ptr(k), ptr(v), None if table is None else ptr(idx), ptr(table),
-           ptr(out), bw, n, c, num_heads, num_emb, float(scale), dtype_code(q))
-    return out
+        # the table's column and the window's indices; the backward also a
+        # dT accumulator of the column's size
+        extra = (2 if backward else 1) * (2 * num_emb - 1) + n
+    name = "ordered_attention_bwd" if backward else "ordered_attention"
+    check_head_smem(name, n, c // num_heads, extra, backward)
+
+
+def ordered_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          dout: torch.Tensor, idx: Optional[torch.Tensor],
+                          table: Optional[torch.Tensor], num_heads: int, scale: float,
+                          num_emb: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                     Optional[torch.Tensor]]:
+    """(dq, dk, dv, dtable f32 or None without a table) for the output
+    gradient dout: the plain version for CPU tensors, the backward kernel
+    for CUDA tensors."""
+    if is_plain(q):
+        return plain_ordered_attention_bwd(q, k, v, dout, idx, table, num_heads, scale,
+                                           num_emb)
+    _check_inputs(q, k, v, idx, table, num_heads, num_emb, backward=True)
+    bw, n, c = q.shape
+    check("dout", dout, (bw, n, c), q.dtype, q.device)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    dtable = None if table is None else torch.zeros_like(table)
+    launch("ordered_attention_bwd", "mde_ordered_attention_bwd", q.device,
+           ptr(q), ptr(k), ptr(v), ptr(dout), None if table is None else ptr(idx),
+           ptr(table), ptr(dq), ptr(dk), ptr(dv), ptr(dtable), bw, n, c, num_heads,
+           num_emb, float(scale), dtype_code(q))
+    return dq, dk, dv, dtable
+
+
+class OrderedAttentionFn(torch.autograd.Function):
+    """K2 forward and backward: gradients for q, k, v and the table; the
+    indices get none."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, idx, table, num_heads, scale, num_emb):
+        ctx.num_heads, ctx.scale, ctx.num_emb = num_heads, scale, num_emb
+        ctx.save_for_backward(q, k, v, idx, table)
+        if is_plain(q):
+            return plain_ordered_attention(q, k, v, idx, table, num_heads, scale, num_emb)
+        _check_inputs(q, k, v, idx, table, num_heads, num_emb)
+        bw, n, c = q.shape
+        out = torch.empty((bw, n, c), dtype=q.dtype, device=q.device)
+        launch("ordered_attention", "mde_ordered_attention", q.device,
+               ptr(q), ptr(k), ptr(v), None if table is None else ptr(idx), ptr(table),
+               ptr(out), bw, n, c, num_heads, num_emb, float(scale), dtype_code(q))
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, idx, table = ctx.saved_tensors
+        dq, dk, dv, dtable = ordered_attention_bwd(q, k, v, dout.contiguous(), idx, table,
+                                                   ctx.num_heads, ctx.scale, ctx.num_emb)
+        return dq, dk, dv, None, dtable if ctx.needs_input_grad[4] else None, None, None, None
+
+
+def ordered_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      idx: Optional[torch.Tensor], table: Optional[torch.Tensor],
+                      num_heads: int, scale: float, num_emb: int) -> torch.Tensor:
+    """Ordered window MHA, differentiable in q, k, v and the table: the plain
+    versions for CPU tensors, the CUDA kernels for CUDA tensors (which clamp
+    indices into [0, num_emb))."""
+    return OrderedAttentionFn.apply(q, k, v, idx, table, num_heads, scale, num_emb)

@@ -8,8 +8,7 @@ import torch
 from torch import nn
 
 from .depthwise import DepthwiseConv2d
-from .drop import require_eval
-from .tnn import LayerNorm, Linear, batch_norm_eval, gelu
+from .tnn import BatchNorm, LayerNorm, Linear, gelu
 
 
 class SwinMLP(nn.Module):
@@ -27,8 +26,9 @@ class SwinMLP(nn.Module):
 class PreNormDWConvFF(nn.Module):
     """Pre-norm GLU + depthwise-conv feed-forward on (B, H, W, C):
     LN -> lin1 -> a * sigmoid(b) -> 5x5 depthwise conv (kernel K3) ->
-    BN (running statistics) -> GELU -> lin3 -> residual. This is the JAX
-    module's default, unfused path."""
+    BN -> GELU -> lin3 -> residual. This is the JAX module's default,
+    unfused path (``mde_tpu/ops/mlp.py:190-201``), the one BN in training
+    mode takes."""
 
     def __init__(self, dim: int, feedforward_dims: Optional[int] = None,
                  kernel_size: int = 5, bn_eps: float = 1e-5):
@@ -37,12 +37,11 @@ class PreNormDWConvFF(nn.Module):
         self.norm = LayerNorm(dim)
         self.lin1 = Linear(dim, 2 * hidden)
         self.conv2 = DepthwiseConv2d(hidden, kernel_size)
-        self.bn2 = nn.BatchNorm2d(hidden, eps=bn_eps)
+        self.bn2 = BatchNorm(hidden, eps=bn_eps)
         self.lin3 = Linear(hidden, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        require_eval(self)
         a, b = self.lin1(self.norm(x)).chunk(2, dim=-1)
         y = self.conv2((a * torch.sigmoid(b)).contiguous())
-        y = gelu(batch_norm_eval(y, self.bn2))
+        y = gelu(self.bn2(y))
         return self.lin3(y) + x

@@ -6,28 +6,46 @@ The file imports nothing of JAX, so that it runs where JAX is absent:
     python -m pytest tests/test_torch_port_gpu.py -m gpu --noconftest -q
 
 (``--noconftest``: the suite's conftest sets JAX up.) f32 comparisons run
-with TF32 off and hold at 1e-5; bf16 tolerances are stated in BF16_REL.
+with TF32 off and hold at 1e-5 (the backward ones relative to max(1, max
+|plain|): their sums reach ~50); bf16 tolerances are stated in BF16_REL.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import mde_tpu_torch.models.oda2.red_order_swin2 as flagship
 from mde_tpu_torch.models import build_model
 from mde_tpu_torch.ops import kernels
-from mde_tpu_torch.ops.kernels.depthwise import depthwise_conv2d, plain_depthwise_conv2d
+from mde_tpu_torch.ops.kernels.depthwise import (depthwise_conv2d, depthwise_dw, depthwise_dxdw,
+                                                 plain_depthwise_conv2d, plain_depthwise_dw,
+                                                 plain_depthwise_dxdw)
 from mde_tpu_torch.ops.kernels.ordered_attention import (ordered_attention,
-                                                         plain_ordered_attention)
+                                                         ordered_attention_bwd,
+                                                         plain_ordered_attention,
+                                                         plain_ordered_attention_bwd)
 from mde_tpu_torch.ops.kernels.window_attention import (plain_window_attention,
-                                                        window_attention)
+                                                        plain_window_attention_bwd,
+                                                        window_attention,
+                                                        window_attention_bwd)
 from mde_tpu_torch.ops.window import shifted_window_attn_mask
+from mde_tpu_torch.train.state import TrainState
+from mde_tpu_torch.train.step import make_train_step
 
 TOL = 1e-5
 # bf16, relative to max(1, max |plain|): the kernels keep the logits (K1, K2)
-# and the running sums (K3) in f32 where the plain versions round them to
-# bf16. K3's plain version rounds each of its 25 partial sums to bf16, half
+# and the running sums (K3) in f32 where the plain forwards round them to
+# bf16. K3's plain forward rounds each of its 25 partial sums to bf16, half
 # an ulp (2^-9 relative) each, so the two may differ by up to 25 * 2^-9 ~ 5%.
-BF16_REL = {"window_attention": 3e-2, "ordered_attention": 3e-2, "depthwise_conv2d": 5e-2}
+# The backward kernels and their plain versions both sum in f32 and round P,
+# dS and the outputs to bf16 at the same places; sums in another order move
+# a rounding by one ulp (2^-8), and a P or dS rounded the other way moves a
+# gradient by a few, hence 3e-2 for the attentions and 1e-2 for K3's dx
+# (dw is f32 from bf16 inputs: 1e-4).
+BF16_REL = {"window_attention": 3e-2, "ordered_attention": 3e-2, "depthwise_conv2d": 5e-2,
+            "window_attention_bwd": 3e-2, "ordered_attention_bwd": 3e-2,
+            "depthwise_conv2d_dxdw": 1e-2, "depthwise_conv2d_dw": 1e-4}
+NO_LAUNCHES = dict.fromkeys(kernels.KERNELS, 0)
 
 
 @pytest.fixture
@@ -43,44 +61,96 @@ def _randn(rng, *shape):
     return torch.from_numpy(rng.randn(*shape).astype(np.float32))
 
 
-def _check(name, fn, plain, args, dtype):
+def _as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _check(name, fn, plain, args, dtype, relative=False):
     before = kernels.launch_counts[name]
-    out = fn(*args)
+    outs = _as_tuple(fn(*args))
     torch.cuda.synchronize()
     assert kernels.launch_counts[name] == before + 1
-    ref = plain(*args)
-    err = (out.float() - ref.float()).abs().max().item()
-    scale = max(1.0, ref.float().abs().max().item())
-    assert out.dtype == dtype and torch.isfinite(out.float()).all()
-    assert err <= (TOL if dtype == torch.float32 else BF16_REL[name] * scale), (name, dtype, err)
-    return out
+    refs = _as_tuple(plain(*args))
+    assert len(outs) == len(refs)
+    for out, ref in zip(outs, refs):
+        if ref is None:
+            assert out is None
+            continue
+        err = (out.float() - ref.float()).abs().max().item()
+        scale = max(1.0, ref.float().abs().max().item())
+        tol = (TOL * (scale if relative else 1.0) if dtype == torch.float32
+               else BF16_REL[name] * scale)
+        assert torch.isfinite(out.float()).all()
+        assert err <= tol, (name, dtype, err, tol)
+    return outs
+
+
+def _window_args(cuda, dtype, r, shifted, seed=0):
+    rng = np.random.RandomState(seed)
+    n, nh, c = r * r, 4, 128
+    mask = shifted_window_attn_mask(2 * r, 4 * r, r, r // 2, cuda) if shifted else None
+    bw = 3 * 8  # 3 images of 8 windows
+    qkv = _randn(rng, bw, n, 3 * c).to(cuda, dtype)
+    return qkv, _randn(rng, nh, n, n).to(cuda), mask, nh, (c // nh) ** -0.5
+
+
+def _plain_window(qkv, bias, mask, nh, scale):
+    c = qkv.shape[-1] // 3
+    return plain_window_attention(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:], bias, mask,
+                                  nh, scale)
+
+
+def _plain_window_bwd(qkv, dout, bias, mask, nh, scale):
+    c = qkv.shape[-1] // 3
+    dq, dk, dv, dbias = plain_window_attention_bwd(qkv[..., :c], qkv[..., c:2 * c],
+                                                   qkv[..., 2 * c:], dout, bias, mask, nh,
+                                                   scale)
+    return torch.cat([dq, dk, dv], dim=-1), dbias
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("r,shifted", [(7, False), (7, True), (4, True)])
 def test_window_attention_kernel(cuda, dtype, r, shifted):
-    rng = np.random.RandomState(0)
-    n, nh, c = r * r, 4, 128
-    mask = shifted_window_attn_mask(2 * r, 4 * r, r, r // 2, cuda) if shifted else None
-    bw = 3 * 8  # 3 images of 8 windows
-    qkv = _randn(rng, bw, n, 3 * c).to(cuda, dtype)
-    args = (qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:],
-            _randn(rng, nh, n, n).to(cuda), mask, nh, (c // nh) ** -0.5)
-    _check("window_attention", window_attention, plain_window_attention, args, dtype)
+    _check("window_attention", window_attention, _plain_window,
+           _window_args(cuda, dtype, r, shifted), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r,shifted", [(7, False), (7, True), (4, True)])
+def test_window_attention_bwd_kernel(cuda, dtype, r, shifted):
+    qkv, bias, mask, nh, scale = _window_args(cuda, dtype, r, shifted, seed=6)
+    dout = _randn(np.random.RandomState(7), *qkv.shape[:2], qkv.shape[2] // 3).to(cuda, dtype)
+    _check("window_attention_bwd", window_attention_bwd, _plain_window_bwd,
+           (qkv, dout, bias, mask, nh, scale), dtype, relative=True)
+
+
+def _ordered_args(cuda, dtype, with_table, seed=1):
+    rng = np.random.RandomState(seed)
+    bw, n, nh, c, e = 10, 64, 8, 512, 128
+    q, k, v = (_randn(rng, bw, n, c).to(cuda, dtype) for _ in range(3))
+    idx = torch.from_numpy(rng.randint(0, e, (bw, n)).astype(np.int32)).to(cuda)
+    table = _randn(rng, 2 * e - 1, nh).to(cuda) if with_table else None
+    return q, k, v, idx, table, nh, (c // nh) ** -0.5, e
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_table", [True, False])
 def test_ordered_attention_kernel(cuda, dtype, with_table):
-    rng = np.random.RandomState(1)
-    bw, n, nh, c, e = 10, 64, 8, 512, 128
-    q, k, v = (_randn(rng, bw, n, c).to(cuda, dtype) for _ in range(3))
-    idx = torch.from_numpy(rng.randint(0, e, (bw, n)).astype(np.int32)).to(cuda)
-    table = _randn(rng, 2 * e - 1, nh).to(cuda) if with_table else None
-    args = (q, k, v, idx, table, nh, (c // nh) ** -0.5, e)
-    _check("ordered_attention", ordered_attention, plain_ordered_attention, args, dtype)
+    _check("ordered_attention", ordered_attention, plain_ordered_attention,
+           _ordered_args(cuda, dtype, with_table), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_table", [True, False])
+def test_ordered_attention_bwd_kernel(cuda, dtype, with_table):
+    q, k, v, idx, table, nh, scale, e = _ordered_args(cuda, dtype, with_table, seed=8)
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(9)).to(cuda, dtype)
+    _check("ordered_attention_bwd", ordered_attention_bwd, plain_ordered_attention_bwd,
+           (q, k, v, dout, idx, table, nh, scale, e), dtype, relative=True)
 
 
 @pytest.mark.gpu
@@ -90,26 +160,138 @@ def test_depthwise_kernel(cuda, dtype, shape):
     rng = np.random.RandomState(3)
     x = _randn(rng, *shape).to(cuda, dtype)
     w = _randn(rng, 5, 5, shape[-1]).to(cuda, dtype)
-    out = _check("depthwise_conv2d", depthwise_conv2d, plain_depthwise_conv2d, (x, w), dtype)
+    out, = _check("depthwise_conv2d", depthwise_conv2d, plain_depthwise_conv2d, (x, w), dtype)
     # the kernel sums in f32 and rounds once: within one bf16 ulp of the f32 sum
     ref = plain_depthwise_conv2d(x.float(), w.float())
     assert ((out.float() - ref).abs() <= ref.abs() * 2 ** -8 + 1e-6).all()
 
 
+# odd sides, sides smaller than the kernel (every tap clamps), one channel
+# vector or two, and 3x3, 5x5, 7x7
+DW_BWD_CASES = [((2, 7, 10, 12), 5), ((2, 12, 24, 64), 5), ((1, 5, 3, 2048), 5),
+                ((2, 1, 2, 6), 5), ((1, 9, 11, 33), 3), ((2, 8, 9, 16), 7)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,k", DW_BWD_CASES)
+def test_depthwise_bwd_kernels(cuda, dtype, shape, k):
+    rng = np.random.RandomState(10)
+    x, g = (_randn(rng, *shape).to(cuda, dtype) for _ in range(2))
+    w = (_randn(rng, k, k, shape[-1]) * 0.2).to(cuda, dtype)
+    _check("depthwise_conv2d_dxdw", depthwise_dxdw, plain_depthwise_dxdw, (x, g, w), dtype,
+           relative=True)
+    _check("depthwise_conv2d_dw", depthwise_dw,
+           lambda x, g, w: plain_depthwise_dw(x, g, k, k), (x, g, w), dtype, relative=True)
+
+
+def _grads_on_card_and_cpu(fn, inputs, grad_of, dout):
+    """Gradients of ``fn`` with respect to the inputs at ``grad_of``, on the
+    card (the kernels' Functions) and on copies on the CPU (the plain ones)."""
+    out = []
+    for dev in ("cuda", "cpu"):
+        args = [t.detach().to(dev).requires_grad_(i in grad_of) if torch.is_tensor(t) else t
+                for i, t in enumerate(inputs)]
+        y = fn(*args)
+        out.append(torch.autograd.grad(y, [args[i] for i in grad_of], dout.to(dev)))
+    return out
+
+
+@pytest.mark.gpu
+def test_gradients_flow_through_every_wrapper(cuda):
+    """Each kernel's Function gives the card the gradients that its plain
+    version gives the CPU, launching its backward kernel once."""
+    kernels.reset_launch_counts()
+    qkv, bias, mask, nh, scale = _window_args(cuda, torch.float32, 7, True, seed=11)
+    dout = torch.randn(qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3)
+    card, cpu = _grads_on_card_and_cpu(window_attention, (qkv, bias, mask, nh, scale),
+                                       (0, 1), dout)
+    q, k, v, idx, table, nh, scale, e = _ordered_args(cuda, torch.float32, True, seed=12)
+    card2, cpu2 = _grads_on_card_and_cpu(ordered_attention, (q, k, v, idx, table, nh, scale, e),
+                                         (0, 1, 2, 4), torch.randn(q.shape))
+    x = torch.randn(2, 9, 14, 64, device=cuda)
+    w = torch.randn(5, 5, 64, device=cuda) * 0.2
+    card3, cpu3 = _grads_on_card_and_cpu(depthwise_conv2d, (x, w), (0, 1), torch.randn(x.shape))
+    card4, cpu4 = _grads_on_card_and_cpu(depthwise_conv2d, (x, w), (1,), torch.randn(x.shape))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts == {
+        "window_attention": 1, "window_attention_bwd": 1, "ordered_attention": 1,
+        "ordered_attention_bwd": 1, "depthwise_conv2d": 2, "depthwise_conv2d_dxdw": 1,
+        "depthwise_conv2d_dw": 1}
+    for a, b in zip(card + card2 + card3 + card4, cpu + cpu2 + cpu3 + cpu4):
+        scale = max(1.0, b.abs().max().item())
+        assert (a.cpu() - b).abs().max().item() <= 1e-4 * scale
+
+
+TINY = dict(name="oda2_red_order_swin2", encoder_type="custom", dec_dim=32, num_heads=4,
+            num_repeats=2, num_emb=16, window_size=4, neck_type="red33")
+TINY_KW = dict(resize_to_multiple=False, encoder_kwargs=dict(
+    embed_dim=16, depths=(2, 1, 2, 1), num_heads=(1, 2, 4, 8), window_size=4))
+
+
 @pytest.mark.gpu
 def test_tiny_flagship_on_card_matches_cpu(cuda):
-    cfg = dict(name="oda2_red_order_swin2", encoder_type="custom", dec_dim=32, num_heads=4,
-               num_repeats=2, num_emb=16, window_size=4, neck_type="red33")
-    kw = dict(resize_to_multiple=False, encoder_kwargs=dict(
-        embed_dim=16, depths=(2, 1, 2, 1), num_heads=(1, 2, 4, 8), window_size=4))
-    cpu_model = build_model(cfg, 0.001, 80.0, device="cpu", seed=4, **kw)
-    gpu_model = build_model(cfg, 0.001, 80.0, device=cuda, seed=4, **kw)
+    cpu_model = build_model(TINY, 0.001, 80.0, device="cpu", seed=4, **TINY_KW)
+    gpu_model = build_model(TINY, 0.001, 80.0, device=cuda, seed=4, **TINY_KW)
     x = torch.from_numpy(np.random.RandomState(5).rand(2, 64, 96, 3).astype(np.float32))
     kernels.reset_launch_counts()
     with torch.no_grad():
         out, outs = gpu_model(x.to(cuda))
         ref, _ = cpu_model(x)
     torch.cuda.synchronize()
-    assert kernels.launch_counts == {"window_attention": 6, "ordered_attention": 4,
-                                     "depthwise_conv2d": 4}
+    assert kernels.launch_counts == dict(NO_LAUNCHES, window_attention=6, ordered_attention=4,
+                                         depthwise_conv2d=4)
     assert (out.cpu() - ref).abs().max().item() <= 1e-3
+
+
+@pytest.mark.gpu
+def test_tiny_train_step_on_card_matches_cpu(cuda, monkeypatch):
+    """One f32 train step on the card against the same step on the CPU,
+    the CPU fed the card's depth-index maps (a bucket the two round apart
+    would change the bias table's gradient). Loss and logs within 1e-4 of
+    their size, gradients within 1e-3 of each tensor's max |g| (or of 1% of
+    the largest one), BatchNorm statistics within 1e-4, and the new
+    parameters within lr0 (Adam's first update is about lr0 * sign(g), so
+    a gradient near 0 may move either way)."""
+    opt = {"model": TINY, "loss": {"alpha": 10.0, "beta": 0.15, "per_image": True},
+           "optimizer": {"lr": 1e-4, "weight_decay": 0.1, "eps": 1e-6},
+           "scheduler": {"name": "onecycle"}, "train": {"grad_norm": 0.1}}
+    rng = np.random.RandomState(6)
+    batch = {"image": rng.rand(2, 64, 96, 3).astype(np.float32),
+             "depth": rng.uniform(0.5, 60.0, (2, 64, 96, 1)).astype(np.float32)}
+    seen, real = [], flagship._quantize_logit
+    results = []
+    for dev in (cuda, torch.device("cpu")):
+        model = build_model(TINY, 0.001, 80.0, device=dev, seed=7, path_drop_prob=0.0,
+                            **TINY_KW)
+        state = TrainState.create(model, opt, 100)
+        grads = {}
+        update = state.optimizer.update
+        state.optimizer.update = lambda g, update=update: (grads.update(
+            {n: t.detach().cpu().clone() for n, t in g.items()}), update(g))
+        if dev.type == "cuda":
+            quantize = lambda logit, e: seen.append(real(logit, e)) or seen[-1]  # noqa: E731
+        else:
+            replay = iter(seen)
+            quantize = lambda logit, e: next(replay).cpu()  # noqa: E731
+        monkeypatch.setattr(flagship, "_quantize_logit", quantize)
+        kernels.reset_launch_counts()
+        _, logs = make_train_step(opt, 0.001, 80.0)(state, batch)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert kernels.launch_counts == {
+                "window_attention": 6, "window_attention_bwd": 6, "ordered_attention": 4,
+                "ordered_attention_bwd": 4, "depthwise_conv2d": 4,
+                "depthwise_conv2d_dxdw": 4, "depthwise_conv2d_dw": 0}
+        results.append(({k: float(v) for k, v in logs.items()}, grads,
+                        {k: v.detach().cpu() for k, v in model.state_dict().items()}))
+    (logs, grads, weights), (ref_logs, ref_grads, ref_weights) = results
+    for key in ("loss", "grad_norm", "param_norm"):
+        assert abs(logs[key] - ref_logs[key]) <= 1e-4 * max(1.0, abs(ref_logs[key])), key
+    floor = 1e-2 * max(g.abs().max().item() for g in ref_grads.values())
+    for name, g in ref_grads.items():
+        assert (grads[name] - g).abs().max().item() <= 1e-3 * max(g.abs().max().item(), floor)
+    for name, value in ref_weights.items():
+        tol = 1e-4 * max(1.0, value.abs().max().item()) if "running" in name else 1e-4 / 25
+        if value.is_floating_point():
+            assert (weights[name] - value).abs().max().item() <= tol, name

@@ -1,10 +1,11 @@
-"""The port's three kernels (mde_tpu_torch/ops/kernels) against the JAX ones.
+"""The port's three forward kernels (mde_tpu_torch/ops/kernels) against the JAX ones.
 
 On the CPU each wrapper runs its plain PyTorch version; it is held against
 the JAX package's ``xla_*`` function and against the Pallas kernel run in
 interpret mode, on the same seeded numpy inputs, at max-abs 1e-5 in f32.
 The CUDA kernels are held against their plain versions on the card in
-``test_torch_port_gpu.py``.
+``test_torch_port_gpu.py``; the gradients are tested in
+``test_torch_port_backward.py``.
 """
 
 import jax.numpy as jnp
@@ -58,7 +59,8 @@ def _j(a):
                          [(False, False), (True, False), (False, True), (True, True)])
 def test_window_attention_plain_matches_jax(n, with_bias, with_mask):
     q, k, v, bias, mask, nh, scale = _window_inputs(n, with_bias, with_mask)
-    ours = window_attention(_t(q), _t(k), _t(v), _t(bias), _t(mask), nh, scale)
+    ours = window_attention(_t(np.concatenate([q, k, v], axis=-1)), _t(bias), _t(mask), nh,
+                            scale)
     args = (_j(q), _j(k), _j(v), _j(bias), _j(mask), nh, scale)
     assert _max_abs(ours, xla_window_attention(*args)) <= TOL
     assert _max_abs(ours, fused_window_attention(*args, impl="pallas_interpret")) <= TOL
@@ -97,9 +99,10 @@ def test_depthwise_plain_matches_jax(shape, k):
 def test_cpu_tensors_take_the_plain_version_without_counting():
     kernels.reset_launch_counts()
     q, k, v, bias, mask, nh, scale = _window_inputs(16, True, True)
-    out = window_attention(_t(q), _t(k), _t(v), _t(bias), _t(mask), nh, scale)
+    qkv = _t(np.concatenate([q, k, v], axis=-1))
+    out = window_attention(qkv, _t(bias), _t(mask), nh, scale)
     ref = plain_window_attention(_t(q), _t(k), _t(v), _t(bias), _t(mask), nh, scale)
     assert torch.equal(out, ref)
     assert kernels.launch_counts == dict.fromkeys(kernels.KERNELS, 0)
     with pytest.raises(ValueError, match="device"):
-        window_attention(*(t.to("meta") for t in (_t(q), _t(k), _t(v))), None, None, nh, scale)
+        window_attention(qkv.to("meta"), None, None, nh, scale)

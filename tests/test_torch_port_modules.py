@@ -35,6 +35,9 @@ from mde_tpu_torch.ops.mlp import PreNormDWConvFF
 from mde_tpu_torch.ops.ordered_attention import PreNormOrderedSwinSA
 
 TOL = 1e-4
+# BatchNorm running statistics, relative to max(1, max |JAX's|): they are
+# f32 means of E[x^2] - E[x]^2 over the batch, summed in another order
+STATS_TOL = 1e-6
 
 
 def _max_abs(a, b) -> float:
@@ -45,7 +48,8 @@ def _max_abs(a, b) -> float:
 
 def _randomize(module: torch.nn.Module, seed: int) -> dict:
     """Fill every float tensor of ``module`` from a seed (BN variances
-    positive) and return its state dict as numpy arrays, prefixed 'm.'."""
+    positive) and return a copy of its state dict as numpy arrays, prefixed
+    'm.' (a copy: a BatchNorm in training updates its statistics in place)."""
     rng = np.random.RandomState(seed)
     with torch.no_grad():
         for name, t in module.state_dict().items():
@@ -58,7 +62,12 @@ def _randomize(module: torch.nn.Module, seed: int) -> dict:
             else:
                 vals = rng.randn(*t.shape) * 0.2
             t.copy_(torch.from_numpy(vals.astype(np.float32)))
-    return {f"m.{k}": v.numpy() for k, v in module.state_dict().items()}
+    return {f"m.{k}": v.numpy().copy() for k, v in module.state_dict().items()}
+
+
+def _stats_close(ours, ref) -> bool:
+    scale = max(1.0, float(np.max(np.abs(np.asarray(ref)))))
+    return _max_abs(ours, ref) <= STATS_TOL * scale
 
 
 def _input(seed, *shape):
@@ -133,9 +142,62 @@ def test_convbn(k):
     assert _max_abs(ours, ref) <= TOL
 
 
+def _convbn_train(k, seed):
+    """ConvBN in training mode against JAX's with train=True: the output
+    and the new running statistics."""
+    mod = ConvBN(12, 20, k).train()
+    sd = _randomize(mod, seed)
+    params, stats = _convbn(KeyAccountant(sd), "m")
+    x = _input(seed + 1, 2, 7, 9, 12) * 2 + 0.5
+    ours = mod(torch.from_numpy(x))
+    ref, upd = JaxConvBN(20, k).apply({"params": params, "batch_stats": stats},
+                                      jnp.asarray(x), train=True, mutable=["batch_stats"])
+    assert _max_abs(ours, ref) <= TOL
+    new = upd["batch_stats"]["norm"]
+    assert _stats_close(mod.bn.running_mean, new["mean"])
+    assert _stats_close(mod.bn.running_var, new["var"])
+
+
 def test_training_mode_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ConvBN(4, 4).train()(torch.zeros(1, 3, 3, 4))
+    """Training mode, which the first slice left out, is ported now: ConvBN
+    normalises with batch statistics and updates its running ones as flax
+    does (biased variance, momentum 0.9 in flax's convention)."""
+    _convbn_train(3, seed=20)
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_convbn_train_matches_jax(k):
+    _convbn_train(k, seed=21)
+
+
+def test_dwconv_ff_train_matches_jax():
+    c = 16
+    mod = PreNormDWConvFF(c).train()
+    sd = _randomize(mod, 22)
+    params, stats = _dwconv_ff(KeyAccountant(sd), "m")
+    x = _input(23, 2, 6, 10, c)
+    ours = mod(torch.from_numpy(x))
+    ref, upd = JaxFF().apply({"params": params, "batch_stats": stats}, jnp.asarray(x),
+                             train=True, mutable=["batch_stats"])
+    assert _max_abs(ours, ref) <= TOL
+    assert _stats_close(mod.bn2.running_mean, upd["batch_stats"]["bn2"]["mean"])
+    assert _stats_close(mod.bn2.running_var, upd["batch_stats"]["bn2"]["var"])
+
+
+def test_bn_freeze_scope():
+    """In training mode inside the freeze scope a BatchNorm normalises with
+    its running statistics and leaves them alone; outside it, not."""
+    mod = ConvBN(6, 8, 3)
+    _randomize(mod, 24)
+    x = torch.from_numpy(_input(25, 2, 5, 5, 6))
+    ref = mod.eval()(x)
+    before = mod.bn.running_var.clone()
+    mod.train()
+    with tnn.bn_freeze_scope(mod, lambda path: path[0] == "bn"):
+        assert torch.equal(mod(x), ref)
+    with tnn.bn_freeze_scope(mod, tnn.encoder_only):  # no encoder here: not frozen
+        assert not torch.equal(mod(x), ref)
+    assert not mod.bn.frozen and not torch.equal(mod.bn.running_var, before)
 
 
 def test_window_helpers():
@@ -179,9 +241,10 @@ def test_resize_and_gelu():
 
 def test_port_imports_no_jax():
     code = ("import sys, mde_tpu_torch, mde_tpu_torch.models, mde_tpu_torch.serve, "
-            "mde_tpu_torch.convert\n"
+            "mde_tpu_torch.convert, mde_tpu_torch.train.step, mde_tpu_torch.train.optim, "
+            "mde_tpu_torch.train.loss, mde_tpu_torch.core.metrics\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
-            "'mde_tpu')]\n"
+            "'optax', 'mde_tpu')]\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120)
