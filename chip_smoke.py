@@ -5,28 +5,41 @@
 1. Prints the card (``nvidia-smi`` name and power limit), builds the port's
    CUDA kernels from ``mde_tpu_torch/ops/kernels/csrc`` with ``nvcc`` for
    sm_90a and prints each kernel's registers and shared memory.
-2. Kernel phases: each of the seven kernels against its plain PyTorch
-   version on the card at the flagship's main-path shapes, in bf16 and in
-   f32 with TF32 off; its time (CUDA events), the plain version's, one
-   PyTorch call's as a yardstick, and the least time the card could take
-   (bytes over 3.35 TB/s, operations over the 989 TFLOP/s bf16 peak). The
-   forwards at the serving shapes (batch 8, 448x896), the backwards at the
-   train step's (batch 4).
-3. Serving at full width: the flagship ``oda2_red_order_swin2`` (Swin-B,
-   red33 neck, ordered head) with seeded random weights. In f32 at batch 1
-   the card's forward is held against the same model on the CPU (plain
-   versions, fed the card's index maps so that a flipped depth bucket cannot
-   hide a fault; flips are counted). In bf16 at batch 8 ``Predictor.predict``
-   runs once on 352x704 images with every launch count at 0 before and
-   exactly 24 K1, 6 K2 and 6 K3 forward launches (and no backward) after;
-   then it is timed and profiled.
-4. Training at full width: one f32 train step at batch 1, card against CPU
-   (fed the card's index maps), comparing the loss, the gradient norm,
-   every gradient, the BatchNorm statistics and the parameters after AdamW.
-   Then the bf16 train step at batch 4 on 352x704 images (``make_train_step``,
-   AdamW + OneCycle + clip 0.1, stochastic depth 0.2): its launch counts,
-   finite logs and moved parameters, 5 timed steps after 2 warm-up, peak
-   memory, one profiled step, and one run with ``use_checkpoint``.
+2. Kernel phases: each of the ten kernels against its plain PyTorch version
+   on the card at its main path's shapes, in bf16 and in f32 with TF32 off;
+   its time (CUDA events), the plain version's, one PyTorch call's as a
+   yardstick where one computes the same function (for K4 none does: the
+   port's unfused chain is timed beside it), and the least time the card
+   could take (bytes over 3.35 TB/s, operations over the 989 TFLOP/s bf16
+   peak). The forwards at the serving shapes (batch 8), the backwards at
+   the train step's (batch 4).
+3. Flagship serving at full width: ``oda2_red_order_swin2`` (Swin-B, red33
+   neck, ordered head) with seeded random weights. In f32 at batch 1, with
+   seeded statistics in the FFs' BatchNorms so that K4's folded affine is
+   not the identity, the card's forward is held against the same forward
+   with its six FFs fused (K4) and against the same model on the CPU
+   (plain versions); both are
+   fed the card's index maps so that a flipped depth bucket cannot hide a
+   fault (flips are counted). In bf16 at batch 8 ``Predictor.predict`` runs
+   on 352x704 images with every launch count at 0 before and exactly 24
+   K1, 6 K2 and 6 K3 forward launches after; then with the six FFs fused
+   (24 K1, 6 K2, 6 K4, no K3); each is timed and profiled.
+4. Flagship training at full width: one f32 train step at batch 1, card
+   against CPU (fed the card's index maps), comparing the loss, the
+   gradient norm, every gradient, the BatchNorm statistics and the
+   parameters after AdamW. Then the bf16 train step at batch 4 on 352x704
+   images (``make_train_step``, AdamW + OneCycle + clip 0.1, stochastic
+   depth 0.2): its launch counts, finite logs and moved parameters, 5 timed
+   steps after 2 warm-up, peak memory, one profiled step, and one run with
+   ``use_checkpoint``.
+5. ``oda2_ksa_reg`` at full width (Swin-L, KSA decoder at dec_dim 512, the
+   build's defaults, ``use_checkpoint`` on): the f32 batch-1 forward card
+   against CPU; bf16 serving at batch 8 (32 K1 and 6 K5 launches), timed
+   and profiled; the f32 train step card against CPU at 224x448, at batch 2
+   with ``freeze_bn`` and at batch 4 with batch statistics (see
+   ``ksa_train_f32_check``); the bf16 train step at batch 4 on 352x704
+   (56 K1 forward and 32 backward, 6 K5 forward and 6 backward), timed and
+   profiled.
 
 Any failure exits non-zero before the result lines. The last three lines
 are the card, the ``kernels`` JSON line and the ``ok`` JSON line.
@@ -34,6 +47,7 @@ are the card, the ``kernels`` JSON line and the ``ok`` JSON line.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -51,7 +65,8 @@ F32_TOL = 1e-5
 # bf16 tolerance relative to max(1, max |plain|); see tests/test_torch_port_gpu.py
 BF16_REL = {"window_attention": 3e-2, "ordered_attention": 3e-2, "depthwise_conv2d": 5e-2,
             "window_attention_bwd": 3e-2, "ordered_attention_bwd": 3e-2,
-            "depthwise_conv2d_dxdw": 1e-2, "depthwise_conv2d_dw": 1e-4}
+            "depthwise_conv2d_dxdw": 1e-2, "depthwise_conv2d_dw": 1e-4, "glu_ff": 5e-2,
+            "channel_attention": 3e-2, "channel_attention_bwd": 3e-2}
 # f32 card vs CPU forward, depth in metres (maps scaled by max_depth 80)
 MODEL_F32_TOL = 1e-2
 # f32 train step, card vs CPU: the loss and norms within 1e-4 of their size;
@@ -79,6 +94,11 @@ SOURCES = {
                               "mde_tpu/ops/pallas/depthwise.py:322"),
     "depthwise_conv2d_dw": ("mde_tpu_torch/ops/kernels/csrc/depthwise_dw.cu",
                             "mde_tpu/ops/pallas/depthwise.py:189"),
+    "glu_ff": ("mde_tpu_torch/ops/kernels/csrc/glu_ff.cu", "mde_tpu/ops/pallas/glu_ff.py:150"),
+    "channel_attention": ("mde_tpu_torch/ops/kernels/csrc/channel_attention.cu",
+                          "mde_tpu/ops/pallas/channel_attention.py:70"),
+    "channel_attention_bwd": ("mde_tpu_torch/ops/kernels/csrc/channel_attention_bwd.cu",
+                              "mde_tpu/ops/pallas/channel_attention.py:137"),
 }
 FLAGSHIP = {"name": "oda2_red_order_swin2", "encoder_type": "base", "dec_dim": 512,
             "num_heads": 8, "num_repeats": 3, "num_emb": 128, "window_size": 8,
@@ -100,10 +120,33 @@ TRAIN_LAUNCHES = {"window_attention": 24, "window_attention_bwd": 24,
 # with use_checkpoint every checkpointed block runs its forward twice
 CHECKPOINT_LAUNCHES = dict(TRAIN_LAUNCHES, window_attention=48, ordered_attention=12,
                            depthwise_conv2d=12)
+# one serving forward with the six FFs fused: K4 takes K3's place
+FUSED_SERVE_LAUNCHES = {"window_attention": 24, "ordered_attention": 6, "glu_ff": 6}
+# oda2_ksa_reg as the JAX build makes it from dec_dim alone (ksa.py:326-341):
+# Swin-L, decoder depths (2, 2, 2, 2), heads (4, 8, 16, 32), window 7,
+# use_checkpoint on the encoder
+KSA = {"name": "oda2_ksa_reg", "dec_dim": 512}
+KSA_TRAIN_OPT = dict(TRAIN_OPT, model=KSA)
+# launches derived from the code: 24 Swin-L blocks and 2 decoder Swin blocks
+# (K1), and in each of the 6 KSA blocks one kernel-window attention (K5) and
+# one W-MSA (K1). In the train step use_checkpoint runs the 24 encoder
+# blocks' forwards twice; the decoder is not recomputed.
+KSA_SERVE_LAUNCHES = {"window_attention": 32, "channel_attention": 6}
+KSA_TRAIN_LAUNCHES = {"window_attention": 56, "window_attention_bwd": 32,
+                      "channel_attention": 6, "channel_attention_bwd": 6}
 
 
 def log(*args):
     print(*args, flush=True)
+
+
+def free_garbage() -> None:
+    """Collect the reference cycles an earlier phase left behind, so that
+    the next peak memory counts only what its own run holds: a finished
+    train step's frames stay in cycles until a collection, and with them
+    the model and optimizer state they reference."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -331,10 +374,129 @@ def depthwise_bwd_phase(dev, dxdw: bool):
                         cost, relative=True)
 
 
-def kernel_phase(kernel, name, fn, plain, make, library, cost, relative=False) -> dict:
+def glu_phase(dev):
+    """K4 at the flagship's serving FF shape; no single PyTorch call computes
+    it, so the port's unfused chain (gate, K3, BatchNorm, GELU) on the same
+    input is timed beside it."""
+    from mde_tpu_torch.ops.kernels.depthwise import depthwise_conv2d
+    from mde_tpu_torch.ops.kernels.glu_ff import glu_ff, plain_glu_ff
+    from mde_tpu_torch.ops.tnn import BatchNorm, gelu
+    g = torch.Generator(device=dev).manual_seed(7)
+    shape = (BATCH, 112, 224, 2048)
+
+    def make(dtype):
+        ab = torch.randn(*shape[:3], 2 * shape[-1], generator=g, device=dev).to(dtype)
+        w = (torch.randn(5, 5, shape[-1], generator=g, device=dev) * 0.2).to(dtype)
+        s = 1 + 0.1 * torch.randn(shape[-1], generator=g, device=dev)
+        return ab, w, s, 0.1 * torch.randn(shape[-1], generator=g, device=dev)
+
+    def unfused(args):
+        ab, w = args[:2]
+        bn = BatchNorm(shape[-1]).to(dev).eval()
+        a, b = ab.chunk(2, dim=-1)
+        return lambda: gelu(bn(depthwise_conv2d((a * torch.sigmoid(b)).contiguous(), w)))
+
+    def cost(args, outs):
+        # the taps' multiply-adds, and ~14 operations per output for the
+        # gate, the affine and the erf GELU
+        return nbytes(*args, *outs), (2 * 25 + 14) * outs[0].numel()
+
+    return kernel_phase("glu_ff", f"K4 {shape[:3] + (2 * shape[-1],)} -> {shape[-1]} 5x5",
+                        glu_ff, plain_glu_ff, make, None, cost,
+                        extra={"unfused_chain_ms": unfused})
+
+
+def channel_sdpa(q, k, v, heads, grad=None):
+    """One ``F.scaled_dot_product_attention`` call computing K5 (or, given
+    the output gradient ``grad``, its backward) on transposed tensors:
+    channels as the sequence, the N tokens as the head dim. Returns (the
+    timed callable, the name of the SDPA backend that took head dim N)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    bw, n, c = q.shape
+    ec = k.shape[-1]
+
+    def t(x, ch):
+        return x.reshape(bw, n, heads, ch // heads).permute(0, 2, 3, 1).contiguous()
+
+    qt, kt, vt = t(q, c), t(k, ec), t(v, ec)
+    if grad is not None:
+        qt, kt, vt = (x.detach().requires_grad_() for x in (qt, kt, vt))
+    scale = (1.0 / n) ** 0.5
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:  # the yardstick takes the first backend that accepts these shapes
+            with sdpa_kernel(backend):
+                out = F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+                if grad is not None:
+                    gt = t(grad, c)
+                    torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True)
+        except RuntimeError:
+            continue
+        if grad is None:
+            def call(backend=backend):
+                with sdpa_kernel(backend):
+                    return F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+        else:
+            def call(backend=backend, out=out, gt=gt):
+                with sdpa_kernel(backend):
+                    return torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True)
+        return call, backend.name
+    raise RuntimeError("no SDPA backend took the channel-attention yardstick")
+
+
+def channel_phase(dev, backward: bool):
+    """K5 forward at the KSA decoder's stage-0 serving shape (batch 8), or
+    its backward at the train step's (batch 4): 49 tokens, 64 channels on
+    both sides, 4 heads of 16."""
+    from mde_tpu_torch.ops.kernels.channel_attention import (channel_attention,
+                                                             channel_attention_bwd,
+                                                             plain_channel_attention,
+                                                             plain_channel_attention_bwd)
+    g = torch.Generator(device=dev).manual_seed(8 + backward)
+    bw = 512 * (TRAIN_BATCH if backward else BATCH)
+    n, c, heads = 49, 64, 4
+    scale = (1.0 / n) ** 0.5
+    names = {}
+
+    def make(dtype):
+        q = torch.randn(bw, n, c, generator=g, device=dev).to(dtype)
+        kv = torch.randn(bw, n, 2 * c, generator=g, device=dev).to(dtype)
+        if backward:
+            return q, kv, torch.randn(bw, n, c, generator=g, device=dev).to(dtype), heads, scale
+        return q, kv, heads, scale
+
+    def plain(q, kv, *rest):
+        k, v = kv[..., :c], kv[..., c:]
+        if not backward:
+            return plain_channel_attention(q, k, v, *rest)
+        dq, dk, dv = plain_channel_attention_bwd(q, k, v, *rest)
+        return dq, torch.cat([dk, dv], dim=-1)
+
+    def library(args):
+        q, kv = args[:2]
+        call, names["library"] = channel_sdpa(q, kv[..., :c], kv[..., c:], heads,
+                                              args[2] if backward else None)
+        return call
+
+    def cost(args, outs):
+        products = 5 if backward else 2  # S, P.v; and dP, dv, dq, dk
+        return nbytes(*args[:3 if backward else 2], *outs), 2 * products * bw * n * c * c // heads
+
+    kernel = "channel_attention_bwd" if backward else "channel_attention"
+    result = kernel_phase(kernel, f"K5{' bwd' if backward else ''} ({bw},{n},{c})/{heads}",
+                          channel_attention_bwd if backward else channel_attention, plain,
+                          make, library, cost, relative=backward)
+    result["library"] = f"SDPA ({names['library']}) on the transposed tensors"
+    log(f"  K5{' bwd' if backward else ''} yardstick: {result['library']}")
+    return result
+
+
+def kernel_phase(kernel, name, fn, plain, make, library, cost, relative=False,
+                 extra=None) -> dict:
     """Check ``fn`` against ``plain`` in f32 and bf16 (each output: within
     F32_TOL, relative to max(1, max |plain|) when ``relative``, or BF16_REL
-    of that); time both and the library yardstick in bf16."""
+    of that); time both, the library yardstick (None where there is none)
+    and each of ``extra``'s callables in bf16."""
     from mde_tpu_torch.ops import kernels
     result = {"phase": name, "kernel": kernel}
     for dtype in (torch.float32, torch.bfloat16):
@@ -361,12 +523,16 @@ def kernel_phase(kernel, name, fn, plain, make, library, cost, relative=False) -
         del refs
     result["ms"] = time_ms(lambda: fn(*args))
     result["plain_ms"] = time_ms(lambda: plain(*args), iters=3, warmup=1)
-    result["library_ms"] = time_ms(library(args))
+    result["library_ms"] = None if library is None else time_ms(library(args))
+    for key, make_call in (extra or {}).items():
+        result[key] = time_ms(make_call(args))
     b, ops = cost(args, outs)
     result["bound_ms"], result["bound_by"] = bound(b, ops)
     result["bytes"], result["flops"] = b, ops
+    others = "".join(f", {key} {result[key]:.4f}" for key in extra or {})
+    lib = "none" if library is None else f"{result['library_ms']:.4f} ms"
     log(f"{name} bf16: kernel {result['ms']:.4f} ms, plain {result['plain_ms']:.4f} ms, "
-        f"library {result['library_ms']:.4f} ms, bound {result['bound_ms']:.4f} ms "
+        f"library {lib}{others}, bound {result['bound_ms']:.4f} ms "
         f"({result['bound_by']}: {b / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP)")
     torch.cuda.empty_cache()
     return result
@@ -374,8 +540,9 @@ def kernel_phase(kernel, name, fn, plain, make, library, cost, relative=False) -
 
 class IndexReplay:
     """Record the depth-index maps the flagship's head quantises on the
-    card, and hand the same maps to a later run on the CPU, counting where
-    the CPU's own maps differ (a bucket rounded the other way)."""
+    card, and hand the same maps to a later run (on the CPU, or on the card
+    along another path), counting where that run's own maps differ (a
+    bucket rounded the other way)."""
 
     def __init__(self):
         import mde_tpu_torch.models.oda2.red_order_swin2 as flagship
@@ -392,7 +559,7 @@ class IndexReplay:
         maps = iter(list(self.card))
 
         def quantize(logit, num_emb):
-            own, card = self.real(logit, num_emb), next(maps).cpu()
+            own, card = self.real(logit, num_emb), next(maps).to(logit.device)
             self.flips.append(int((own != card).sum()))
             return card
         self.module._quantize_logit = quantize
@@ -401,20 +568,71 @@ class IndexReplay:
         self.module._quantize_logit = self.real
 
 
+def fuse_ffs(model) -> int:
+    """Set every DWConv-GLU FF of ``model`` to the fused path (K4); return
+    how many."""
+    from mde_tpu_torch.ops.mlp import PreNormDWConvFF
+    ffs = [m for m in model.modules() if isinstance(m, PreNormDWConvFF)]
+    for m in ffs:
+        m.ff_impl = "fused"
+    return len(ffs)
+
+
+def perturb_ff_bns(model, seed: int) -> None:
+    """Seeded running statistics, scale and shift for the BatchNorm of every
+    DWConv-GLU FF of ``model``. A fresh model's are 0, 1, 1, 0, where the
+    fused path's fold (s = weight / sqrt(var + eps), t = bias - mean * s)
+    is the same arithmetic as the unfused BatchNorm's whatever its faults."""
+    from mde_tpu_torch.ops.mlp import PreNormDWConvFF
+    rng = np.random.RandomState(seed)
+    for m in model.modules():
+        if isinstance(m, PreNormDWConvFF):
+            c = m.bn2.num_features
+            values = {"running_mean": 0.2 * rng.randn(c), "running_var": rng.uniform(0.5, 2.0, c),
+                      "weight": rng.uniform(0.5, 1.5, c), "bias": 0.2 * rng.randn(c)}
+            with torch.no_grad():
+                for name, value in values.items():
+                    getattr(m.bn2, name).copy_(torch.from_numpy(value.astype(np.float32)))
+
+
 def model_f32_check(dev) -> None:
-    """Full-width f32 forward at batch 1: the card against the CPU."""
+    """Full-width f32 forward at batch 1, the FFs' BatchNorms given seeded
+    statistics: the card's default forward against the card's forward with
+    the six FFs fused (K4), and against the CPU."""
     from mde_tpu_torch.models import build_model
+    from mde_tpu_torch.ops import kernels
     x = torch.from_numpy(np.random.RandomState(0).rand(1, 352, 704, 3).astype(np.float32))
     replay = IndexReplay()
     try:
         replay.record()
         model = build_model(FLAGSHIP, 0.001, 80.0, device=dev, seed=0)
+        perturb_ff_bns(model, 7)
         with torch.no_grad():
             out, outs = model(x.to(dev))
         torch.cuda.synchronize()
         gpu_outs = [o.cpu() for o in outs]
-        del model, out, outs
+        if fuse_ffs(model) != 6:
+            raise RuntimeError("the flagship should hold six DWConv-GLU FFs")
+        replay.replay()
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            _, fused_outs = model(x.to(dev))
+        torch.cuda.synchronize()
+        fused = dict(dict.fromkeys(kernels.KERNELS, 0), **FUSED_SERVE_LAUNCHES)
+        if kernels.launch_counts != fused:
+            raise RuntimeError(f"fused forward: expected {fused} launches, got "
+                               f"{kernels.launch_counts}")
+        fused_errs = [(a.cpu() - b).abs().max().item() for a, b in zip(fused_outs, gpu_outs)]
+        log(f"flagship f32 batch 1 on the card, seeded FF BatchNorms, fused FFs (K4) vs "
+            f"default: max_abs_err per map {fused_errs} m (tolerance {MODEL_F32_TOL}); index "
+            f"flips per repeat {replay.flips} (the fused run was fed the default run's "
+            f"indices)")
+        if len(fused_errs) != FLAGSHIP["num_repeats"] + 1 or max(fused_errs) > MODEL_F32_TOL:
+            raise RuntimeError("flagship f32 forward with fused FFs disagrees with the default")
+        del model, out, outs, fused_outs
         cpu_model = build_model(FLAGSHIP, 0.001, 80.0, device="cpu", seed=0)
+        perturb_ff_bns(cpu_model, 7)
+        replay.flips = []
         replay.replay()
         t0 = time.perf_counter()
         with torch.no_grad():
@@ -430,29 +648,26 @@ def model_f32_check(dev) -> None:
         raise RuntimeError("flagship f32 forward on the card disagrees with the CPU")
 
 
-def model_bf16_run(dev) -> dict:
-    """Full-width bf16 serving at batch 8: one counted call, then timing."""
-    from mde_tpu_torch.models import build_model
+def serve_run(tag, predictor, images, expect) -> tuple:
+    """One counted ``predict`` (every launch count from 0, then exactly
+    ``expect``, every other kernel 0), its peak memory, 5 timed calls and a
+    profile. Returns (img/s, the counted launches)."""
     from mde_tpu_torch.ops import kernels
-    from mde_tpu_torch.serve import Predictor
-    model = build_model(FLAGSHIP, 0.001, 80.0, device=dev, seed=0, dtype=torch.bfloat16)
-    predictor = Predictor(model)
-    images = torch.from_numpy(
-        np.random.RandomState(1).rand(BATCH, 352, 704, 3).astype(np.float32)).to(dev)
     predictor.predict(images)  # warm-up
     torch.cuda.synchronize()
+    free_garbage()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     pred = predictor.predict(images)
     torch.cuda.synchronize()
     counts = dict(kernels.launch_counts)
-    log(f"flagship bf16 batch {BATCH} serving launches: {counts}")
-    expect = dict.fromkeys(kernels.KERNELS, 0)
-    expect.update(window_attention=24, ordered_attention=6, depthwise_conv2d=6)
+    log(f"{tag} serving launches: {counts}")
+    expect = dict(dict.fromkeys(kernels.KERNELS, 0), **expect)
     if counts != expect:
-        raise RuntimeError(f"expected {expect} kernel launches per forward, got {counts}")
-    if pred.shape != (BATCH, 352, 704, 1) or not torch.isfinite(pred).all() or pred.min() < 0:
-        raise RuntimeError(f"bad prediction: {tuple(pred.shape)}")
+        raise RuntimeError(f"{tag}: expected {expect} kernel launches per forward, got {counts}")
+    b, h, w = images.shape[:3]
+    if pred.shape != (b, h, w, 1) or not torch.isfinite(pred).all() or pred.min() < 0:
+        raise RuntimeError(f"{tag}: bad prediction {tuple(pred.shape)}")
     peak = torch.cuda.max_memory_allocated()
     times = []
     for _ in range(5):
@@ -460,28 +675,49 @@ def model_bf16_run(dev) -> dict:
         predictor.predict(images)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    log(f"flagship bf16 batch {BATCH} at 352x704 (resized to 448x896): "
-        f"{BATCH / float(np.median(times)):.2f} img/s (median of {len(times)} calls, "
+    rate = b / float(np.median(times))
+    log(f"{tag} at {h}x{w}: {rate:.2f} img/s (median of {len(times)} calls, "
         f"{[round(t * 1e3, 2) for t in times]} ms), peak memory {peak / 2 ** 30:.2f} GiB, "
         f"depth range [{pred.min().item():.3f}, {pred.max().item():.3f}] m")
     profile_call(lambda: predictor.predict(images))
+    return rate, counts
+
+
+def model_bf16_run(dev) -> dict:
+    """Full-width bf16 serving at batch 8: the default FFs, then the six FFs
+    fused (K4), each counted, timed and profiled. Returns the fused run's
+    launch counts."""
+    from mde_tpu_torch.models import build_model
+    from mde_tpu_torch.serve import Predictor
+    model = build_model(FLAGSHIP, 0.001, 80.0, device=dev, seed=0, dtype=torch.bfloat16)
+    predictor = Predictor(model)
+    images = torch.from_numpy(
+        np.random.RandomState(1).rand(BATCH, 352, 704, 3).astype(np.float32)).to(dev)
+    default, _ = serve_run(f"flagship bf16 batch {BATCH} (resized to 448x896)", predictor,
+                           images, dict(window_attention=24, ordered_attention=6,
+                                        depthwise_conv2d=6))
+    fuse_ffs(model)
+    fused, counts = serve_run(f"flagship bf16 batch {BATCH} with fused FFs (K4)", predictor,
+                              images, FUSED_SERVE_LAUNCHES)
+    log(f"flagship bf16 batch {BATCH} serving: fused FFs {fused:.2f} img/s against the default "
+        f"{default:.2f} img/s in this run")
     return counts
 
 
-def train_batch(size: int, seed: int) -> dict:
+def train_batch(size: int, seed: int, hw=(352, 704)) -> dict:
     rng = np.random.RandomState(seed)
-    return {"image": rng.rand(size, 352, 704, 3).astype(np.float32),
-            "depth": rng.uniform(0.5, 60.0, (size, 352, 704, 1)).astype(np.float32)}
+    return {"image": rng.rand(size, *hw, 3).astype(np.float32),
+            "depth": rng.uniform(0.5, 60.0, (size, *hw, 1)).astype(np.float32)}
 
 
-def one_train_step(dev, batch: dict, **overrides):
-    """One train step of a fresh flagship (seed 0): (logs, gradients, state
-    dict), all on the CPU."""
+def one_train_step(dev, batch: dict, opt=TRAIN_OPT, freeze_bn: bool = False, **overrides):
+    """One train step of a fresh model of ``opt`` (seed 0): (logs,
+    gradients, state dict), all on the CPU."""
     from mde_tpu_torch.models import build_model
     from mde_tpu_torch.train.state import TrainState
     from mde_tpu_torch.train.step import make_train_step
-    model = build_model(FLAGSHIP, 0.001, 80.0, device=dev, seed=0, **overrides)
-    state = TrainState.create(model, TRAIN_OPT, TRAIN_TOTAL_STEPS)
+    model = build_model(opt["model"], 0.001, 80.0, device=dev, seed=0, **overrides)
+    state = TrainState.create(model, opt, TRAIN_TOTAL_STEPS)
     grads = {}
     update = state.optimizer.update
 
@@ -490,7 +726,7 @@ def one_train_step(dev, batch: dict, **overrides):
         update(g)
 
     state.optimizer.update = keep
-    _, logs = make_train_step(TRAIN_OPT, 0.001, 80.0)(state, batch)
+    _, logs = make_train_step(opt, 0.001, 80.0, freeze_bn=freeze_bn)(state, batch)
     return ({k: float(v) for k, v in logs.items()}, grads,
             {k: v.detach().cpu() for k, v in model.state_dict().items()})
 
@@ -510,9 +746,15 @@ def train_f32_check(dev) -> None:
         log(f"flagship f32 CPU train step (plain versions): {time.perf_counter() - t0:.1f} s")
     finally:
         replay.restore()
+    log(f"flagship f32 train step batch 1: index flips per repeat {replay.flips} (the CPU run "
+        f"was fed the card's indices)")
+    compare_steps("flagship f32 train step batch 1", card, cpu)
+
+
+def compare_steps(tag, card, cpu) -> None:
+    """Hold one train step on the card against the same step on the CPU."""
     (logs, grads, weights), (ref_logs, ref_grads, ref_weights) = card, cpu
-    log(f"flagship f32 train step batch 1: card {logs}, CPU {ref_logs}; index flips per "
-        f"repeat {replay.flips} (the CPU run was fed the card's indices)")
+    log(f"{tag}: card {logs}, CPU {ref_logs}")
     bad = [k for k in ("loss", "loss_si", "grad_norm", "param_norm")
            if abs(logs[k] - ref_logs[k]) > STEP_LOG_TOL * max(1.0, abs(ref_logs[k]))]
     floor = 1e-2 * max(g.abs().max().item() for g in ref_grads.values())
@@ -536,63 +778,153 @@ def train_f32_check(dev) -> None:
         f"{STEP_PARAM_TOL:.2e})")
     if (bad or len(grads) != len(ref_grads) or grad_errs[-1][0] > STEP_GRAD_TOL
             or stat_errs[-1][0] > STEP_STATS_TOL or param_errs[-1][0] > STEP_PARAM_TOL):
-        raise RuntimeError(f"flagship f32 train step on the card disagrees with the CPU "
-                           f"(logs {bad})")
+        raise RuntimeError(f"{tag} on the card disagrees with the CPU (logs {bad})")
 
 
-def train_bf16_run(dev) -> dict:
-    """Full-width bf16 train step at batch 4: one counted step, timing, one
-    profiled step, then one recomputing run. Returns the counted launches."""
+def train_run(tag, opt, dev, expect, warmup, timed, profile, **overrides) -> dict:
+    """Full-width bf16 train steps at batch 4 of a fresh model of ``opt``:
+    one counted step (every launch count from 0, then exactly ``expect``,
+    every other kernel 0; finite logs, moved parameters), more warm-up
+    steps up to ``warmup``, ``timed`` timed steps, peak memory and, with
+    ``profile``, one profiled step. Returns the counted launches."""
     from mde_tpu_torch.models import build_model
     from mde_tpu_torch.ops import kernels
     from mde_tpu_torch.train.state import TrainState
     from mde_tpu_torch.train.step import make_train_step
     batch = {k: torch.from_numpy(v).to(dev) for k, v in train_batch(TRAIN_BATCH, 3).items()}
-    step = make_train_step(TRAIN_OPT, 0.001, 80.0)
+    step = make_train_step(opt, 0.001, 80.0)
     generator = torch.Generator(device=dev).manual_seed(0)
-    counts = None
-    for use_checkpoint in (False, True):
-        model = build_model(FLAGSHIP, 0.001, 80.0, device=dev, seed=0, dtype=torch.bfloat16,
-                            use_checkpoint=use_checkpoint)
-        state = TrainState.create(model, TRAIN_OPT, TRAIN_TOTAL_STEPS)
-        before = {n: p.detach().clone() for n, p in model.named_parameters()}
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        kernels.reset_launch_counts()
+    model = build_model(opt["model"], 0.001, 80.0, device=dev, seed=0, dtype=torch.bfloat16,
+                        **overrides)
+    state = TrainState.create(model, opt, TRAIN_TOTAL_STEPS)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    free_garbage()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    _, logs = step(state, batch, generator)
+    torch.cuda.synchronize()
+    run = dict(kernels.launch_counts)
+    log(f"{tag} launches: {run}")
+    expect = dict(dict.fromkeys(kernels.KERNELS, 0), **expect)
+    if run != expect:
+        raise RuntimeError(f"{tag}: expected {expect} kernel launches per train step, got {run}")
+    logs = {k: float(v) for k, v in logs.items()}
+    moved = sum(not torch.equal(p.detach(), before[n]) for n, p in model.named_parameters())
+    log(f"  logs of the first step: {logs}; {moved} of {len(before)} parameters moved")
+    if not all(np.isfinite(v) for v in logs.values()) or moved == 0:
+        raise RuntimeError(f"{tag}: bad train step: logs {logs}, {moved} parameters moved")
+    del before
+    times = []
+    for _ in range(warmup - 1 + timed):
+        t0 = time.perf_counter()
         _, logs = step(state, batch, generator)
         torch.cuda.synchronize()
-        run = dict(kernels.launch_counts)
-        tag = f"use_checkpoint={use_checkpoint}"
-        log(f"flagship bf16 train step batch {TRAIN_BATCH} ({tag}) launches: {run}")
-        expect = CHECKPOINT_LAUNCHES if use_checkpoint else TRAIN_LAUNCHES
-        if run != expect:
-            raise RuntimeError(f"expected {expect} kernel launches per train step, got {run}")
-        logs = {k: float(v) for k, v in logs.items()}
-        moved = sum(not torch.equal(p.detach(), before[n])
-                    for n, p in model.named_parameters())
-        log(f"  logs of the first step: {logs}; {moved} of {len(before)} parameters moved")
-        if not all(np.isfinite(v) for v in logs.values()) or moved == 0:
-            raise RuntimeError(f"bad train step: logs {logs}, {moved} parameters moved")
-        del before
-        times = []
-        for i in range(7 if not use_checkpoint else 3):
-            t0 = time.perf_counter()
-            _, logs = step(state, batch, generator)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        timed = times[2:] if not use_checkpoint else times[1:]
-        peak = torch.cuda.max_memory_allocated()
-        log(f"flagship bf16 train step batch {TRAIN_BATCH} at 352x704 (resized to 448x896, "
-            f"{tag}): {TRAIN_BATCH / float(np.median(timed)):.2f} img/s (median of "
-            f"{len(timed)} steps after {len(times) - len(timed) + 1} warm-up, "
-            f"{[round(t * 1e3, 2) for t in timed]} ms), peak memory {peak / 2 ** 30:.2f} GiB, "
-            f"loss {float(logs['loss']):.4f}")
-        if not use_checkpoint:
-            counts = run
-            profile_call(lambda: step(state, batch, generator))
-        del state, model
-        torch.cuda.empty_cache()
+        times.append(time.perf_counter() - t0)
+    times = times[warmup - 1:]
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{tag} at 352x704: {TRAIN_BATCH / float(np.median(times)):.2f} img/s (median of "
+        f"{len(times)} steps after {warmup} warm-up, {[round(t * 1e3, 2) for t in times]} ms), "
+        f"peak memory {peak / 2 ** 30:.2f} GiB, loss {float(logs['loss']):.4f}")
+    if profile:
+        profile_call(lambda: step(state, batch, generator))
+    del state, model
+    torch.cuda.empty_cache()
+    return run
+
+
+def train_bf16_run(dev) -> dict:
+    """The flagship's bf16 train step at batch 4, then one recomputing run.
+    Returns the first run's counted launches."""
+    tag = f"flagship bf16 train step batch {TRAIN_BATCH} (resized to 448x896, use_checkpoint="
+    counts = train_run(tag + "False)", TRAIN_OPT, dev, TRAIN_LAUNCHES, warmup=3, timed=5,
+                       profile=True, use_checkpoint=False)
+    train_run(tag + "True)", TRAIN_OPT, dev, CHECKPOINT_LAUNCHES, warmup=2, timed=2,
+              profile=False, use_checkpoint=True)
     return counts
+
+
+def ksa_f32_check(dev) -> None:
+    """``oda2_ksa_reg``'s full-width f32 forward at batch 1: card against CPU."""
+    from mde_tpu_torch.models import build_model
+    x = torch.from_numpy(np.random.RandomState(4).rand(1, 352, 704, 3).astype(np.float32))
+    model = build_model(KSA, 0.001, 80.0, device=dev, seed=0)
+    with torch.no_grad():
+        out, _ = model(x.to(dev))
+    torch.cuda.synchronize()
+    out = out.cpu()
+    del model
+    torch.cuda.empty_cache()
+    cpu_model = build_model(KSA, 0.001, 80.0, device="cpu", seed=0)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ref, _ = cpu_model(x)
+    log(f"oda2_ksa_reg f32 CPU forward (plain versions): {time.perf_counter() - t0:.1f} s")
+    err = (out - ref).abs().max().item()
+    log(f"oda2_ksa_reg f32 batch 1 at 352x704 (resized to 448x896), card vs CPU: output "
+        f"{tuple(out.shape)}, max_abs_err {err:.3e} m (tolerance {MODEL_F32_TOL})")
+    if out.shape != (1, 110, 222, 1) or not torch.isfinite(out).all() or err > MODEL_F32_TOL:
+        raise RuntimeError("oda2_ksa_reg f32 forward on the card disagrees with the CPU")
+
+
+def ksa_serve_run(dev) -> dict:
+    """``oda2_ksa_reg``'s bf16 serving at batch 8, counted, timed and
+    profiled. Returns the counted launches."""
+    from mde_tpu_torch.models import build_model
+    from mde_tpu_torch.serve import Predictor
+    model = build_model(KSA, 0.001, 80.0, device=dev, seed=0, dtype=torch.bfloat16)
+    images = torch.from_numpy(
+        np.random.RandomState(5).rand(BATCH, 352, 704, 3).astype(np.float32)).to(dev)
+    _, counts = serve_run(f"oda2_ksa_reg bf16 batch {BATCH} (resized to 448x896)",
+                          Predictor(model), images, KSA_SERVE_LAUNCHES)
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def ppm_spread(dev, images) -> float:
+    """How far the PPM's 1x1 pooled BatchNorm is from cancelling on
+    ``images``: the median over channels of its input's std across the
+    batch over its rms, from the card's f32 forward of a fresh model."""
+    from mde_tpu_torch.models import build_model
+    model = build_model(KSA, 0.001, 80.0, device=dev, seed=0)
+    seen = []
+    model.decoder.ppm32.conv_reduce_layers[0][1].register_forward_pre_hook(
+        lambda module, args: seen.append(args[0].flatten(1)))
+    with torch.no_grad():
+        model(torch.from_numpy(images).to(dev))
+    x = seen[0]
+    return float((x.std(0) / x.pow(2).mean(0).sqrt()).median())
+
+
+def ksa_train_f32_check(dev, size: int, freeze_bn: bool) -> None:
+    """``oda2_ksa_reg``'s f32 train step, card against CPU, at full width on
+    ``size`` images of 224x448 (a quarter of the pixels keeps the CPU step
+    short), with batch statistics or with ``freeze_bn``.
+
+    The PPM's 1x1 pooled BatchNorm normalises one value per image. At two
+    images its output is +-1 whatever their spread. Random images of one
+    distribution, darkened or not (the encoder's LayerNorms take out
+    brightness), pool to nearly the same features, whose variance
+    E[x^2] - E[x]^2 cancels in f32: the gradient into its 1x1 conv is then
+    rounding noise that reaches the whole encoder. With batch statistics
+    the check therefore gives the 4 images colour casts of their own, which
+    the LayerNorms keep, and logs the pooled features' spread."""
+    batch = train_batch(size, 6, hw=(224, 448))
+    if not freeze_bn:
+        batch["image"] *= np.array([[1.0, 0.2, 0.2], [0.2, 1.0, 0.2], [0.2, 0.2, 1.0],
+                                    [1.0, 1.0, 1.0]], np.float32)[:size, None, None]
+    tag = (f"oda2_ksa_reg f32 train step batch {size} at 224x448 "
+           f"({'freeze_bn' if freeze_bn else 'batch statistics, colour casts'})")
+    log(f"{tag}: the 1x1 pooled BatchNorm's input, std across the batch over rms "
+        f"(median over channels): {ppm_spread(dev, batch['image']):.4f}")
+    card = one_train_step(dev, batch, KSA_TRAIN_OPT, freeze_bn=freeze_bn, path_drop_prob=0.0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cpu = one_train_step("cpu", batch, KSA_TRAIN_OPT, freeze_bn=freeze_bn, path_drop_prob=0.0)
+    log(f"{tag}: CPU step (plain versions, use_checkpoint=True) {time.perf_counter() - t0:.1f} s")
+    compare_steps(tag, card, cpu)
 
 
 def profile_call(call) -> None:
@@ -630,6 +962,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from mde_tpu_torch.ops import kernels
+    from mde_tpu_torch.ops.kernels.channel_attention import pair_smem_bytes
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip().splitlines()[0]
@@ -646,7 +979,10 @@ def main() -> int:
         f"(N 49, head dim 32), K2 {kernels.head_smem_bytes(64, 64, 255 + 64)} B "
         f"(N 64, head dim 64, table and indices), K1 bwd "
         f"{kernels.head_smem_bytes(49, 32, 49 * 49, backward=True)} B, K2 bwd "
-        f"{kernels.head_smem_bytes(64, 64, 2 * 255 + 64, backward=True)} B, K3 none")
+        f"{kernels.head_smem_bytes(64, 64, 2 * 255 + 64, backward=True)} B, K3 and K4 none, "
+        f"K5 {pair_smem_bytes(49, 16, 16)} B and K5 bwd "
+        f"{pair_smem_bytes(49, 16, 16, backward=True)} B per (window, head) pair (N 49, head "
+        f"dims 16), several pairs a block")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -656,27 +992,42 @@ def main() -> int:
               ordered_phase(True, dev), ordered_phase(False, dev),
               depthwise_phase(dev),
               window_bwd_phase(dev), ordered_bwd_phase(dev),
-              depthwise_bwd_phase(dev, dxdw=True), depthwise_bwd_phase(dev, dxdw=False)]
+              depthwise_bwd_phase(dev, dxdw=True), depthwise_bwd_phase(dev, dxdw=False),
+              glu_phase(dev), channel_phase(dev, backward=False),
+              channel_phase(dev, backward=True)]
     torch.cuda.empty_cache()
 
     model_f32_check(dev)
     torch.cuda.empty_cache()
-    model_bf16_run(dev)
+    fused_counts = model_bf16_run(dev)
     torch.cuda.empty_cache()
     train_f32_check(dev)
     torch.cuda.empty_cache()
     counts = train_bf16_run(dev)
+    ksa_f32_check(dev)
+    ksa_serve_run(dev)
+    ksa_train_f32_check(dev, 2, freeze_bn=True)
+    ksa_train_f32_check(dev, 4, freeze_bn=False)
+    torch.cuda.empty_cache()
+    ksa_counts = train_run(f"oda2_ksa_reg bf16 train step batch {TRAIN_BATCH} (resized to "
+                           f"448x896, use_checkpoint=True)", KSA_TRAIN_OPT, dev,
+                           KSA_TRAIN_LAUNCHES, warmup=2, timed=5, profile=True)
 
     # the line reports each kernel at its main-path shape in bf16 (K1 at
     # stage 1 with the shift mask, K2 with the table) and its launches in
-    # one bf16 train step
+    # one run of the path that carries it
     report = {p["kernel"]: p for p in (phases[1], phases[3], phases[5], *phases[6:])}
-    line = {"kernels": [{
+    paths = dict.fromkeys(report, ("flagship bf16 train step", counts))
+    paths["glu_ff"] = ("flagship bf16 serving with fused FFs", fused_counts)
+    for name in ("channel_attention", "channel_attention_bwd"):
+        paths[name] = ("oda2_ksa_reg bf16 train step", ksa_counts)
+    line = {"kernels": [dict({
         "name": name, "route": "cuda", "source": SOURCES[name][0],
-        "replaces": SOURCES[name][1], "launches": counts[name],
-        "max_abs_err": p["max_abs_err_bf16"], "ms": p["ms"], "plain_ms": p["plain_ms"],
-        "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
-        "library_ms": p["library_ms"]} for name, p in report.items()]}
+        "replaces": SOURCES[name][1], "launches": paths[name][1][name],
+        "path": paths[name][0], "max_abs_err": p["max_abs_err_bf16"], "ms": p["ms"],
+        "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
+        "library_ms": p["library_ms"]}, **{k: p[k] for k in ("library", "unfused_chain_ms")
+                                          if k in p}) for name, p in report.items()]}
     log(card)
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -22,6 +22,9 @@ class DepthwiseConv2d(nn.Module):
     def init_own_parameters(self, generator: torch.Generator) -> None:
         conv_kernel_normal_(self.weight.data, self.kernel_size, self.kernel_size, generator)
 
+    def kernel(self, dtype: torch.dtype) -> torch.Tensor:
+        """The weight as the kernels take it: (k, k, C) in ``dtype``."""
+        return self.weight[:, 0].permute(1, 2, 0).to(dtype).contiguous()
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.weight[:, 0].permute(1, 2, 0).to(x.dtype).contiguous()
-        return depthwise_conv2d(x, w)
+        return depthwise_conv2d(x, self.kernel(x.dtype))

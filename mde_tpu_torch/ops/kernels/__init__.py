@@ -1,9 +1,10 @@
 """The port's hand-written CUDA kernels: build, load, dispatch and count.
 
 Counterpart of ``mde_tpu/ops/pallas/__init__.py``. Each kernel module here
-(``window_attention``, ``ordered_attention``, ``depthwise``) holds a
-``torch.autograd.Function`` whose forward and backward are kernels and,
-beside each, the plain PyTorch version of the same function.
+(``window_attention``, ``ordered_attention``, ``depthwise``, ``glu_ff``,
+``channel_attention``) holds a ``torch.autograd.Function`` whose forward
+(and, where the JAX package has one, backward) is a kernel and, beside
+each, the plain PyTorch version of the same function.
 
 Dispatch is by device and nothing else: a tensor on the CPU takes the plain
 version, a CUDA tensor launches the kernel or raises. There is no override
@@ -37,7 +38,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 KERNELS = ("window_attention", "window_attention_bwd", "ordered_attention",
            "ordered_attention_bwd", "depthwise_conv2d", "depthwise_conv2d_dxdw",
-           "depthwise_conv2d_dw")
+           "depthwise_conv2d_dw", "glu_ff", "channel_attention", "channel_attention_bwd")
 
 # launches of each kernel since the last reset; a wrapper adds one where it
 # launches its kernel, and nowhere else
@@ -53,6 +54,9 @@ _SIGNATURES = {
     "mde_depthwise_conv2d": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "mde_depthwise_conv2d_dxdw": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "mde_depthwise_conv2d_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "mde_glu_ff": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "mde_channel_attention": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    "mde_channel_attention_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
 }
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -100,9 +104,10 @@ def build() -> Path:
                                "-o", str(obj)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for src, obj in zip(sources, objs)]
+    # wait for every compiler before raising, so that none is left running
+    outs = [proc.communicate()[0] for proc in procs]
     reports = []
-    for src, proc in zip(sources, procs):
-        out, _ = proc.communicate()
+    for src, proc, out in zip(sources, procs, outs):
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src.name}:\n{out}")
         reports.append(f"== {src.name}\n{out}")

@@ -1,6 +1,7 @@
 // Shared helpers for the port's hand-written kernels: element conversion,
-// 16-byte vectors, warp reductions, dtype codes and the window-attention
-// body that K1 (window_attention.cu) and K2 (ordered_attention.cu) share.
+// 16-byte vectors, warp reductions, dtype codes, the window-attention body
+// that K1 (window_attention.cu) and K2 (ordered_attention.cu) share, and the
+// shared-memory sizes of K5 (channel_attention*.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -205,6 +206,19 @@ __device__ void window_head_attention_bwd(const T* __restrict__ q, const T* __re
     dk[off] = from_float<T>(gk);
     dv[off] = from_float<T>(gv);
   }
+}
+
+// Floats of shared memory one (window, head) pair of the channel attention
+// (K5) takes at n tokens, decoder head dim hd and encoder head dim ehd:
+// q (n*hd), k and v (n*ehd each) and P (hd rows padded to ehd+1).
+__host__ __device__ inline size_t channel_pair_smem_floats(int n, int hd, int ehd) {
+  return (size_t)n * hd + 2 * (size_t)n * ehd + (size_t)hd * (ehd + 1);
+}
+
+// The same for K5's backward: q and dO (n*hd each), k and v (n*ehd each),
+// P and dS (hd rows padded to ehd+1 each).
+__host__ __device__ inline size_t channel_pair_bwd_smem_floats(int n, int hd, int ehd) {
+  return 2 * (size_t)n * hd + 2 * (size_t)n * ehd + 2 * (size_t)hd * (ehd + 1);
 }
 
 // Windows per block for the backward kernels: enough blocks to fill the

@@ -17,9 +17,14 @@ import torch
 import mde_tpu_torch.models.oda2.red_order_swin2 as flagship
 from mde_tpu_torch.models import build_model
 from mde_tpu_torch.ops import kernels
+from mde_tpu_torch.ops.kernels.channel_attention import (channel_attention,
+                                                         channel_attention_bwd,
+                                                         plain_channel_attention,
+                                                         plain_channel_attention_bwd)
 from mde_tpu_torch.ops.kernels.depthwise import (depthwise_conv2d, depthwise_dw, depthwise_dxdw,
                                                  plain_depthwise_conv2d, plain_depthwise_dw,
                                                  plain_depthwise_dxdw)
+from mde_tpu_torch.ops.kernels.glu_ff import glu_ff, plain_glu_ff
 from mde_tpu_torch.ops.kernels.ordered_attention import (ordered_attention,
                                                          ordered_attention_bwd,
                                                          plain_ordered_attention,
@@ -28,6 +33,7 @@ from mde_tpu_torch.ops.kernels.window_attention import (plain_window_attention,
                                                         plain_window_attention_bwd,
                                                         window_attention,
                                                         window_attention_bwd)
+from mde_tpu_torch.ops.tnn import bn_freeze_scope
 from mde_tpu_torch.ops.window import shifted_window_attn_mask
 from mde_tpu_torch.train.state import TrainState
 from mde_tpu_torch.train.step import make_train_step
@@ -41,10 +47,15 @@ TOL = 1e-5
 # dS and the outputs to bf16 at the same places; sums in another order move
 # a rounding by one ulp (2^-8), and a P or dS rounded the other way moves a
 # gradient by a few, hence 3e-2 for the attentions and 1e-2 for K3's dx
-# (dw is f32 from bf16 inputs: 1e-4).
+# (dw is f32 from bf16 inputs: 1e-4). K4 sums its taps in f32 where its
+# plain version (the JAX composite) sums them in bf16, as K3 against its
+# plain forward, and GELU's slope is at most 1.13: 5e-2 as K3. K5 rounds P
+# (and dS) to bf16 at the same places as its plain versions, whose scores
+# are bf16 einsums: 3e-2 as the other attentions.
 BF16_REL = {"window_attention": 3e-2, "ordered_attention": 3e-2, "depthwise_conv2d": 5e-2,
             "window_attention_bwd": 3e-2, "ordered_attention_bwd": 3e-2,
-            "depthwise_conv2d_dxdw": 1e-2, "depthwise_conv2d_dw": 1e-4}
+            "depthwise_conv2d_dxdw": 1e-2, "depthwise_conv2d_dw": 1e-4, "glu_ff": 5e-2,
+            "channel_attention": 3e-2, "channel_attention_bwd": 3e-2}
 NO_LAUNCHES = dict.fromkeys(kernels.KERNELS, 0)
 
 
@@ -185,6 +196,86 @@ def test_depthwise_bwd_kernels(cuda, dtype, shape, k):
            lambda x, g, w: plain_depthwise_dw(x, g, k, k), (x, g, w), dtype, relative=True)
 
 
+# (x shape, kernel): odd sides, a side smaller than the kernel, channels in
+# one 16-byte vector or many, and C off the vector width (the scalar path)
+GLU_CASES = [((2, 7, 10, 12), 5), ((2, 12, 24, 64), 5), ((1, 5, 3, 2048), 5),
+             ((1, 9, 13, 16), 3), ((2, 6, 5, 10), 5)]
+
+
+def _glu_args(cuda, dtype, shape, k, seed=0):
+    rng = np.random.RandomState(seed)
+    c = shape[-1]
+    ab = _randn(rng, *shape[:3], 2 * c).to(cuda, dtype)
+    w = (_randn(rng, k, k, c) * 0.2).to(cuda, dtype)
+    return ab, w, (1 + 0.1 * _randn(rng, c)).to(cuda), (0.1 * _randn(rng, c)).to(cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,k", GLU_CASES)
+def test_glu_ff_kernel(cuda, dtype, shape, k):
+    _check("glu_ff", glu_ff, plain_glu_ff, _glu_args(cuda, dtype, shape, k), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,k", [((2, 7, 10, 12), 5), ((1, 9, 13, 64), 3)])
+def test_glu_ff_grads_match_autograd_of_plain(cuda, shape, k):
+    """The Function's backward (the composite recomputed through K3's
+    kernels) against autograd of the plain version, both on the card."""
+    ab, w, s, t = (x.requires_grad_() for x in _glu_args(cuda, torch.float32, shape, k, 15))
+    g = torch.randn(ab.shape[:3] + (shape[-1],), generator=torch.Generator().manual_seed(16))
+    g = g.to(cuda)
+    kernels.reset_launch_counts()
+    ours = torch.autograd.grad(glu_ff(ab, w, s, t), (ab, w, s, t), g)
+    ref = torch.autograd.grad(plain_glu_ff(ab, w, s, t), (ab, w, s, t), g)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts == dict(NO_LAUNCHES, glu_ff=1, depthwise_conv2d=1,
+                                         depthwise_conv2d_dxdw=1)
+    for a, b in zip(ours, ref):
+        assert (a - b).abs().max().item() <= 1e-4 * max(1.0, b.abs().max().item())
+
+
+# (C, EC): square head dims, and rectangular either way (hd != ehd)
+CHANNEL_CASES = [(64, 64), (32, 64), (48, 16)]
+
+
+def _channel_args(cuda, dtype, c, ec, seed=0):
+    rng = np.random.RandomState(seed)
+    bw, n = 10, 49
+    q = _randn(rng, bw, n, c).to(cuda, dtype)
+    kv = _randn(rng, bw, n, 2 * ec).to(cuda, dtype)
+    return q, kv, 4, n ** -0.5
+
+
+def _plain_channel(q, kv, nh, scale):
+    ec = kv.shape[-1] // 2
+    return plain_channel_attention(q, kv[..., :ec], kv[..., ec:], nh, scale)
+
+
+def _plain_channel_bwd(q, kv, dout, nh, scale):
+    ec = kv.shape[-1] // 2
+    dq, dk, dv = plain_channel_attention_bwd(q, kv[..., :ec], kv[..., ec:], dout, nh, scale)
+    return dq, torch.cat([dk, dv], dim=-1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,ec", CHANNEL_CASES)
+def test_channel_attention_kernel(cuda, dtype, c, ec):
+    _check("channel_attention", channel_attention, _plain_channel,
+           _channel_args(cuda, dtype, c, ec), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,ec", CHANNEL_CASES)
+def test_channel_attention_bwd_kernel(cuda, dtype, c, ec):
+    q, kv, nh, scale = _channel_args(cuda, dtype, c, ec, seed=17)
+    dout = _randn(np.random.RandomState(18), *q.shape).to(cuda, dtype)
+    _check("channel_attention_bwd", channel_attention_bwd, _plain_channel_bwd,
+           (q, kv, dout, nh, scale), dtype, relative=True)
+
+
 def _grads_on_card_and_cpu(fn, inputs, grad_of, dout):
     """Gradients of ``fn`` with respect to the inputs at ``grad_of``, on the
     card (the kernels' Functions) and on copies on the CPU (the plain ones)."""
@@ -213,12 +304,21 @@ def test_gradients_flow_through_every_wrapper(cuda):
     w = torch.randn(5, 5, 64, device=cuda) * 0.2
     card3, cpu3 = _grads_on_card_and_cpu(depthwise_conv2d, (x, w), (0, 1), torch.randn(x.shape))
     card4, cpu4 = _grads_on_card_and_cpu(depthwise_conv2d, (x, w), (1,), torch.randn(x.shape))
+    ab, w2, s, t = _glu_args(cuda, torch.float32, (2, 9, 14, 16), 5, seed=13)
+    card5, cpu5 = _grads_on_card_and_cpu(glu_ff, (ab, w2, s, t), (0, 1, 2, 3),
+                                         torch.randn(2, 9, 14, 16))
+    q2, kv, nh2, scale2 = _channel_args(cuda, torch.float32, 32, 64, seed=14)
+    card6, cpu6 = _grads_on_card_and_cpu(channel_attention, (q2, kv, nh2, scale2), (0, 1),
+                                         torch.randn(q2.shape))
     torch.cuda.synchronize()
+    # glu_ff's backward recomputes through K3: one more K3 forward and dxdw
     assert kernels.launch_counts == {
         "window_attention": 1, "window_attention_bwd": 1, "ordered_attention": 1,
-        "ordered_attention_bwd": 1, "depthwise_conv2d": 2, "depthwise_conv2d_dxdw": 1,
-        "depthwise_conv2d_dw": 1}
-    for a, b in zip(card + card2 + card3 + card4, cpu + cpu2 + cpu3 + cpu4):
+        "ordered_attention_bwd": 1, "depthwise_conv2d": 3, "depthwise_conv2d_dxdw": 2,
+        "depthwise_conv2d_dw": 1, "glu_ff": 1, "channel_attention": 1,
+        "channel_attention_bwd": 1}
+    for a, b in zip(card + card2 + card3 + card4 + card5 + card6,
+                    cpu + cpu2 + cpu3 + cpu4 + cpu5 + cpu6):
         scale = max(1.0, b.abs().max().item())
         assert (a.cpu() - b).abs().max().item() <= 1e-4 * scale
 
@@ -279,10 +379,9 @@ def test_tiny_train_step_on_card_matches_cpu(cuda, monkeypatch):
         _, logs = make_train_step(opt, 0.001, 80.0)(state, batch)
         if dev.type == "cuda":
             torch.cuda.synchronize()
-            assert kernels.launch_counts == {
-                "window_attention": 6, "window_attention_bwd": 6, "ordered_attention": 4,
-                "ordered_attention_bwd": 4, "depthwise_conv2d": 4,
-                "depthwise_conv2d_dxdw": 4, "depthwise_conv2d_dw": 0}
+            assert kernels.launch_counts == dict(
+                NO_LAUNCHES, window_attention=6, window_attention_bwd=6, ordered_attention=4,
+                ordered_attention_bwd=4, depthwise_conv2d=4, depthwise_conv2d_dxdw=4)
         results.append(({k: float(v) for k, v in logs.items()}, grads,
                         {k: v.detach().cpu() for k, v in model.state_dict().items()}))
     (logs, grads, weights), (ref_logs, ref_grads, ref_weights) = results
@@ -295,3 +394,39 @@ def test_tiny_train_step_on_card_matches_cpu(cuda, monkeypatch):
         tol = 1e-4 * max(1.0, value.abs().max().item()) if "running" in name else 1e-4 / 25
         if value.is_floating_point():
             assert (weights[name] - value).abs().max().item() <= tol, name
+
+
+KSA_TINY = dict(name="oda2_ksa_reg", encoder_type="custom", dec_dim=64, depths=(2, 2, 2, 2),
+                dec_num_heads=(2, 2, 4, 4), window_size=4)
+
+
+@pytest.mark.gpu
+def test_tiny_ksa_on_card_matches_cpu(cuda):
+    """The tiny oda2_ksa_reg of the CPU tests: its forward on the card
+    (K1 in the 6 encoder and 8 decoder blocks, K5 in the 6 KSA blocks)
+    against the CPU's, and the gradients of a training-mode forward (with
+    BatchNorm frozen: the PPM's 1x1 pooled BatchNorm over two images leaves
+    its conv a gradient of rounding noise) within 1e-3 of each tensor's max
+    |g| (or of 1% of the largest one)."""
+    kw = dict(TINY_KW, path_drop_prob=0.0)
+    cpu_model = build_model(KSA_TINY, 0.001, 80.0, device="cpu", seed=8, **kw)
+    gpu_model = build_model(KSA_TINY, 0.001, 80.0, device=cuda, seed=8, **kw)
+    x = torch.from_numpy(np.random.RandomState(9).rand(2, 64, 96, 3).astype(np.float32))
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        out, _ = gpu_model(x.to(cuda))
+        ref, _ = cpu_model(x)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts == dict(NO_LAUNCHES, window_attention=14, channel_attention=6)
+    assert out.shape == (2, 14, 22, 1)
+    assert (out.cpu() - ref).abs().max().item() <= 1e-3
+    grads = []
+    for model, dev in ((gpu_model, cuda), (cpu_model, torch.device("cpu"))):
+        model.train()
+        with bn_freeze_scope(model):
+            pred, _ = model(x.to(dev))
+            grads.append(torch.autograd.grad(pred.square().mean(), list(model.parameters())))
+    assert kernels.launch_counts["channel_attention_bwd"] == 6
+    floor = 1e-2 * max(g.abs().max().item() for g in grads[1])
+    for a, b in zip(*grads):
+        assert (a.cpu() - b).abs().max().item() <= 1e-3 * max(b.abs().max().item(), floor)
