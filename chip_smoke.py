@@ -7,12 +7,17 @@
    sm_90a and prints each kernel's registers and shared memory.
 2. Kernel phases: each of the ten kernels against its plain PyTorch version
    on the card at its main path's shapes, in bf16 and in f32 with TF32 off;
-   its time (CUDA events), the plain version's, one PyTorch call's as a
+   its device time (CUDA events around calls queued behind a busy kernel;
+   a warning where the host took longer to queue them than the card slept),
+   the plain version's, one PyTorch call's as a
    yardstick where one computes the same function (for K4 none does: the
    port's unfused chain is timed beside it), and the least time the card
    could take (bytes over 3.35 TB/s, operations over the 989 TFLOP/s bf16
    peak). The forwards at the serving shapes (batch 8), the backwards at
-   the train step's (batch 4).
+   the train step's (batch 4). K2's backward is timed (and checked in
+   bf16) a second time on windows whose depth indices are all equal. Each
+   kernel is also timed with its calls following a synchronisation, so
+   that any host gaps between them count (``host_ms``).
 3. Flagship serving at full width: ``oda2_red_order_swin2`` (Swin-B, red33
    neck, ordered head) with seeded random weights. In f32 at batch 1, with
    seeded statistics in the FFs' BatchNorms so that K4's folded affine is
@@ -59,6 +64,7 @@ import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12  # dense tensor-core peak; the kernels are timed in bf16
+SLEEP_CYCLES = 100_000_000  # ~50 ms of the card's clock, ahead of each timed run
 BATCH = 8  # serving
 TRAIN_BATCH = 4
 F32_TOL = 1e-5
@@ -149,16 +155,31 @@ def free_garbage() -> None:
     torch.cuda.empty_cache()
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def time_ms(fn, iters: int = 20, warmup: int = 3, queued: bool = True) -> float:
+    """Device ms of one call of ``fn``: the calls are queued behind a kernel
+    that keeps the card busy for ~50 ms, so that the host's time between
+    them (Python wrappers, launches) opens no gap in the timed span. On a
+    busy host that time can exceed a short kernel's own. Warns where the
+    host took longer to queue the calls than the card slept (gaps may then
+    be counted). With ``queued=False``, the calls follow a synchronisation
+    instead, and any gaps between them count."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start, end, slept = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    if queued:
+        slept.record()
+        torch.cuda._sleep(SLEEP_CYCLES)
+    t0 = time.perf_counter()
     start.record()
     for _ in range(iters):
         fn()
     end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
     end.synchronize()
+    if queued and host_ms > slept.elapsed_time(start):
+        log(f"  warning: the host took {host_ms:.2f} ms to queue {iters} calls, longer than "
+            f"the card's {slept.elapsed_time(start):.2f} ms sleep: gaps may be timed")
     return start.elapsed_time(end) / iters
 
 
@@ -307,13 +328,24 @@ def window_bwd_phase(dev):
                         window_attention_bwd, plain, make, library, cost, relative=True)
 
 
-def ordered_bwd_phase(dev):
-    """K2 backward, with the table, at the train step's shape."""
+def window_indices(pattern: str, bw: int, e: int, g, dev) -> torch.Tensor:
+    """(bw, 64) int32 depth indices in [0, e): drawn uniformly ("uniform"),
+    or one index a window ("one_bucket": every dS of a window in one dT
+    bucket)."""
+    if pattern == "uniform":
+        return torch.randint(0, e, (bw, 64), generator=g, device=dev, dtype=torch.int32)
+    base = torch.randint(0, e, (bw, 1), generator=g, device=dev, dtype=torch.int32)
+    return base.expand(bw, 64).contiguous()
+
+
+def ordered_bwd_phase(dev, pattern: str = "uniform"):
+    """K2 backward, with the table, at the train step's shape, on indices of
+    ``pattern`` (``window_indices``)."""
     from mde_tpu_torch.ops.kernels.ordered_attention import (ordered_attention_bwd,
                                                              plain_ordered_attention_bwd)
     g = torch.Generator(device=dev).manual_seed(5)
     bw, n, c, heads, e = 392 * TRAIN_BATCH, 64, 512, 8, 128
-    idx = torch.randint(0, e, (bw, n), generator=g, device=dev, dtype=torch.int32)
+    idx = window_indices(pattern, bw, e, g, dev)
     table = torch.randn(2 * e - 1, heads, generator=g, device=dev)
 
     def make(dtype):
@@ -333,9 +365,15 @@ def ordered_bwd_phase(dev):
     def cost(args, outs):
         return nbytes(*args[:6], *outs), 10 * bw * n * n * c
 
-    return kernel_phase("ordered_attention_bwd", f"K2 bwd ({bw},{n},{c})/{heads} with table",
-                        ordered_attention_bwd, plain_ordered_attention_bwd, make, library, cost,
-                        relative=True)
+    name = f"K2 bwd ({bw},{n},{c})/{heads} with table, {pattern} indices"
+    # with one index a window a dT entry sums many dS that cancel (each row of
+    # dS sums to 0, so the exact dT is 0), and the f32 dT of both versions is
+    # rounding of those sums in different orders: that pattern is checked in
+    # bf16 only, where the tolerance allows for it
+    dtypes = (torch.float32, torch.bfloat16) if pattern == "uniform" else (torch.bfloat16,)
+    return kernel_phase("ordered_attention_bwd", name, ordered_attention_bwd,
+                        plain_ordered_attention_bwd, make, library, cost, relative=True,
+                        dtypes=dtypes)
 
 
 def depthwise_bwd_phase(dev, dxdw: bool):
@@ -492,14 +530,14 @@ def channel_phase(dev, backward: bool):
 
 
 def kernel_phase(kernel, name, fn, plain, make, library, cost, relative=False,
-                 extra=None) -> dict:
-    """Check ``fn`` against ``plain`` in f32 and bf16 (each output: within
-    F32_TOL, relative to max(1, max |plain|) when ``relative``, or BF16_REL
-    of that); time both, the library yardstick (None where there is none)
-    and each of ``extra``'s callables in bf16."""
+                 extra=None, dtypes=(torch.float32, torch.bfloat16)) -> dict:
+    """Check ``fn`` against ``plain`` in each of ``dtypes``, bf16 last (each
+    output: within F32_TOL, relative to max(1, max |plain|) when
+    ``relative``, or BF16_REL of that); time both, the library yardstick
+    (None where there is none) and each of ``extra``'s callables in bf16."""
     from mde_tpu_torch.ops import kernels
     result = {"phase": name, "kernel": kernel}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes:
         args = make(dtype)
         before = kernels.launch_counts[kernel]
         outs = as_tuple(fn(*args))
@@ -522,6 +560,7 @@ def kernel_phase(kernel, name, fn, plain, make, library, cost, relative=False,
         result[f"max_abs_err_{tag}"] = err
         del refs
     result["ms"] = time_ms(lambda: fn(*args))
+    result["host_ms"] = time_ms(lambda: fn(*args), queued=False)
     result["plain_ms"] = time_ms(lambda: plain(*args), iters=3, warmup=1)
     result["library_ms"] = None if library is None else time_ms(library(args))
     for key, make_call in (extra or {}).items():
@@ -531,7 +570,7 @@ def kernel_phase(kernel, name, fn, plain, make, library, cost, relative=False,
     result["bytes"], result["flops"] = b, ops
     others = "".join(f", {key} {result[key]:.4f}" for key in extra or {})
     lib = "none" if library is None else f"{result['library_ms']:.4f} ms"
-    log(f"{name} bf16: kernel {result['ms']:.4f} ms, plain {result['plain_ms']:.4f} ms, "
+    log(f"{name} bf16: kernel {result['ms']:.4f} ms (host clock {result['host_ms']:.4f}), plain {result['plain_ms']:.4f} ms, "
         f"library {lib}{others}, bound {result['bound_ms']:.4f} ms "
         f"({result['bound_by']}: {b / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP)")
     torch.cuda.empty_cache()
@@ -975,11 +1014,17 @@ def main() -> int:
     for line in kernels.ptxas_report().splitlines():
         if line.startswith("==") or "Compiling entry" in line or "registers" in line:
             log(line.strip())
+    # K2 at the flagship's N 64, 512 channels, 8 heads, 128 depth values, with
+    # the table, in f32 (code 0) and bf16 (1), as the kernels' sources count it
+    lib = kernels.library()
+    k2 = {(bwd, code): (lib.mde_ordered_attention_bwd_smem if bwd
+                        else lib.mde_ordered_attention_smem)(64, 512, 8, 128, 1, code)
+          for bwd in (False, True) for code in (0, 1)}
     log(f"dynamic shared memory per block: K1 {kernels.head_smem_bytes(49, 32)} B "
-        f"(N 49, head dim 32), K2 {kernels.head_smem_bytes(64, 64, 255 + 64)} B "
-        f"(N 64, head dim 64, table and indices), K1 bwd "
-        f"{kernels.head_smem_bytes(49, 32, 49 * 49, backward=True)} B, K2 bwd "
-        f"{kernels.head_smem_bytes(64, 64, 2 * 255 + 64, backward=True)} B, K3 and K4 none, "
+        f"(N 49, head dim 32), K2 bf16 {k2[False, 1]} B (tensor cores, 128 threads; N 64, "
+        f"head dim 64, with the table; f32 {k2[False, 0]} B), K1 bwd "
+        f"{kernels.head_smem_bytes(49, 32, 49 * 49, backward=True)} B, K2 bwd bf16 "
+        f"{k2[True, 1]} B (f32 {k2[True, 0]} B), K3 and K4 none, "
         f"K5 {pair_smem_bytes(49, 16, 16)} B and K5 bwd "
         f"{pair_smem_bytes(49, 16, 16, backward=True)} B per (window, head) pair (N 49, head "
         f"dims 16), several pairs a block")
@@ -995,6 +1040,10 @@ def main() -> int:
               depthwise_bwd_phase(dev, dxdw=True), depthwise_bwd_phase(dev, dxdw=False),
               glu_phase(dev), channel_phase(dev, backward=False),
               channel_phase(dev, backward=True)]
+    one = ordered_bwd_phase(dev, "one_bucket")
+    phases[7]["one_bucket_ms"] = one["ms"]
+    log(f"K2 bwd by index pattern: uniform {phases[7]['ms']:.4f} ms, one index a window "
+        f"{one['ms']:.4f} ms ({one['ms'] / phases[7]['ms']:.2f}x)")
     torch.cuda.empty_cache()
 
     model_f32_check(dev)
@@ -1026,8 +1075,9 @@ def main() -> int:
         "replaces": SOURCES[name][1], "launches": paths[name][1][name],
         "path": paths[name][0], "max_abs_err": p["max_abs_err_bf16"], "ms": p["ms"],
         "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
-        "library_ms": p["library_ms"]}, **{k: p[k] for k in ("library", "unfused_chain_ms")
-                                          if k in p}) for name, p in report.items()]}
+        "library_ms": p["library_ms"], "host_ms": p["host_ms"]},
+        **{k: p[k] for k in ("library", "unfused_chain_ms", "one_bucket_ms") if k in p})
+        for name, p in report.items()]}
     log(card)
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -51,6 +51,8 @@ _SIGNATURES = {
     "mde_ordered_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     "mde_ordered_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   _F, _I, _P],
+    "mde_ordered_attention_smem": [_I] * 6,
+    "mde_ordered_attention_bwd_smem": [_I] * 6,
     "mde_depthwise_conv2d": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "mde_depthwise_conv2d_dxdw": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "mde_depthwise_conv2d_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -180,13 +182,17 @@ def head_smem_bytes(n: int, hd: int, extra_floats: int = 0, backward: bool = Fal
     return (3 * n * hd + n + n * n + extra_floats) * 4
 
 
-def check_head_smem(kernel: str, n: int, hd: int, extra_floats: int = 0,
-                    backward: bool = False) -> None:
-    """Raise unless such a block fits a block's shared memory."""
-    need = head_smem_bytes(n, hd, extra_floats, backward)
+def check_smem(kernel: str, n: int, hd: int, need: int) -> None:
+    """Raise unless ``need`` bytes fit a block's shared memory."""
     if need > SMEM_LIMIT:
         raise ValueError(f"{kernel}: N={n}, head dim {hd} needs {need} bytes of shared "
                          f"memory; a block has {SMEM_LIMIT}")
+
+
+def check_head_smem(kernel: str, n: int, hd: int, extra_floats: int = 0,
+                    backward: bool = False) -> None:
+    """Raise unless such a block fits a block's shared memory."""
+    check_smem(kernel, n, hd, head_smem_bytes(n, hd, extra_floats, backward))
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:

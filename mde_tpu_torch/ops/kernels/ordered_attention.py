@@ -15,7 +15,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import check, check_head_smem, dtype_code, is_plain, launch, ptr
+from . import check, check_smem, dtype_code, is_plain, launch, library, ptr
 
 
 def _relative_index(idx: torch.Tensor, num_emb: int) -> torch.Tensor:
@@ -84,24 +84,40 @@ def plain_ordered_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
             dv.to(dt).reshape(bw, n, c), dtable)
 
 
-def _check_inputs(q, k, v, idx, table, num_heads, num_emb, backward: bool = False) -> None:
-    """Raise on what the forward (or backward) kernel does not take."""
+# the largest window and head dim the kernels take (csrc/attention_mma.cuh)
+MAX_N = 128
+MAX_HD = 128
+
+
+def _check_inputs(q, k, v, idx, table, num_heads, num_emb, dout=None) -> None:
+    """Raise on what the forward (or, given ``dout``, the backward) kernel
+    does not take: windows of more than 128 tokens, head dims that are not a
+    multiple of 8 up to 128, bf16 tensors that do not start on 16 bytes (the
+    tensor-core kernels copy 16-byte pieces), and blocks beyond a block's
+    shared memory (as the kernel's source counts it)."""
     bw, n, c = q.shape
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        check(name, t, (bw, n, c), q.dtype, q.device)
-    dtype_code(q)
+    tensors = (("q", q), ("k", k), ("v", v)) + (() if dout is None else (("dout", dout),))
+    for tname, t in tensors:
+        check(tname, t, (bw, n, c), q.dtype, q.device)
+    code = dtype_code(q)
+    name = "ordered_attention" if dout is None else "ordered_attention_bwd"
     if c % num_heads:
-        raise ValueError(f"ordered_attention: {c} channels do not split into "
-                         f"{num_heads} heads")
-    extra = 0
+        raise ValueError(f"{name}: {c} channels do not split into {num_heads} heads")
+    hd = c // num_heads
+    if n > MAX_N:
+        raise ValueError(f"{name}: windows of {n} tokens; the kernels take at most {MAX_N}")
+    if hd % 8 or hd > MAX_HD:
+        raise ValueError(f"{name}: head dim {hd}; the kernels take multiples of 8 up to "
+                         f"{MAX_HD}")
+    if q.dtype == torch.bfloat16:
+        for tname, t in tensors:
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name}: {tname} does not start on a 16-byte boundary")
     if table is not None:
         check("idx", idx, (bw, n), torch.int32, q.device)
         check("table", table, (2 * num_emb - 1, num_heads), torch.float32, q.device)
-        # the table's column and the window's indices; the backward also a
-        # dT accumulator of the column's size
-        extra = (2 if backward else 1) * (2 * num_emb - 1) + n
-    name = "ordered_attention_bwd" if backward else "ordered_attention"
-    check_head_smem(name, n, c // num_heads, extra, backward)
+    smem = getattr(library(), f"mde_{name}_smem")
+    check_smem(name, n, hd, smem(n, c, num_heads, num_emb, int(table is not None), code))
 
 
 def ordered_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -116,9 +132,8 @@ def ordered_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if is_plain(q):
         return plain_ordered_attention_bwd(q, k, v, dout, idx, table, num_heads, scale,
                                            num_emb)
-    _check_inputs(q, k, v, idx, table, num_heads, num_emb, backward=True)
+    _check_inputs(q, k, v, idx, table, num_heads, num_emb, dout)
     bw, n, c = q.shape
-    check("dout", dout, (bw, n, c), q.dtype, q.device)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     dtable = None if table is None else torch.zeros_like(table)
     launch("ordered_attention_bwd", "mde_ordered_attention_bwd", q.device,
@@ -149,8 +164,12 @@ class OrderedAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, idx, table = ctx.saved_tensors
-        dq, dk, dv, dtable = ordered_attention_bwd(q, k, v, dout.contiguous(), idx, table,
-                                                   ctx.num_heads, ctx.scale, ctx.num_emb)
+        # autograd may hand over a view (a slice of a larger gradient): the
+        # kernel takes a contiguous one that starts on 16 bytes
+        if not dout.is_contiguous() or dout.data_ptr() % 16:
+            dout = dout.clone(memory_format=torch.contiguous_format)
+        dq, dk, dv, dtable = ordered_attention_bwd(q, k, v, dout, idx, table, ctx.num_heads,
+                                                   ctx.scale, ctx.num_emb)
         return dq, dk, dv, None, dtable if ctx.needs_input_grad[4] else None, None, None, None
 
 
@@ -159,5 +178,6 @@ def ordered_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       num_heads: int, scale: float, num_emb: int) -> torch.Tensor:
     """Ordered window MHA, differentiable in q, k, v and the table: the plain
     versions for CPU tensors, the CUDA kernels for CUDA tensors (which clamp
-    indices into [0, num_emb))."""
+    indices into [0, num_emb), take windows of up to 128 tokens and head dims
+    that are multiples of 8 up to 128, and run bf16 on the tensor cores)."""
     return OrderedAttentionFn.apply(q, k, v, idx, table, num_heads, scale, num_emb)

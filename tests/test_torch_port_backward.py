@@ -130,13 +130,10 @@ def _jax_ordered_grads(fn, q, k, v, g, idx, table, nh, scale, e):
     return vjp(jnp.asarray(g))
 
 
-@pytest.mark.parametrize("n", [16, 64])
-@pytest.mark.parametrize("with_table", [True, False])
-def test_ordered_attention_grads_match_jax(n, with_table):
-    q, k, v, g, idx, table, nh, scale, e = _ordered_case(n, with_table)
+def _check_ordered_grads(q, k, v, g, idx, table, nh, scale, e):
     tq, tk, tv, tt = (_t(a, grad=True) for a in (q, k, v, table))
     ordered_attention(tq, tk, tv, _t(idx), tt, nh, scale, e).backward(torch.from_numpy(g))
-    ours = [tq.grad, tk.grad, tv.grad] + ([tt.grad] if with_table else [])
+    ours = [tq.grad, tk.grad, tv.grad] + ([tt.grad] if table is not None else [])
     pallas = _jax_ordered_grads(
         lambda *a: fused_ordered_window_attention(*a, impl="pallas_interpret"),
         q, k, v, g, idx, table, nh, scale, e)
@@ -144,6 +141,21 @@ def test_ordered_attention_grads_match_jax(n, with_table):
     for name, o, p, x in zip(("dq", "dk", "dv", "dtable"), ours, pallas, xla):
         assert _max_abs(o, p) <= TOL, (name, _max_abs(o, p))
         assert _max_abs(o, x) <= TOL, (name, _max_abs(o, x))
+
+
+@pytest.mark.parametrize("n", [16, 64, 49])
+@pytest.mark.parametrize("with_table", [True, False])
+def test_ordered_attention_grads_match_jax(n, with_table):
+    _check_ordered_grads(*_ordered_case(n, with_table))
+
+
+def test_ordered_attention_grads_match_jax_one_bucket_per_window():
+    """Every index of a window equal, so that all of a window's dS fall in
+    one dT bucket (E - 1), where the card kernel's runs of equal buckets are
+    longest."""
+    q, k, v, g, idx, table, nh, scale, e = _ordered_case(16, True, seed=6)
+    idx = np.repeat(idx[:, :1], idx.shape[1], axis=1)
+    _check_ordered_grads(q, k, v, g, idx, table, nh, scale, e)
 
 
 def test_ordered_attention_plain_bwd_matches_torch_autograd():

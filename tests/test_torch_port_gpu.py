@@ -137,31 +137,116 @@ def test_window_attention_bwd_kernel(cuda, dtype, r, shifted):
            (qkv, dout, bias, mask, nh, scale), dtype, relative=True)
 
 
-def _ordered_args(cuda, dtype, with_table, seed=1):
+# (n, heads, channels, num_emb, every index of a window equal): the
+# flagship's window; 49 tokens at head dim 32 (padded rows and keys); the
+# tiny model's 16 tokens at head dim 8 (the k-dimension padded to 16); one
+# dT bucket per window; 100 tokens at head dim 72, past the kernels' tiles
+# for n and head dims up to 64 (padded to 112 rows and 80)
+ORDERED_CASES = {"flagship": (64, 8, 512, 128, False), "n49": (49, 4, 128, 128, False),
+                 "tiny": (16, 4, 32, 16, False), "one_bucket": (64, 8, 512, 128, True),
+                 "n100": (100, 4, 288, 128, False)}
+
+
+def _ordered_args(cuda, dtype, with_table, seed=1, case="flagship"):
+    n, nh, c, e, constant = ORDERED_CASES[case]
     rng = np.random.RandomState(seed)
-    bw, n, nh, c, e = 10, 64, 8, 512, 128
+    bw = 10
     q, k, v = (_randn(rng, bw, n, c).to(cuda, dtype) for _ in range(3))
-    idx = torch.from_numpy(rng.randint(0, e, (bw, n)).astype(np.int32)).to(cuda)
+    idx = rng.randint(0, e, (bw, 1 if constant else n)).astype(np.int32)
+    idx = torch.from_numpy(np.repeat(idx, n // idx.shape[1], axis=1)).to(cuda)
     table = _randn(rng, 2 * e - 1, nh).to(cuda) if with_table else None
     return q, k, v, idx, table, nh, (c // nh) ** -0.5, e
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", list(ORDERED_CASES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_table", [True, False])
-def test_ordered_attention_kernel(cuda, dtype, with_table):
+def test_ordered_attention_kernel(cuda, dtype, with_table, case):
     _check("ordered_attention", ordered_attention, plain_ordered_attention,
-           _ordered_args(cuda, dtype, with_table), dtype)
+           _ordered_args(cuda, dtype, with_table, case=case), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(ORDERED_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_table", [True, False])
+def test_ordered_attention_bwd_kernel(cuda, dtype, with_table, case):
+    q, k, v, idx, table, nh, scale, e = _ordered_args(cuda, dtype, with_table, seed=8,
+                                                      case=case)
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(9)).to(cuda, dtype)
+    args = (q, k, v, dout, idx, table, nh, scale, e)
+    if case != "one_bucket" or table is None or dtype == torch.bfloat16:
+        _check("ordered_attention_bwd", ordered_attention_bwd, plain_ordered_attention_bwd,
+               args, dtype, relative=True)
+        return
+    # One bucket a window: every row of dS sums to 0, so the exact dT is 0
+    # and both versions' f32 dT are rounding of a sum of ~40,000 terms that
+    # cancel, in different orders (measured 6e-5 apart, against 1e-5 of
+    # max(1, max |dT|)). dq, dk and dv are held as in every other case; dT
+    # is held to 0 within 1e-5 of the sum of |dS| of its entry.
+    _check("ordered_attention_bwd", lambda *a: ordered_attention_bwd(*a)[:3],
+           lambda *a: plain_ordered_attention_bwd(*a)[:3], args, dtype, relative=True)
+    dtable = ordered_attention_bwd(*args)[3]
+    torch.cuda.synchronize()
+    assert torch.isfinite(dtable).all()
+    assert (dtable.abs() <= TOL * _ds_abs_sum(*args)).all()
+
+
+def _ds_abs_sum(q, k, v, dout, idx, table, nh, scale, e):
+    """(2E-1, heads) sums of |dS| over the pairs of each dT entry, in f32 as
+    plain_ordered_attention_bwd computes dS."""
+    bw, n, c = q.shape
+    qh, kh, vh, doh = (t.float().reshape(bw, n, nh, c // nh) for t in (q * scale, k, v, dout))
+    rel = idx[:, :, None].long() - idx[:, None, :].long() + e - 1
+    p = (torch.einsum("bqhd,bkhd->bhqk", qh, kh)
+         + table.t()[:, rel].permute(1, 0, 2, 3)).softmax(dim=-1)
+    dp = torch.einsum("bqhd,bkhd->bhqk", doh, vh)
+    ds = (p * (dp - (dp * p).sum(dim=-1, keepdim=True))).abs()
+    return torch.zeros(nh, 2 * e - 1, device=q.device).index_add_(
+        1, rel.reshape(-1), ds.permute(1, 0, 2, 3).reshape(nh, -1)).t()
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("with_table", [True, False])
-def test_ordered_attention_bwd_kernel(cuda, dtype, with_table):
-    q, k, v, idx, table, nh, scale, e = _ordered_args(cuda, dtype, with_table, seed=8)
-    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(9)).to(cuda, dtype)
-    _check("ordered_attention_bwd", ordered_attention_bwd, plain_ordered_attention_bwd,
-           (q, k, v, dout, idx, table, nh, scale, e), dtype, relative=True)
+def test_ordered_attention_kernels_refuse_windows_over_128(cuda, dtype):
+    """144 tokens (a 12 x 12 window) is past what the kernels take: both
+    wrappers raise before any launch, and nothing falls back."""
+    q = torch.randn(2, 144, 64, device=cuda).to(dtype)
+    idx = torch.zeros(2, 144, dtype=torch.int32, device=cuda)
+    table = torch.randn(31, 4, device=cuda)
+    before = dict(kernels.launch_counts)
+    with pytest.raises(ValueError, match="144 tokens"):
+        ordered_attention(q, q, q, idx, table, 4, 0.25, 16)
+    with pytest.raises(ValueError, match="144 tokens"):
+        ordered_attention_bwd(q, q, q, q, idx, table, 4, 0.25, 16)
+    assert kernels.launch_counts == before
+
+
+@pytest.mark.gpu
+def test_ordered_attention_kernels_refuse_misaligned_bf16_views(cuda):
+    """A contiguous bf16 view that does not start on 16 bytes (a slice of a
+    flat buffer) is refused before any launch, since the tensor-core kernels
+    copy 16-byte pieces; autograd's backward copies such an output gradient
+    and gives what the kernel gives on an aligned copy of it."""
+    bw, n, c, nh, e = 2, 16, 32, 4, 16
+    flat = torch.randn(bw * n * c + 1, device=cuda).to(torch.bfloat16)
+    bad = flat[1:].view(bw, n, c)
+    ok = torch.randn(bw, n, c, device=cuda).to(torch.bfloat16)
+    idx = torch.randint(0, e, (bw, n), dtype=torch.int32, device=cuda)
+    table = torch.randn(2 * e - 1, nh, device=cuda)
+    before = dict(kernels.launch_counts)
+    with pytest.raises(ValueError, match="16-byte"):
+        ordered_attention(bad, ok, ok, idx, table, nh, 0.25, e)
+    with pytest.raises(ValueError, match="16-byte"):
+        ordered_attention_bwd(ok, ok, ok, bad, idx, table, nh, 0.25, e)
+    assert kernels.launch_counts == before
+    q, k, v = (ok.clone().requires_grad_() for _ in range(3))
+    out = ordered_attention(q, k, v, idx, table, nh, 0.25, e)
+    torch.cat([out.new_zeros(1), out.reshape(-1)]).backward(flat)
+    dq, dk, dv, _ = ordered_attention_bwd(ok, ok, ok, bad.clone(), idx, table, nh, 0.25, e)
+    for got, want in ((q.grad, dq), (k.grad, dk), (v.grad, dv)):
+        assert torch.equal(got, want)
 
 
 @pytest.mark.gpu

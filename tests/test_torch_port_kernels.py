@@ -75,7 +75,7 @@ def _ordered_inputs(n, with_table, seed=1):
     return q, k, v, idx, table, nh, (c // nh) ** -0.5, e
 
 
-@pytest.mark.parametrize("n", [16, 64])
+@pytest.mark.parametrize("n", [16, 64, 49])
 @pytest.mark.parametrize("with_table", [True, False])
 def test_ordered_attention_plain_matches_jax(n, with_table):
     q, k, v, idx, table, nh, scale, e = _ordered_inputs(n, with_table)
