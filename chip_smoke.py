@@ -4,7 +4,8 @@
 
 1. Prints the card (``nvidia-smi`` name and power limit), builds the port's
    CUDA kernels from ``mde_tpu_torch/ops/kernels/csrc`` with ``nvcc`` for
-   sm_90a and prints each kernel's registers and shared memory.
+   sm_90a and prints each kernel's registers and spills (ptxas) and the
+   shared memory a block takes (K1 and K2 as their sources count it).
 2. Kernel phases: each of the ten kernels against its plain PyTorch version
    on the card at its main path's shapes, in bf16 and in f32 with TF32 off;
    its device time (CUDA events around calls queued behind a busy kernel;
@@ -15,9 +16,11 @@
    could take (bytes over 3.35 TB/s, operations over the 989 TFLOP/s bf16
    peak). The forwards at the serving shapes (batch 8), the backwards at
    the train step's (batch 4). K2's backward is timed (and checked in
-   bf16) a second time on windows whose depth indices are all equal. Each
-   kernel is also timed with its calls following a synchronisation, so
-   that any host gaps between them count (``host_ms``).
+   bf16) a second time on windows whose depth indices are all equal. K1 is
+   also timed at the KSA decoder's head dim 16 and its backward at the
+   train step's stage 3, where 18 of the flagship's 24 backward launches
+   run. Each kernel is also timed with its calls following a
+   synchronisation, so that any host gaps between them count (``host_ms``).
 3. Flagship serving at full width: ``oda2_red_order_swin2`` (Swin-B, red33
    neck, ordered head) with seeded random weights. In f32 at batch 1, with
    seeded statistics in the FFs' BatchNorms so that K4's folded affine is
@@ -54,6 +57,7 @@ from __future__ import annotations
 
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -204,8 +208,7 @@ def window_phase(stage: str, bw: int, c: int, heads: int, nw: int, masked: bool,
     from mde_tpu_torch.ops.window import shifted_window_attn_mask
     g = torch.Generator(device=dev).manual_seed(1)
     n = 49
-    hw = {512: (112, 224), 128: (56, 112), 32: (28, 56), 8: (14, 28)}[nw]
-    mask = shifted_window_attn_mask(*hw, 7, 3, dev) if masked else None
+    mask = shifted_window_attn_mask(*WINDOW_GRIDS[nw], 7, 3, dev) if masked else None
     bias = torch.randn(heads, n, n, generator=g, device=dev)
 
     def make(dtype):
@@ -226,6 +229,10 @@ def window_phase(stage: str, bw: int, c: int, heads: int, nw: int, masked: bool,
 
     name = f"K1 {stage} ({bw},{n},{c})/{heads}{' masked' if masked else ''}"
     return kernel_phase("window_attention", name, window_attention, plain, make, library, cost)
+
+
+# the (H, W) token grid of each Swin stage at 448x896, by its number of 7x7 windows
+WINDOW_GRIDS = {512: (112, 224), 128: (56, 112), 32: (28, 56), 8: (14, 28)}
 
 
 def window_mask(bias, mask, bw, dtype):
@@ -292,14 +299,14 @@ def depthwise_phase(dev):
                         plain_depthwise_conv2d, make, library, cost)
 
 
-def window_bwd_phase(dev):
-    """K1 backward at the train step's stage-1 SW-MSA shape."""
+def window_bwd_phase(stage: str, bw: int, c: int, heads: int, nw: int, dev):
+    """K1 backward at one of the train step's SW-MSA shapes."""
     from mde_tpu_torch.ops.kernels.window_attention import (plain_window_attention_bwd,
                                                             window_attention_bwd)
     from mde_tpu_torch.ops.window import shifted_window_attn_mask
     g = torch.Generator(device=dev).manual_seed(4)
-    bw, n, c, heads = 512 * TRAIN_BATCH, 49, 128, 4
-    mask = shifted_window_attn_mask(112, 224, 7, 3, dev)
+    n = 49
+    mask = shifted_window_attn_mask(*WINDOW_GRIDS[nw], 7, 3, dev)
     bias = torch.randn(heads, n, n, generator=g, device=dev)
 
     def make(dtype):
@@ -324,7 +331,7 @@ def window_bwd_phase(dev):
     def cost(args, outs):
         return nbytes(*args[:4], *outs), 10 * bw * n * n * c
 
-    return kernel_phase("window_attention_bwd", f"K1 bwd stage 1 ({bw},{n},{c})/{heads} masked",
+    return kernel_phase("window_attention_bwd", f"K1 bwd {stage} ({bw},{n},{c})/{heads} masked",
                         window_attention_bwd, plain, make, library, cost, relative=True)
 
 
@@ -992,8 +999,65 @@ def profile_call(call) -> None:
         return
     log(f"profile of one call: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms host clock "
         f"(idle share {1 - busy_ms / wall_ms:.3f}, profiler on)")
-    for ms, count, key in sorted(rows, reverse=True)[:25]:
-        log(f"  {ms:9.3f} ms {100 * ms / busy_ms:5.1f}% x{count:<4d} {key[:110]}")
+    # the 25 largest, and the port's own kernels wherever they rank
+    ours = ("window_attention", "ordered_attention", "depthwise", "glu_ff", "channel_attention")
+    for i, (ms, count, key) in enumerate(sorted(rows, reverse=True)):
+        if i < 25 or any(name in key for name in ours):
+            log(f"  {ms:9.3f} ms {100 * ms / busy_ms:5.1f}% x{count:<4d} {key[:110]}")
+
+
+def ptxas_entries(report: str) -> list:
+    """(source, kernel, registers, spill bytes stored and loaded) of every
+    kernel in the build's ``-Xptxas -v`` report."""
+    rows, src, entry, spills = [], None, None, (0, 0)
+    for line in report.splitlines():
+        if line.startswith("== "):
+            src = line[3:].strip()
+        elif m := re.search(r"Compiling entry function '(\w+)'", line):
+            entry, spills = m.group(1), (0, 0)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spills = (int(m.group(1)), int(m.group(2)))
+        elif (m := re.search(r"Used (\d+) registers", line)) and entry:
+            rows.append((src, kernel_name(entry), int(m.group(1)), spills))
+            entry = None
+    return rows
+
+
+def kernel_name(mangled: str) -> str:
+    """A kernel's name and template arguments from its mangled symbol."""
+    m = re.match(r"_Z(\d+)(\w+)", mangled)
+    if not m:
+        return mangled
+    size, rest = int(m.group(1)), m.group(2)
+    name, rest = rest[:size], rest[size:]
+    if m := re.match(r"I((?:Li\d+E)+)E", rest):
+        name += "<" + ",".join(re.findall(r"Li(\d+)E", m.group(1))) + ">"
+    elif rest.startswith("I13__nv_bfloat16E"):
+        name += "<bf16>"
+    elif rest.startswith("IfE"):
+        name += "<float>"
+    return name
+
+
+def k1_build_report(kernels) -> dict:
+    """K1's and K1 bwd's registers and spills (ptxas) and the shared memory
+    a block takes at N 49 with the bias (the kernels' own counts), by
+    kernel, for the ``kernels`` line; logs the shared memory."""
+    lib, rows = kernels.library(), ptxas_entries(kernels.ptxas_report())
+    smem_of = {"window_attention": lambda hd, code: lib.mde_window_attention_smem(
+                   49, 4 * hd, 4, code),
+               "window_attention_bwd": lambda hd, code: lib.mde_window_attention_bwd_smem(
+                   49, 4 * hd, 4, 1, code)}
+    out = {}
+    for name, fn in smem_of.items():
+        smem = {f"N 49 hd {hd} {tag}": fn(hd, code)
+                for hd in (16, 32) for tag, code in (("bf16", 1), ("f32", 0))}
+        log(f"{name}: shared memory a block, with the bias: " +
+            ", ".join(f"{k} {v} B" for k, v in smem.items()))
+        out[name] = {"ptxas": [{"kernel": e, "registers": r, "spill_bytes": st + ld}
+                               for src, e, r, (st, ld) in rows if src == f"{name}.cu"],
+                     "smem_bytes": smem}
+    return out
 
 
 def main() -> int:
@@ -1011,19 +1075,21 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.build()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
-    for line in kernels.ptxas_report().splitlines():
-        if line.startswith("==") or "Compiling entry" in line or "registers" in line:
-            log(line.strip())
+    for src, entry, regs, (stores, loads) in ptxas_entries(kernels.ptxas_report()):
+        log(f"{src}: {entry}: {regs} registers, spills {stores} B stored, {loads} B loaded")
+    k1_build = k1_build_report(kernels)
     # K2 at the flagship's N 64, 512 channels, 8 heads, 128 depth values, with
     # the table, in f32 (code 0) and bf16 (1), as the kernels' sources count it
     lib = kernels.library()
     k2 = {(bwd, code): (lib.mde_ordered_attention_bwd_smem if bwd
                         else lib.mde_ordered_attention_smem)(64, 512, 8, 128, 1, code)
           for bwd in (False, True) for code in (0, 1)}
-    log(f"dynamic shared memory per block: K1 {kernels.head_smem_bytes(49, 32)} B "
-        f"(N 49, head dim 32), K2 bf16 {k2[False, 1]} B (tensor cores, 128 threads; N 64, "
-        f"head dim 64, with the table; f32 {k2[False, 0]} B), K1 bwd "
-        f"{kernels.head_smem_bytes(49, 32, 49 * 49, backward=True)} B, K2 bwd bf16 "
+    log(f"dynamic shared memory per block: K1 bf16 "
+        f"{k1_build['window_attention']['smem_bytes']['N 49 hd 32 bf16']} B (tensor cores, "
+        f"128 threads; N 49, head dim 32), K1 bwd bf16 "
+        f"{k1_build['window_attention_bwd']['smem_bytes']['N 49 hd 32 bf16']} B (with the "
+        f"bias), K2 bf16 {k2[False, 1]} B (N 64, "
+        f"head dim 64, with the table; f32 {k2[False, 0]} B), K2 bwd bf16 "
         f"{k2[True, 1]} B (f32 {k2[True, 0]} B), K3 and K4 none, "
         f"K5 {pair_smem_bytes(49, 16, 16)} B and K5 bwd "
         f"{pair_smem_bytes(49, 16, 16, backward=True)} B per (window, head) pair (N 49, head "
@@ -1036,7 +1102,8 @@ def main() -> int:
               window_phase("stage 3", 32 * BATCH, 512, 16, 32, True, dev),
               ordered_phase(True, dev), ordered_phase(False, dev),
               depthwise_phase(dev),
-              window_bwd_phase(dev), ordered_bwd_phase(dev),
+              window_bwd_phase("stage 1", 512 * TRAIN_BATCH, 128, 4, 512, dev),
+              ordered_bwd_phase(dev),
               depthwise_bwd_phase(dev, dxdw=True), depthwise_bwd_phase(dev, dxdw=False),
               glu_phase(dev), channel_phase(dev, backward=False),
               channel_phase(dev, backward=True)]
@@ -1044,6 +1111,18 @@ def main() -> int:
     phases[7]["one_bucket_ms"] = one["ms"]
     log(f"K2 bwd by index pattern: uniform {phases[7]['ms']:.4f} ms, one index a window "
         f"{one['ms']:.4f} ms ({one['ms'] / phases[7]['ms']:.2f}x)")
+    # K1 at the other shapes of its paths: the KSA decoder's head dim 16
+    # (stage 0, serving) and the train step's stage 3, where 18 of the
+    # flagship's 24 backward launches run
+    k1_more = {"window_attention": [phases[0], phases[2],
+                                    window_phase("KSA decoder stage 0", 512 * BATCH, 64, 4,
+                                                 512, True, dev)],
+               "window_attention_bwd": [window_bwd_phase("stage 3", 32 * TRAIN_BATCH, 512, 16,
+                                                         32, dev)]}
+    for p in (phases[1], phases[6], *k1_more["window_attention"],
+              *k1_more["window_attention_bwd"]):
+        log(f"{p['phase']}: {p['ms'] / p['library_ms']:.2f}x the SDPA yardstick, "
+            f"{p['ms'] / p['bound_ms']:.2f}x the bound")
     torch.cuda.empty_cache()
 
     model_f32_check(dev)
@@ -1076,7 +1155,11 @@ def main() -> int:
         "path": paths[name][0], "max_abs_err": p["max_abs_err_bf16"], "ms": p["ms"],
         "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
         "library_ms": p["library_ms"], "host_ms": p["host_ms"]},
-        **{k: p[k] for k in ("library", "unfused_chain_ms", "one_bucket_ms") if k in p})
+        **{k: p[k] for k in ("library", "unfused_chain_ms", "one_bucket_ms") if k in p},
+        **k1_build.get(name, {}),
+        **({"other_shapes": [{k: q[k] for k in ("phase", "ms", "library_ms", "bound_ms",
+                                                 "plain_ms", "host_ms", "max_abs_err_bf16")}
+                             for q in k1_more[name]]} if name in k1_more else {}))
         for name, p in report.items()]}
     log(card)
     log(json.dumps(line))

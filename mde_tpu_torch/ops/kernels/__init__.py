@@ -48,6 +48,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "mde_window_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     "mde_window_attention_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    "mde_window_attention_smem": [_I] * 4,
+    "mde_window_attention_bwd_smem": [_I] * 5,
     "mde_ordered_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     "mde_ordered_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   _F, _I, _P],
@@ -172,27 +174,11 @@ def check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
-def head_smem_bytes(n: int, hd: int, extra_floats: int = 0, backward: bool = False) -> int:
-    """Shared memory of one (window, head) block of ``n`` tokens at head dim
-    ``hd``: ``window_head_smem_floats`` (or, for the backward,
-    ``window_head_bwd_smem_floats``) in ``csrc/common.cuh``, plus
-    ``extra_floats``."""
-    if backward:
-        return (2 * n * hd + 2 * n * (hd + 1) + 2 * n * n + extra_floats) * 4
-    return (3 * n * hd + n + n * n + extra_floats) * 4
-
-
 def check_smem(kernel: str, n: int, hd: int, need: int) -> None:
     """Raise unless ``need`` bytes fit a block's shared memory."""
     if need > SMEM_LIMIT:
         raise ValueError(f"{kernel}: N={n}, head dim {hd} needs {need} bytes of shared "
                          f"memory; a block has {SMEM_LIMIT}")
-
-
-def check_head_smem(kernel: str, n: int, hd: int, extra_floats: int = 0,
-                    backward: bool = False) -> None:
-    """Raise unless such a block fits a block's shared memory."""
-    check_smem(kernel, n, hd, head_smem_bytes(n, hd, extra_floats, backward))
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:

@@ -1,6 +1,6 @@
 // Window attention in bf16 on the tensor cores: the per-(window, head)
-// bodies of K2's forward and backward (ordered_attention*.cu), written so
-// that K1 can take them up.
+// bodies of K1's and K2's forwards and backwards (window_attention*.cu,
+// ordered_attention*.cu).
 //
 // One block of 4 warps holds one (window, head). Its operands (rows of the
 // head's q, k, v and dO) are staged in shared memory as bf16 by 16-byte
@@ -10,10 +10,10 @@
 // (a row is 2 * pad16(hd) + 16 bytes, an odd number of 16-byte groups).
 // Each warp owns 16 query rows: mma.sync.m16n8k16 (bf16 operands, f32
 // sums) computes its 16 x n block of S with A and B fed by ldmatrix, S
-// stays in registers, the bias is added per accumulator element from its
-// (row, col), the softmax reduces within the quad of lanes that share a
-// row, and the f32 accumulators of P become the bf16 A fragments of P.v in
-// registers.
+// stays in registers, the bias is added per accumulator element (from its
+// (row, col), or from a tile of the bias kept in fragment order, FragBias),
+// the softmax reduces within the quad of lanes that share a row, and the
+// f32 accumulators of P become the bf16 A fragments of P.v in registers.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16, g = lane / 4, t = lane % 4):
 //   A (16 x 16): a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..), a3 (g+8, 2t+8..)
@@ -33,6 +33,12 @@ typedef __nv_bfloat16 bf16;
 #define MMA_THREADS 128
 
 __host__ __device__ inline int mma_pad16(int x) { return (x + 15) & ~15; }
+
+// The shapes the bodies take: windows of up to MMA_MAX_N tokens, head dims
+// that are multiples of 8 (16-byte rows) up to MMA_MAX_HD.
+inline bool mma_shape(int n, int hd) {
+  return n > 0 && n <= MMA_MAX_N && hd > 0 && hd % 8 == 0 && hd <= MMA_MAX_HD;
+}
 
 // Row stride, in elements, of a staged (rows, hd) operand.
 __host__ __device__ inline int mma_ld(int hd) { return mma_pad16(hd) + 8; }
@@ -125,6 +131,21 @@ __device__ __forceinline__ const bf16* tile_at(const bf16* m, int cols, int r0, 
   return m + swz(r0 + (lane & 7) + ((lane >> 4) << 3), c0 + (((lane >> 3) & 1) << 3), cols);
 }
 
+// f(r, ch) for every (row, 16-byte chunk) of a (rows, chunks) operand, the
+// one at flat index r * chunks + ch taken by thread idx mod count of
+// `count` threads. Where count is a multiple of chunks (the head dims
+// that are powers of two) a thread keeps one chunk column and steps over
+// rows, with no division in the loop.
+template <typename F>
+__device__ __forceinline__ void for_chunks(int idx, int count, int rows, int chunks, F f) {
+  if (count % chunks == 0) {
+    const int ch = idx % chunks, step = count / chunks;
+    for (int r = idx / chunks; r < rows; r += step) f(r, ch);
+  } else {
+    for (int i = idx; i < rows * chunks; i += count) f(i / chunks, i % chunks);
+  }
+}
+
 // Stage rows [0, n) and columns [0, hd) of a bf16 matrix with rows `ldg`
 // apart into `rows` rows of `ld` elements, zero-filling rows [n, rows) and
 // columns [hd, pad16(hd)). hd is a multiple of 8 and src 16-byte aligned.
@@ -132,13 +153,11 @@ __device__ __forceinline__ const bf16* tile_at(const bf16* m, int cols, int r0, 
 // chunks that this thread copied.
 __device__ __forceinline__ void mma_stage(bf16* dst, const bf16* src, int n, int rows, int hd,
                                           int ldg, int ld) {
-  const int chunks = mma_pad16(hd) >> 3;
-  for (int i = threadIdx.x; i < rows * chunks; i += blockDim.x) {
-    const int r = i / chunks, ch = i - r * chunks;
+  for_chunks(threadIdx.x, blockDim.x, rows, mma_pad16(hd) >> 3, [&](int r, int ch) {
     const bool valid = r < n && (ch << 3) < hd;
     cp_async16(dst + r * ld + (ch << 3), valid ? src + (size_t)r * ldg + (ch << 3) : src,
                valid);
-  }
+  });
 }
 
 // Multiply what mma_stage copied by `scale`, rounding each product to bf16,
@@ -146,9 +165,7 @@ __device__ __forceinline__ void mma_stage(bf16* dst, const bf16* src, int n, int
 // scales its own chunks).
 __device__ __forceinline__ void mma_scale_staged(bf16* dst, int rows, int hd, int ld,
                                                  float scale) {
-  const int chunks = mma_pad16(hd) >> 3;
-  for (int i = threadIdx.x; i < rows * chunks; i += blockDim.x) {
-    const int r = i / chunks, ch = i - r * chunks;
+  for_chunks(threadIdx.x, blockDim.x, rows, mma_pad16(hd) >> 3, [&](int r, int ch) {
     uint4* p = reinterpret_cast<uint4*>(dst + r * ld + (ch << 3));
     uint4 x = *p;
     uint32_t* w = reinterpret_cast<uint32_t*>(&x);
@@ -158,7 +175,7 @@ __device__ __forceinline__ void mma_scale_staged(bf16* dst, int rows, int hd, in
       w[j] = pack_bf16(f.x * scale, f.y * scale);
     }
     *p = x;
-  }
+  });
 }
 
 // Logits of one warp's 16 rows: s[j] is the C fragment of columns 8j..8j+7
@@ -224,9 +241,16 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+// exp(x) for the softmax: expf, or with FAST_EXP the multiply and ex2.approx
+// of __expf (2 instructions instead of ~10; its error, at most 2 + 1.16|x|
+// ulp, is far below the bf16 rounding of P that follows).
+template <bool FAST_EXP> __device__ __forceinline__ float softmax_exp(float x) {
+  return FAST_EXP ? __expf(x) : expf(x);
+}
+
 // softmax over the columns of s (in place, unnormalised: exp(s - max)),
 // returning 1 / rowsum for row halves g and g+8; columns >= n are -inf.
-template <int NT>
+template <int NT, bool FAST_EXP = false>
 __device__ __forceinline__ void mma_softmax(float (&s)[2 * NT][4], int nk, float& inv0,
                                             float& inv1) {
   float m0 = -INFINITY, m1 = -INFINITY;
@@ -242,10 +266,10 @@ __device__ __forceinline__ void mma_softmax(float (&s)[2 * NT][4], int nk, float
 #pragma unroll
   for (int j = 0; j < 2 * NT; ++j) {
     if (j >= 2 * nk) break;
-    s[j][0] = expf(s[j][0] - m0);
-    s[j][1] = expf(s[j][1] - m0);
-    s[j][2] = expf(s[j][2] - m1);
-    s[j][3] = expf(s[j][3] - m1);
+    s[j][0] = softmax_exp<FAST_EXP>(s[j][0] - m0);
+    s[j][1] = softmax_exp<FAST_EXP>(s[j][1] - m0);
+    s[j][2] = softmax_exp<FAST_EXP>(s[j][2] - m1);
+    s[j][3] = softmax_exp<FAST_EXP>(s[j][3] - m1);
     l0 += s[j][0] + s[j][1];
     l1 += s[j][2] + s[j][3];
   }
@@ -253,13 +277,92 @@ __device__ __forceinline__ void mma_softmax(float (&s)[2 * NT][4], int nk, float
   inv1 = 1.f / quad_sum(l1);
 }
 
+// The logits of one warp's 16 rows (C fragments s, rows r0..), scaled in
+// f32 after the product and then biased: s * scale + bias(row, col) where
+// col < n, -inf at the padded keys. bias(row, col) is called for
+// row < pad16(n), col < n.
+template <int NT, typename BiasFn>
+__device__ __forceinline__ void add_bias(float (&s)[2 * NT][4], int r0, int nk, int n,
+                                         float scale, BiasFn bias) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < 2 * NT; ++j) {
+    if (j >= 2 * nk) break;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = r0 + g + ((e >> 1) << 3), col = 8 * j + 2 * t + (e & 1);
+      s[j][e] = col < n ? __fmul_rn(s[j][e], scale) + bias(row, col) : -INFINITY;
+    }
+  }
+}
+
+// A (pad16(n), pad16(n)) f32 bias kept in shared memory in the order of the
+// C fragments: the float4 of lane L for 8-column tile j of 16-row tile rt
+// sits at (rt * pad16(n) / 8 + j) * 32 + L and holds that lane's c0..c3.
+// -inf at the padded keys, 0 at the padded rows (mma_bias_tile). Each lane
+// reads its 2 pad16(n) / 8 values of a row tile as float4s, in 4 wavefronts
+// a warp-wide load, whatever its (row, col).
+struct FragBias {
+  const float4* tile;
+};
+
+// Offset, in floats, of element (row, col) of such a tile of `tiles`
+// 8-column tiles a row tile (pad16(n) / 8).
+__device__ __forceinline__ int frag_offset(int row, int col, int tiles) {
+  const int r = row & 15, cc = col & 7;
+  return ((((row >> 4) * tiles + (col >> 3)) * 32 + ((r & 7) << 2) + (cc >> 1)) << 2) +
+         ((r >> 3) << 1) + (cc & 1);
+}
+
+// Fill a FragBias tile with bias + mask ((n, n) f32 each, either may be
+// null); all threads of the block call it and the caller synchronises
+// before the tile is read. The two are summed first, then added to the
+// logit: (s + bias) + mask in the JAX kernels, s + (bias + mask) here, at
+// most one f32 rounding apart, and equal wherever the mask is 0.
+__device__ __forceinline__ void mma_bias_tile(float* tile, const float* __restrict__ bias,
+                                              const float* __restrict__ mask, int n) {
+  const int np = mma_pad16(n), tiles = np >> 3;
+  // a float4 of the tile at a time, in its order, two of them in flight
+#pragma unroll 2
+  for (int f = threadIdx.x; f < np * np / 4; f += blockDim.x) {
+    const int lane = f & 31, rt = (f >> 5) / tiles, j = (f >> 5) - rt * tiles;
+    const int row = rt * 16 + (lane >> 2), col = 8 * j + 2 * (lane & 3);
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = row + ((e >> 1) << 3), cc = col + (e & 1);
+      const bool in = r < n && cc < n;
+      const float b = in && bias ? bias[r * n + cc] : 0.f;
+      const float m = in && mask ? mask[r * n + cc] : 0.f;
+      v[e] = cc < n ? b + m : -INFINITY;
+    }
+    reinterpret_cast<float4*>(tile)[f] = make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// add_bias from a FragBias tile: the padded keys' -inf comes from the tile.
+template <int NT>
+__device__ __forceinline__ void add_bias(float (&s)[2 * NT][4], int r0, int nk, int n,
+                                         float scale, FragBias bias) {
+  const float4* p = bias.tile + (r0 >> 4) * 2 * nk * 32 + (threadIdx.x & 31);
+#pragma unroll
+  for (int j = 0; j < 2 * NT; ++j) {
+    if (j >= 2 * nk) break;
+    const float4 b = p[j * 32];
+    s[j][0] = __fmul_rn(s[j][0], scale) + b.x;
+    s[j][1] = __fmul_rn(s[j][1], scale) + b.y;
+    s[j][2] = __fmul_rn(s[j][2], scale) + b.z;
+    s[j][3] = __fmul_rn(s[j][3], scale) + b.w;
+  }
+}
+
 // softmax(q . k^T * scale + bias(row, col)) . v for one (window, head), in
 // bf16 with f32 logits, softmax and sums; P is rounded to bf16 before P.v.
 // sq, sk, sv: staged by mma_stage, pad16(n) rows `ld` apart; each warp
 // reuses its own rows of sq to stage its output, which it writes to `out`
-// (rows `ldo` apart) in 16-byte stores. bias(row, col) is called for
-// row < pad16(n), col < n. All threads of the block call it.
-template <int NT, int DT, typename BiasFn>
+// (rows `ldo` apart) in 16-byte stores. bias: a FragBias, or a callable
+// bias(row, col) (add_bias). All threads of the block call it.
+template <int NT, int DT, bool FAST_EXP = false, typename BiasFn>
 __device__ void mma_head_attention(bf16* sq, const bf16* sk, const bf16* sv, int ld,
                                    bf16* __restrict__ out, int ldo, int n, int hd, float scale,
                                    BiasFn bias) {
@@ -270,18 +373,9 @@ __device__ void mma_head_attention(bf16* sq, const bf16* sk, const bf16* sv, int
     const int r0 = rt * 16;
     float s[2 * NT][4];
     mma_rows_abt<NT, DT>(s, sq, sk, ld, r0, nk, nd, lane);
-#pragma unroll
-    for (int j = 0; j < 2 * NT; ++j) {
-      if (j >= 2 * nk) break;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = r0 + g + ((e >> 1) << 3), col = 8 * j + 2 * t + (e & 1);
-        // the logits are scaled in f32 after the product, then biased
-        s[j][e] = col < n ? __fmul_rn(s[j][e], scale) + bias(row, col) : -INFINITY;
-      }
-    }
+    add_bias<NT>(s, r0, nk, n, scale, bias);
     float inv0, inv1;
-    mma_softmax<NT>(s, nk, inv0, inv1);
+    mma_softmax<NT, FAST_EXP>(s, nk, inv0, inv1);
     float o[2 * DT][4];
     mma_rows_pm<NT, DT>(o, s, inv0, inv1, sv, ld, nk, nd, lane);
     bf16* stage = sq + r0 * ld;
@@ -294,18 +388,16 @@ __device__ void mma_head_attention(bf16* sq, const bf16* sk, const bf16* sv, int
           pack_bf16(o[dn][2], o[dn][3]);
     }
     __syncwarp();
-    const int chunks = hd >> 3;
-    for (int i = lane; i < 16 * chunks; i += 32) {
-      const int r = i / chunks, ch = i - r * chunks;
+    for_chunks(lane, 32, 16, hd >> 3, [&](int r, int ch) {
       if (r0 + r < n)
         *reinterpret_cast<uint4*>(out + (size_t)(r0 + r) * ldo + (ch << 3)) =
             *reinterpret_cast<const uint4*>(stage + r * ld + (ch << 3));
-    }
+    });
   }
 }
 
 // Gradient of one (window, head), first half: per warp and 16 query rows,
-// recompute S = qs . k^T + bias and P in f32, dP = dO . v^T, and
+// recompute S = qs . k^T + bias (add_bias) and P in f32, dP = dO . v^T, and
 //   dS = P * (dP - rowsum(dP * P)),
 // hand the f32 dS to sink.tile(r0, ds) (all lanes of the warp together; ds
 // holds C fragments as S, and is 0 at padded rows and keys), write
@@ -313,7 +405,7 @@ __device__ void mma_head_attention(bf16* sq, const bf16* sk, const bf16* sv, int
 // to `dq` (rows `ldg` apart), and store bf16(P) and bf16(dS) in sp and sds
 // ((pad16(n), pad16(n)) laid out by swz; zero at padded rows and keys) for
 // mma_bwd_keys. sq holds qs = q * scale rounded to bf16 (mma_scale_staged).
-template <int NT, int DT, typename BiasFn, typename Sink>
+template <int NT, int DT, bool FAST_EXP = false, typename BiasFn, typename Sink>
 __device__ void mma_bwd_rows(const bf16* sq, const bf16* sk, const bf16* sv, const bf16* sdo,
                              int ld, bf16* sp, bf16* sds, bf16* __restrict__ dq,
                              int ldg, int n, int hd, float scale, BiasFn bias, Sink& sink) {
@@ -325,17 +417,9 @@ __device__ void mma_bwd_rows(const bf16* sq, const bf16* sk, const bf16* sv, con
     float s[2 * NT][4], dp[2 * NT][4];
     mma_rows_abt<NT, DT>(s, sq, sk, ld, r0, nk, nd, lane);
     mma_rows_abt<NT, DT>(dp, sdo, sv, ld, r0, nk, nd, lane);
-#pragma unroll
-    for (int j = 0; j < 2 * NT; ++j) {
-      if (j >= 2 * nk) break;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = r0 + g + ((e >> 1) << 3), col = 8 * j + 2 * t + (e & 1);
-        s[j][e] = col < n ? s[j][e] + bias(row, col) : -INFINITY;
-      }
-    }
+    add_bias<NT>(s, r0, nk, n, 1.f, bias);  // q came scaled: s * 1 is exact
     float inv0, inv1;
-    mma_softmax<NT>(s, nk, inv0, inv1);
+    mma_softmax<NT, FAST_EXP>(s, nk, inv0, inv1);
     // padded rows get P = 0, so that they add nothing to dk, dv or dT
     if (r0 + g >= n) inv0 = 0.f;
     if (r0 + g + 8 >= n) inv1 = 0.f;
@@ -437,4 +521,23 @@ __device__ void mma_bwd_keys(const bf16* sq, const bf16* sdo, int ld, const bf16
       }
     }
   }
+}
+
+// Windows a block walks, for a grid of (bw / wpb) x heads blocks of
+// `kernel` at `smem` bytes: runs of about `target` windows, sized so that
+// the grid fills whole waves of the blocks the card holds at once (a
+// block's windows run one after another, so a last wave part full leaves
+// SMs idle for a whole run). 0 on an error.
+template <typename K>
+static int balanced_windows_per_block(K kernel, size_t smem, int bw, int heads, int target) {
+  int device = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, MMA_THREADS, smem) !=
+          cudaSuccess)
+    return 0;
+  const long long work = (long long)bw * heads, slots = (long long)sms * max(per_sm, 1);
+  const long long waves = max(1LL, (work + slots * target / 2) / (slots * target));
+  const long long per_block = (work + slots * waves - 1) / (slots * waves);
+  return (int)min((long long)bw, max(1LL, per_block));
 }

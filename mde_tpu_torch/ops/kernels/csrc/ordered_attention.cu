@@ -166,8 +166,8 @@ extern "C" int mde_ordered_attention(const void* q, const void* k, const void* v
                                      const int* idx, const float* table, void* out, int bw,
                                      int n, int c, int heads, int num_emb, float scale,
                                      int dtype, void* stream) {
-  if (heads <= 0 || c % heads != 0 || n <= 0 || n > MMA_MAX_N || (c / heads) % 8 != 0 ||
-      c / heads > MMA_MAX_HD || (table && (num_emb <= 0 || !idx)))
+  if (heads <= 0 || c % heads != 0 || !mma_shape(n, c / heads) ||
+      (table && (num_emb <= 0 || !idx)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == MDE_F32)

@@ -233,24 +233,6 @@ static size_t f32_bwd_smem(int n, int hd, int num_emb, bool table) {
          sizeof(float);
 }
 
-// Windows per block for the bf16 kernel: runs of about 8 windows, sized so
-// that the grid fills whole waves of the blocks the card holds at once (4 an
-// SM at n = hd = 64): a block's windows run one after another, so a last
-// wave part full leaves SMs idle for a whole run. 0 on an error.
-template <typename K>
-static int balanced_windows_per_block(K kernel, size_t smem, int bw, int heads) {
-  int device = 0, sms = 0, per_sm = 0;
-  if (cudaGetDevice(&device) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, MMA_THREADS, smem) !=
-          cudaSuccess)
-    return 0;
-  const long long work = (long long)bw * heads, slots = (long long)sms * max(per_sm, 1);
-  const long long waves = max(1LL, (work + slots * 4) / (slots * 8));
-  const long long per_block = (work + slots * waves - 1) / (slots * waves);
-  return (int)min((long long)bw, max(1LL, per_block));
-}
-
 template <int NT, int DT>
 static int launch_mma(const void* q, const void* k, const void* v, const void* dout,
                       const int* idx, const float* table, void* dq, void* dk, void* dv,
@@ -264,8 +246,9 @@ static int launch_mma(const void* q, const void* k, const void* v, const void* d
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
+  // runs of about 8 windows, in whole waves of 4 blocks an SM at n = hd = 64
   const int wpb = balanced_windows_per_block(ordered_attention_bwd_mma_kernel<NT, DT>, smem,
-                                             bw, heads);
+                                             bw, heads, 8);
   if (wpb <= 0) return (int)cudaGetLastError();
   dim3 grid((bw + wpb - 1) / wpb, heads);
   ordered_attention_bwd_mma_kernel<NT, DT><<<grid, MMA_THREADS, smem, stream>>>(
@@ -300,9 +283,8 @@ extern "C" int mde_ordered_attention_bwd(const void* q, const void* k, const voi
                                          void* dq, void* dk, void* dv, float* dtable, int bw,
                                          int n, int c, int heads, int num_emb, float scale,
                                          int dtype, void* stream) {
-  if (heads <= 0 || c % heads != 0 || n <= 0 || n > MMA_MAX_N || (c / heads) % 8 != 0 ||
-      c / heads > MMA_MAX_HD || bw <= 0 || (!table != !dtable) ||
-      (table && (num_emb <= 0 || !idx)))
+  if (heads <= 0 || c % heads != 0 || !mma_shape(n, c / heads) || bw <= 0 ||
+      (!table != !dtable) || (table && (num_emb <= 0 || !idx)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == MDE_F32)

@@ -5,7 +5,9 @@ and its ``custom_vjp``. The CUDA kernels are ``csrc/window_attention.cu`` and
 ``csrc/window_attention_bwd.cu``, joined by one ``torch.autograd.Function``;
 ``plain_window_attention`` mirrors ``xla_window_attention`` (:77) and
 ``plain_window_attention_bwd`` the backward kernel body (``_bwd_kernel``,
-:180).
+:180). bf16 windows of up to 128 tokens at head dims that are multiples of
+8 up to 128 run on the tensor cores; f32, and bf16 beyond those shapes, on
+the CUDA cores (the rule ``mma_shape`` in ``csrc/attention_mma.cuh``).
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import check, check_head_smem, dtype_code, is_plain, launch, ptr
+from . import check, check_smem, dtype_code, is_plain, launch, library, ptr
 
 
 def plain_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -77,20 +79,33 @@ def plain_window_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
             dv.to(dt).reshape(bw, n, c), dbias)
 
 
-def _check_inputs(qkv, bias, mask, num_heads, backward: bool = False) -> int:
-    """Raise on what the forward (or backward) kernel does not take; return
-    the mask's nW (0 for no mask)."""
+def _check_inputs(qkv, bias, mask, num_heads, dout=None) -> int:
+    """Raise on what the forward (or, given ``dout``, the backward) kernel
+    does not take: bf16 tensors that do not start on 16 bytes (the
+    tensor-core kernels copy 16-byte pieces) and blocks beyond a block's
+    shared memory (as the kernel's source counts it). Return the mask's nW
+    (0 for no mask)."""
     bw, n, c3 = qkv.shape
     if c3 % 3 or (c3 // 3) % num_heads:
         raise ValueError(f"window_attention: {c3} fused channels do not split into q, k, v "
                          f"of {num_heads} heads")
     c = c3 // 3
+    name = "window_attention" if dout is None else "window_attention_bwd"
+    tensors = (("qkv", qkv),) + (() if dout is None else (("dout", dout),))
     check("qkv", qkv, (bw, n, c3), qkv.dtype, qkv.device)
-    dtype_code(qkv)
-    if backward:
-        check_head_smem("window_attention_bwd", n, c // num_heads, n * n, backward=True)
+    if dout is not None:
+        check("dout", dout, (bw, n, c), qkv.dtype, qkv.device)
+    code = dtype_code(qkv)
+    if qkv.dtype == torch.bfloat16:
+        for tname, t in tensors:
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name}: {tname} does not start on a 16-byte boundary")
+    if dout is None:
+        need = library().mde_window_attention_smem(n, c, num_heads, code)
     else:
-        check_head_smem("window_attention", n, c // num_heads)
+        need = library().mde_window_attention_bwd_smem(n, c, num_heads, int(bias is not None),
+                                                       code)
+    check_smem(name, n, c // num_heads, need)
     if bias is not None:
         check("bias", bias, (num_heads, n, n), torch.float32, qkv.device)
     if mask is None:
@@ -116,9 +131,8 @@ def window_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor,
             qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:], dout, bias, mask, num_heads,
             scale)
         return torch.cat([dq, dk, dv], dim=-1), dbias
-    nw = _check_inputs(qkv, bias, mask, num_heads, backward=True)
+    nw = _check_inputs(qkv, bias, mask, num_heads, dout)
     bw, n, _ = qkv.shape
-    check("dout", dout, (bw, n, c), qkv.dtype, qkv.device)
     dqkv = torch.empty_like(qkv)
     dbias = (None if bias is None else
              torch.zeros((num_heads, n, n), dtype=torch.float32, device=qkv.device))
@@ -152,8 +166,11 @@ class WindowAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         qkv, bias, mask = ctx.saved_tensors
-        dqkv, dbias = window_attention_bwd(qkv, dout.contiguous(), bias, mask, ctx.num_heads,
-                                           ctx.scale)
+        # autograd may hand over a view (a slice of a larger gradient): the
+        # kernel takes a contiguous one that starts on 16 bytes
+        if not dout.is_contiguous() or dout.data_ptr() % 16:
+            dout = dout.clone(memory_format=torch.contiguous_format)
+        dqkv, dbias = window_attention_bwd(qkv, dout, bias, mask, ctx.num_heads, ctx.scale)
         return dqkv, dbias if ctx.needs_input_grad[1] else None, None, None, None
 
 
@@ -162,5 +179,6 @@ def window_attention(qkv: torch.Tensor, bias: Optional[torch.Tensor],
                      scale: float) -> torch.Tensor:
     """Window MHA over the fused projection ``qkv`` (B*nW, N, 3C) = q | k | v
     along the last dim -> (B*nW, N, C), differentiable in qkv and bias: the
-    plain versions for CPU tensors, the CUDA kernels for CUDA tensors."""
+    plain versions for CPU tensors, the CUDA kernels for CUDA tensors (a
+    bf16 ``qkv`` must start on 16 bytes)."""
     return WindowAttentionFn.apply(qkv, bias, mask, num_heads, scale)

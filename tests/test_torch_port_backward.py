@@ -54,11 +54,11 @@ def _t(a, grad=False):
     return None if a is None else torch.from_numpy(a).requires_grad_(grad)
 
 
-def _window_case(n, with_bias, with_mask, seed=0):
+def _window_case(n, with_bias, with_mask, seed=0, hd=16):
     r = int(round(n ** 0.5))
     h = w = 2 * r
     nw = (h // r) * (w // r)
-    bw, nh, c = 3 * nw, 2, 32
+    bw, nh, c = 3 * nw, 2, 2 * hd
     rng = np.random.RandomState(seed)
     q, k, v, g = (rng.randn(bw, n, c).astype(np.float32) for _ in range(4))
     bias = rng.randn(nh, n, n).astype(np.float32) if with_bias else None
@@ -78,11 +78,13 @@ def _jax_window_grads(fn, q, k, v, g, bias, mask, nh, scale):
     return vjp(jnp.asarray(g))
 
 
-@pytest.mark.parametrize("n", [16, 49])
+# head dim 16 at n 16 and 49, and the main path's head dim 32 (Swin's)
+@pytest.mark.parametrize("n,hd", [pytest.param(16, 16, id="16"), pytest.param(49, 16, id="49"),
+                                  pytest.param(49, 32, id="49-hd32")])
 @pytest.mark.parametrize("with_bias,with_mask",
                          [(False, False), (True, False), (False, True), (True, True)])
-def test_window_attention_grads_match_jax(n, with_bias, with_mask):
-    q, k, v, g, bias, mask, nh, scale = _window_case(n, with_bias, with_mask)
+def test_window_attention_grads_match_jax(n, hd, with_bias, with_mask):
+    q, k, v, g, bias, mask, nh, scale = _window_case(n, with_bias, with_mask, hd=hd)
     qkv = _t(np.concatenate([q, k, v], axis=-1), grad=True)
     tb = _t(bias, grad=True)
     window_attention(qkv, tb, _t(mask), nh, scale).backward(torch.from_numpy(g))

@@ -137,6 +137,74 @@ def test_window_attention_bwd_kernel(cuda, dtype, r, shifted):
            (qkv, dout, bias, mask, nh, scale), dtype, relative=True)
 
 
+# (window side, heads, channels, images, bias, shifted): the KSA decoder's
+# head dim 16; stage 3's 16 heads at C 512; bias only, mask only, neither;
+# 144 tokens (a 12 x 12 window), past the tensor-core bodies' 128, at head
+# dim 32 with both and at 16 with the mask alone (the backward's f32 body
+# fits a block only so); head dim 12, not a multiple of 8 (both on the
+# CUDA-core body, mma_shape in csrc/attention_mma.cuh); and 47 images of 8
+# windows, so that a block's run of windows (2 or more here) crosses mask
+# slots and dbias sums many windows a block
+WINDOW_CASES = {"hd16": (7, 4, 64, 3, True, True), "heads16": (7, 16, 512, 3, True, True),
+                "bias_only": (7, 4, 128, 3, True, False),
+                "mask_only": (7, 4, 128, 3, False, True),
+                "neither": (7, 4, 128, 3, False, False),
+                "n144": (12, 4, 128, 3, True, True), "n144_hd16": (12, 4, 64, 3, False, True),
+                "hd12": (7, 3, 36, 3, True, True), "many_windows": (7, 4, 128, 47, True, True)}
+WINDOW_BWD_CASES = [case for case in WINDOW_CASES if case != "n144"]
+
+
+def _window_case_args(cuda, dtype, case, seed):
+    r, nh, c, images, with_bias, shifted = WINDOW_CASES[case]
+    rng = np.random.RandomState(seed)
+    n = r * r
+    mask = shifted_window_attn_mask(2 * r, 4 * r, r, r // 2, cuda) if shifted else None
+    qkv = _randn(rng, 8 * images, n, 3 * c).to(cuda, dtype)
+    bias = _randn(rng, nh, n, n).to(cuda) if with_bias else None
+    return qkv, bias, mask, nh, (c // nh) ** -0.5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(WINDOW_CASES))
+def test_window_attention_kernel_shapes(cuda, dtype, case):
+    _check("window_attention", window_attention, _plain_window,
+           _window_case_args(cuda, dtype, case, 19), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", WINDOW_BWD_CASES)
+def test_window_attention_bwd_kernel_shapes(cuda, dtype, case):
+    qkv, bias, mask, nh, scale = _window_case_args(cuda, dtype, case, 20)
+    dout = _randn(np.random.RandomState(21), *qkv.shape[:2], qkv.shape[2] // 3).to(cuda, dtype)
+    _check("window_attention_bwd", window_attention_bwd, _plain_window_bwd,
+           (qkv, dout, bias, mask, nh, scale), dtype, relative=True)
+
+
+@pytest.mark.gpu
+def test_window_attention_kernels_refuse_misaligned_bf16_views(cuda):
+    """A contiguous bf16 qkv or dout that does not start on 16 bytes is
+    refused before any launch; autograd's backward copies such an output
+    gradient and gives what the kernel gives on an aligned copy of it."""
+    bw, n, c, nh = 8, 16, 32, 2
+    qkv, bias, mask, _, scale = _window_args(cuda, torch.bfloat16, 4, True, seed=22)
+    qkv, bias = qkv[:bw, :, :3 * c].contiguous(), bias[:nh]
+    flat = torch.randn(bw * n * 3 * c + 1, device=cuda).to(torch.bfloat16)
+    bad_qkv, bad_dout = flat[1:].view(bw, n, 3 * c), flat[1:bw * n * c + 1].view(bw, n, c)
+    before = dict(kernels.launch_counts)
+    with pytest.raises(ValueError, match="16-byte"):
+        window_attention(bad_qkv, bias, mask, nh, scale)
+    with pytest.raises(ValueError, match="16-byte"):
+        window_attention_bwd(qkv, bad_dout, bias, mask, nh, scale)
+    assert kernels.launch_counts == before
+    x = qkv.clone().requires_grad_()
+    out = window_attention(x, bias, mask, nh, scale)
+    torch.cat([out.new_zeros(1), out.reshape(-1)]).backward(flat[:bw * n * c + 1])
+    dqkv, _ = window_attention_bwd(qkv, bad_dout.clone(), bias, mask, nh, scale)
+    assert torch.equal(x.grad, dqkv)
+
+
 # (n, heads, channels, num_emb, every index of a window equal): the
 # flagship's window; 49 tokens at head dim 32 (padded rows and keys); the
 # tiny model's 16 tokens at head dim 8 (the k-dimension padded to 16); one

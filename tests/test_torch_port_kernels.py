@@ -34,11 +34,11 @@ def _max_abs(a, b) -> float:
     return float(np.max(np.abs(a.astype(np.float64) - b.astype(np.float64))))
 
 
-def _window_inputs(n, with_bias, with_mask, seed=0):
+def _window_inputs(n, with_bias, with_mask, seed=0, hd=16):
     r = int(round(n ** 0.5))
     h, w = 2 * r, 2 * r
     nw = (h // r) * (w // r)
-    bw, nh, c = 3 * nw, 2, 32  # 3 images: an odd multiple of nW
+    bw, nh, c = 3 * nw, 2, 2 * hd  # 3 images: an odd multiple of nW
     rng = np.random.RandomState(seed)
     q, k, v = (rng.randn(bw, n, c).astype(np.float32) for _ in range(3))
     bias = rng.randn(nh, n, n).astype(np.float32) if with_bias else None
@@ -54,11 +54,13 @@ def _j(a):
     return None if a is None else jnp.asarray(a)
 
 
-@pytest.mark.parametrize("n", [16, 49])
+# head dim 16 at n 16 and 49, and the main path's head dim 32 (Swin's)
+@pytest.mark.parametrize("n,hd", [pytest.param(16, 16, id="16"), pytest.param(49, 16, id="49"),
+                                  pytest.param(49, 32, id="49-hd32")])
 @pytest.mark.parametrize("with_bias,with_mask",
                          [(False, False), (True, False), (False, True), (True, True)])
-def test_window_attention_plain_matches_jax(n, with_bias, with_mask):
-    q, k, v, bias, mask, nh, scale = _window_inputs(n, with_bias, with_mask)
+def test_window_attention_plain_matches_jax(n, hd, with_bias, with_mask):
+    q, k, v, bias, mask, nh, scale = _window_inputs(n, with_bias, with_mask, hd=hd)
     ours = window_attention(_t(np.concatenate([q, k, v], axis=-1)), _t(bias), _t(mask), nh,
                             scale)
     args = (_j(q), _j(k), _j(v), _j(bias), _j(mask), nh, scale)
