@@ -5,7 +5,8 @@
 1. Prints the card (``nvidia-smi`` name and power limit), builds the port's
    CUDA kernels from ``mde_tpu_torch/ops/kernels/csrc`` with ``nvcc`` for
    sm_90a and prints each kernel's registers and spills (ptxas) and the
-   shared memory a block takes (K1 and K2 as their sources count it).
+   shared memory a block takes (K1, K2 and K3's tiled bodies as their
+   sources count it).
 2. Kernel phases: each of the ten kernels against its plain PyTorch version
    on the card at its main path's shapes, in bf16 and in f32 with TF32 off;
    its device time (CUDA events around calls queued behind a busy kernel;
@@ -19,8 +20,9 @@
    bf16) a second time on windows whose depth indices are all equal. K1 is
    also timed at the KSA decoder's head dim 16 and its backward at the
    train step's stage 3, where 18 of the flagship's 24 backward launches
-   run. Each kernel is also timed with its calls following a
-   synchronisation, so that any host gaps between them count (``host_ms``).
+   run; K3 also at the train step's batch 4. Each kernel is also timed with
+   its calls following a synchronisation, so that any host gaps between
+   them count (``host_ms``).
 3. Flagship serving at full width: ``oda2_red_order_swin2`` (Swin-B, red33
    neck, ordered head) with seeded random weights. In f32 at batch 1, with
    seeded statistics in the FFs' BatchNorms so that K4's folded affine is
@@ -275,10 +277,11 @@ def ordered_mask(idx, table, e, dtype):
     return table.t()[:, rel].permute(1, 0, 2, 3).to(dtype).contiguous()
 
 
-def depthwise_phase(dev):
+def depthwise_phase(dev, batch: int = BATCH):
+    """K3 at the FF shape of serving (or, with ``batch``, of the train step)."""
     from mde_tpu_torch.ops.kernels.depthwise import depthwise_conv2d, plain_depthwise_conv2d
     g = torch.Generator(device=dev).manual_seed(3)
-    shape = (BATCH, 112, 224, 2048)
+    shape = (batch, 112, 224, 2048)
 
     def make(dtype):
         x = torch.randn(*shape, generator=g, device=dev).to(dtype)
@@ -1030,33 +1033,37 @@ def kernel_name(mangled: str) -> str:
         return mangled
     size, rest = int(m.group(1)), m.group(2)
     name, rest = rest[:size], rest[size:]
-    if m := re.match(r"I((?:Li\d+E)+)E", rest):
-        name += "<" + ",".join(re.findall(r"Li(\d+)E", m.group(1))) + ">"
-    elif rest.startswith("I13__nv_bfloat16E"):
-        name += "<bf16>"
-    elif rest.startswith("IfE"):
-        name += "<float>"
+    arg = r"13__nv_bfloat16|f|L[ib]\d+E"
+    if m := re.match(rf"I((?:{arg})+)E", rest):
+        names = {"13__nv_bfloat16": "bf16", "f": "float"}
+        name += "<" + ",".join(names.get(a, a[2:-1]) for a in re.findall(arg, m.group(1))) + ">"
     return name
 
 
-def k1_build_report(kernels) -> dict:
-    """K1's and K1 bwd's registers and spills (ptxas) and the shared memory
-    a block takes at N 49 with the bias (the kernels' own counts), by
-    kernel, for the ``kernels`` line; logs the shared memory."""
+def build_report(kernels) -> dict:
+    """Registers and spills (ptxas) of every kernel in the sources of K1,
+    K1 bwd, K3 and K3 dxdw, and the shared memory a block takes as the
+    kernels' sources count it (K1 at N 49 with the bias; K3's tiled bodies
+    by kernel size), by kernel, for the ``kernels`` line; logs the shared
+    memory."""
     lib, rows = kernels.library(), ptxas_entries(kernels.ptxas_report())
-    smem_of = {"window_attention": lambda hd, code: lib.mde_window_attention_smem(
-                   49, 4 * hd, 4, code),
-               "window_attention_bwd": lambda hd, code: lib.mde_window_attention_bwd_smem(
-                   49, 4 * hd, 4, 1, code)}
+    dtypes = (("bf16", 1), ("f32", 0))
+    smem = {"window_attention": {f"N 49 hd {hd} {tag}": lib.mde_window_attention_smem(
+                49, 4 * hd, 4, code) for hd in (16, 32) for tag, code in dtypes},
+            "window_attention_bwd": {f"N 49 hd {hd} {tag}": lib.mde_window_attention_bwd_smem(
+                49, 4 * hd, 4, 1, code) for hd in (16, 32) for tag, code in dtypes},
+            "depthwise_conv2d": {f"{k}x{k} {tag}": lib.mde_depthwise_conv2d_smem(k, code)
+                                 for k in (3, 5, 7) for tag, code in dtypes},
+            "depthwise_conv2d_dxdw": {f"{k}x{k} {tag}": lib.mde_depthwise_conv2d_dxdw_smem(k, code)
+                                      for k in (3, 5, 7) for tag, code in dtypes}}
     out = {}
-    for name, fn in smem_of.items():
-        smem = {f"N 49 hd {hd} {tag}": fn(hd, code)
-                for hd in (16, 32) for tag, code in (("bf16", 1), ("f32", 0))}
-        log(f"{name}: shared memory a block, with the bias: " +
-            ", ".join(f"{k} {v} B" for k, v in smem.items()))
+    for name, sizes in smem.items():
+        log(f"{name}: shared memory a block: " +
+            ", ".join(f"{k} {v} B" for k, v in sizes.items()))
+        src = SOURCES[name][0].rsplit("/", 1)[1]
         out[name] = {"ptxas": [{"kernel": e, "registers": r, "spill_bytes": st + ld}
-                               for src, e, r, (st, ld) in rows if src == f"{name}.cu"],
-                     "smem_bytes": smem}
+                               for s, e, r, (st, ld) in rows if s == src],
+                     "smem_bytes": sizes}
     return out
 
 
@@ -1077,7 +1084,7 @@ def main() -> int:
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
     for src, entry, regs, (stores, loads) in ptxas_entries(kernels.ptxas_report()):
         log(f"{src}: {entry}: {regs} registers, spills {stores} B stored, {loads} B loaded")
-    k1_build = k1_build_report(kernels)
+    build = build_report(kernels)
     # K2 at the flagship's N 64, 512 channels, 8 heads, 128 depth values, with
     # the table, in f32 (code 0) and bf16 (1), as the kernels' sources count it
     lib = kernels.library()
@@ -1085,12 +1092,14 @@ def main() -> int:
                         else lib.mde_ordered_attention_smem)(64, 512, 8, 128, 1, code)
           for bwd in (False, True) for code in (0, 1)}
     log(f"dynamic shared memory per block: K1 bf16 "
-        f"{k1_build['window_attention']['smem_bytes']['N 49 hd 32 bf16']} B (tensor cores, "
+        f"{build['window_attention']['smem_bytes']['N 49 hd 32 bf16']} B (tensor cores, "
         f"128 threads; N 49, head dim 32), K1 bwd bf16 "
-        f"{k1_build['window_attention_bwd']['smem_bytes']['N 49 hd 32 bf16']} B (with the "
+        f"{build['window_attention_bwd']['smem_bytes']['N 49 hd 32 bf16']} B (with the "
         f"bias), K2 bf16 {k2[False, 1]} B (N 64, "
         f"head dim 64, with the table; f32 {k2[False, 0]} B), K2 bwd bf16 "
-        f"{k2[True, 1]} B (f32 {k2[True, 0]} B), K3 and K4 none, "
+        f"{k2[True, 1]} B (f32 {k2[True, 0]} B), K3 bf16 5x5 "
+        f"{build['depthwise_conv2d']['smem_bytes']['5x5 bf16']} B and K3 dxdw bf16 5x5 "
+        f"{build['depthwise_conv2d_dxdw']['smem_bytes']['5x5 bf16']} B (tiled bodies), K4 none, "
         f"K5 {pair_smem_bytes(49, 16, 16)} B and K5 bwd "
         f"{pair_smem_bytes(49, 16, 16, backward=True)} B per (window, head) pair (N 49, head "
         f"dims 16), several pairs a block")
@@ -1113,15 +1122,19 @@ def main() -> int:
         f"{one['ms']:.4f} ms ({one['ms'] / phases[7]['ms']:.2f}x)")
     # K1 at the other shapes of its paths: the KSA decoder's head dim 16
     # (stage 0, serving) and the train step's stage 3, where 18 of the
-    # flagship's 24 backward launches run
-    k1_more = {"window_attention": [phases[0], phases[2],
-                                    window_phase("KSA decoder stage 0", 512 * BATCH, 64, 4,
-                                                 512, True, dev)],
-               "window_attention_bwd": [window_bwd_phase("stage 3", 32 * TRAIN_BATCH, 512, 16,
-                                                         32, dev)]}
-    for p in (phases[1], phases[6], *k1_more["window_attention"],
-              *k1_more["window_attention_bwd"]):
+    # flagship's 24 backward launches run; K3 at the train step's batch
+    more = {"window_attention": [phases[0], phases[2],
+                                 window_phase("KSA decoder stage 0", 512 * BATCH, 64, 4,
+                                              512, True, dev)],
+            "window_attention_bwd": [window_bwd_phase("stage 3", 32 * TRAIN_BATCH, 512, 16,
+                                                      32, dev)],
+            "depthwise_conv2d": [depthwise_phase(dev, TRAIN_BATCH)]}
+    for p in (phases[1], phases[6], *more["window_attention"],
+              *more["window_attention_bwd"]):
         log(f"{p['phase']}: {p['ms'] / p['library_ms']:.2f}x the SDPA yardstick, "
+            f"{p['ms'] / p['bound_ms']:.2f}x the bound")
+    for p in (phases[5], *more["depthwise_conv2d"], phases[8]):
+        log(f"{p['phase']}: {p['ms'] / p['library_ms']:.2f}x the cuDNN yardstick, "
             f"{p['ms'] / p['bound_ms']:.2f}x the bound")
     torch.cuda.empty_cache()
 
@@ -1156,10 +1169,10 @@ def main() -> int:
         "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
         "library_ms": p["library_ms"], "host_ms": p["host_ms"]},
         **{k: p[k] for k in ("library", "unfused_chain_ms", "one_bucket_ms") if k in p},
-        **k1_build.get(name, {}),
+        **build.get(name, {}),
         **({"other_shapes": [{k: q[k] for k in ("phase", "ms", "library_ms", "bound_ms",
                                                  "plain_ms", "host_ms", "max_abs_err_bf16")}
-                             for q in k1_more[name]]} if name in k1_more else {}))
+                             for q in more[name]]} if name in more else {}))
         for name, p in report.items()]}
     log(card)
     log(json.dumps(line))

@@ -58,6 +58,9 @@ _SIGNATURES = {
     "mde_depthwise_conv2d": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "mde_depthwise_conv2d_dxdw": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "mde_depthwise_conv2d_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "mde_depthwise_conv2d_smem": [_I] * 2,
+    "mde_depthwise_conv2d_dxdw_smem": [_I] * 2,
+    "mde_depthwise_bwd_parts": [_I] * 4,
     "mde_glu_ff": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "mde_channel_attention": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     "mde_channel_attention_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],

@@ -43,26 +43,6 @@ inline bool mma_shape(int n, int hd) {
 // Row stride, in elements, of a staged (rows, hd) operand.
 __host__ __device__ inline int mma_ld(int hd) { return mma_pad16(hd) + 8; }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes from global to shared memory, or 16 zero bytes when !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N committed groups of this thread are in flight.
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // Four 8 x 8 bf16 matrices; lane i gives the address of row i % 8 of matrix
 // i / 8. Register j holds row lane / 4, elements 2 (lane % 4) and the next,
 // of matrix j; with TRANS, column lane / 4, rows 2 (lane % 4) and the next.

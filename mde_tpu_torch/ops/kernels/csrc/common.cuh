@@ -1,7 +1,8 @@
 // Shared helpers for the port's hand-written kernels: element conversion,
-// 16-byte vectors, warp reductions, dtype codes, the window-attention body
-// that K1 (window_attention.cu) and K2 (ordered_attention.cu) share, and the
-// shared-memory sizes of K5 (channel_attention*.cu).
+// 16-byte vectors, cp.async copies, warp reductions, dtype codes, the
+// window-attention body that K1 (window_attention.cu) and K2
+// (ordered_attention.cu) share, and the shared-memory sizes of K5
+// (channel_attention*.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -27,6 +28,27 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
 }
 
 template <typename T, int VEC> struct alignas(sizeof(T) * VEC) Vec { T v[VEC]; };
+
+// Asynchronous copies from global to shared memory (cp.async).
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes from global to shared memory, or 16 zero bytes when !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N committed groups of this thread are in flight.
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));

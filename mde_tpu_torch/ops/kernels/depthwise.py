@@ -13,6 +13,14 @@ The backward takes dxdw where the TPU's default pairs ``_dw_pallas`` with an
 XLA grouped conv for dx (:480-489): on the card cuDNN's grouped conv is the
 slow half of such a pair (PERF.md), and dxdw computes both gradients in one
 pass (JAX's ``MDE_DWCONV_BWD=fused``).
+
+The forward and dxdw kernels each have two bodies, chosen by shape in their
+C entry points: a tiled body (``csrc/depthwise_tile.cuh``) for square 3x3,
+5x5 and 7x7 kernels on C in whole 16-byte vectors with 16-byte aligned
+tensors, and for the rest (odd non-square kernels, other C, misaligned
+views) the forward's column body and the backward's gather body
+(``csrc/depthwise_bwd.cuh``, which dw always takes). Both are kernels;
+nothing falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -22,12 +30,10 @@ from typing import Tuple
 import torch
 
 from ..pad import pad2d
-from . import check, dtype_code, is_plain, launch, ptr
+from . import check, dtype_code, is_plain, launch, library, ptr
 
 # the backward kernels are compiled for these square kernel sizes
 BWD_KERNEL_SIZES = (3, 5, 7)
-# rows of one band of the backward kernels (DW_BAND in csrc/depthwise_bwd.cuh)
-_BWD_BAND = 8
 
 
 def plain_depthwise_conv2d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -102,10 +108,11 @@ def _check_backward(x, g, w) -> int:
 
 
 def _partials(x: torch.Tensor, k: int) -> torch.Tensor:
-    """Scratch for the backward kernels' per-(image, band) sums of dw."""
-    b, h, _, c = x.shape
-    return torch.empty((b * -(-h // _BWD_BAND), k, k, c), dtype=torch.float32,
-                       device=x.device)
+    """Scratch for the backward kernels' per-(image, band or strip) sums of
+    dw, as many as the kernels' sources ask for."""
+    b, h, wd, c = x.shape
+    return torch.empty((library().mde_depthwise_bwd_parts(b, h, wd, k), k, k, c),
+                       dtype=torch.float32, device=x.device)
 
 
 def depthwise_dxdw(x: torch.Tensor, g: torch.Tensor,

@@ -317,13 +317,28 @@ def test_ordered_attention_kernels_refuse_misaligned_bf16_views(cuda):
         assert torch.equal(got, want)
 
 
+# (x shape, kh, kw): odd sides, a side smaller than the kernel, one 16-byte
+# vector or many; then for the two bodies of the forward (csrc/depthwise.cu):
+# strips and rows that end inside the tile (19 rows, 37 columns, 136
+# channels: two channel slices, the second one part full); sides smaller
+# than the halo at both ends; C off the 64-channel slice and off the
+# 16-byte vector (12 takes the tiled body in f32 only, 33 the column body
+# in both, 2056 the tiled body); and kernels the tiled body is not compiled
+# for (3x5, 9x9), which take the column body
+DW_FWD_CASES = [((2, 7, 10, 12), 5, 5), ((2, 12, 24, 64), 5, 5), ((1, 5, 3, 2048), 5, 5),
+                ((2, 19, 37, 136), 5, 5), ((2, 19, 37, 136), 3, 3), ((2, 19, 37, 136), 7, 7),
+                ((1, 1, 1, 16), 5, 5), ((1, 1, 1, 16), 7, 7), ((1, 2, 3, 8), 5, 5),
+                ((1, 2, 3, 8), 7, 7), ((2, 7, 10, 12), 7, 7), ((1, 6, 9, 33), 5, 5),
+                ((1, 5, 21, 2056), 5, 5), ((2, 9, 13, 64), 3, 5), ((1, 11, 12, 16), 9, 9)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 7, 10, 12), (2, 12, 24, 64), (1, 5, 3, 2048)])
-def test_depthwise_kernel(cuda, dtype, shape):
+@pytest.mark.parametrize("shape,kh,kw", DW_FWD_CASES)
+def test_depthwise_kernel(cuda, dtype, shape, kh, kw):
     rng = np.random.RandomState(3)
     x = _randn(rng, *shape).to(cuda, dtype)
-    w = _randn(rng, 5, 5, shape[-1]).to(cuda, dtype)
+    w = _randn(rng, kh, kw, shape[-1]).to(cuda, dtype)
     out, = _check("depthwise_conv2d", depthwise_conv2d, plain_depthwise_conv2d, (x, w), dtype)
     # the kernel sums in f32 and rounds once: within one bf16 ulp of the f32 sum
     ref = plain_depthwise_conv2d(x.float(), w.float())
@@ -331,9 +346,15 @@ def test_depthwise_kernel(cuda, dtype, shape):
 
 
 # odd sides, sides smaller than the kernel (every tap clamps), one channel
-# vector or two, and 3x3, 5x5, 7x7
+# vector or two, and 3x3, 5x5, 7x7; then for the tiled dxdw body: strips and
+# rows that end inside the tile, sides smaller than the halo at both ends, C
+# off the 64-channel slice and off the 16-byte vector (12 and 33 take the
+# gather body in bf16, 33 in f32 too)
 DW_BWD_CASES = [((2, 7, 10, 12), 5), ((2, 12, 24, 64), 5), ((1, 5, 3, 2048), 5),
-                ((2, 1, 2, 6), 5), ((1, 9, 11, 33), 3), ((2, 8, 9, 16), 7)]
+                ((2, 1, 2, 6), 5), ((1, 9, 11, 33), 3), ((2, 8, 9, 16), 7),
+                ((2, 19, 37, 136), 5), ((2, 19, 37, 136), 3), ((2, 19, 37, 136), 7),
+                ((1, 1, 1, 16), 5), ((1, 1, 1, 16), 7), ((1, 2, 3, 8), 5), ((1, 2, 3, 8), 7),
+                ((1, 6, 9, 33), 5), ((1, 5, 21, 2056), 5), ((2, 5, 17, 12), 7)]
 
 
 @pytest.mark.gpu
@@ -347,6 +368,51 @@ def test_depthwise_bwd_kernels(cuda, dtype, shape, k):
            relative=True)
     _check("depthwise_conv2d_dw", depthwise_dw,
            lambda x, g, w: plain_depthwise_dw(x, g, k, k), (x, g, w), dtype, relative=True)
+
+
+@pytest.mark.gpu
+def test_depthwise_dxdw_is_deterministic(cuda):
+    """dx and dw are the same bits on every run: per-(image, strip) partials
+    summed in a fixed order, no atomics."""
+    rng = np.random.RandomState(11)
+    for dtype in (torch.float32, torch.bfloat16):
+        x, g = (_randn(rng, 2, 19, 37, 136).to(cuda, dtype) for _ in range(2))
+        w = (_randn(rng, 5, 5, 136) * 0.2).to(cuda, dtype)
+        dx1, dw1 = depthwise_dxdw(x, g, w)
+        dx2, dw2 = depthwise_dxdw(x, g, w)
+        torch.cuda.synchronize()
+        assert torch.equal(dx1, dx2) and torch.equal(dw1, dw2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_depthwise_kernels_take_misaligned_views(cuda, dtype):
+    """A contiguous view that does not start on 16 bytes (a slice of a flat
+    buffer) is not refused: the forward and dxdw launch their column and
+    gather bodies, which take any alignment. The forward's two bodies sum in the same
+    order, so the view gives the bits that an aligned copy gives through the
+    tiled body; dxdw's two bodies sum dx in other orders and agree within
+    the stated tolerances."""
+    shape, k = (2, 9, 14, 64), 5
+    n = int(np.prod(shape))
+    flat = torch.randn(2 * n + 1, device=cuda).to(dtype)
+    bad_x, bad_g = flat[1:n + 1].view(shape), flat[n + 1:].view(shape)
+    assert bad_x.data_ptr() % 16 != 0
+    x, g = bad_x.clone(), bad_g.clone()
+    w = (torch.randn(k, k, shape[-1], device=cuda) * 0.2).to(dtype)
+    out = _check("depthwise_conv2d", depthwise_conv2d, plain_depthwise_conv2d, (bad_x, w),
+                 dtype)[0]
+    assert torch.equal(out, depthwise_conv2d(x, w))
+    dx, dw = _check("depthwise_conv2d_dxdw", depthwise_dxdw, plain_depthwise_dxdw,
+                    (bad_x, bad_g, w), dtype, relative=True)
+    dx_tiled, dw_tiled = depthwise_dxdw(x, g, w)
+    torch.cuda.synchronize()
+    scale = max(1.0, dx_tiled.float().abs().max().item())
+    tol = (TOL if dtype == torch.float32 else BF16_REL["depthwise_conv2d_dxdw"]) * scale
+    assert (dx.float() - dx_tiled.float()).abs().max().item() <= tol
+    scale = max(1.0, dw_tiled.abs().max().item())
+    tol = (TOL if dtype == torch.float32 else BF16_REL["depthwise_conv2d_dw"]) * scale
+    assert (dw - dw_tiled).abs().max().item() <= tol
 
 
 # (x shape, kernel): odd sides, a side smaller than the kernel, channels in

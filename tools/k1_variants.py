@@ -212,16 +212,19 @@ BWD = {"as built": bwd_variant(), "exact expf": bwd_variant(exact_exp=True),
        "padding key tile skipped": bwd_variant(skip_pad_tiles=True)}
 
 
-def build(variants: dict, tag: str) -> dict:
-    """Compile every variant (all nvcc processes at once); return the loaded
-    libraries by name and log each tensor-core kernel's registers and spills."""
-    OUT.mkdir(parents=True, exist_ok=True)
+def build(variants: dict, tag: str, header: str = "attention_mma.cuh",
+          shown: str = "mma", out_dir: Path = OUT) -> dict:
+    """Compile every variant, a (source, edited header) pair, into its own
+    library under ``out_dir`` (all nvcc processes at once); return the loaded
+    libraries by name and log the registers and spills of each kernel whose
+    name holds ``shown``."""
+    out_dir.mkdir(parents=True, exist_ok=True)
     procs = []
     for i, (name, (src, head)) in enumerate(variants.items()):
-        inc = OUT / f"{tag}{i}_include"
+        inc = out_dir / f"{tag}{i}_include"
         inc.mkdir(exist_ok=True)
-        (inc / "attention_mma.cuh").write_text(head)
-        path, lib = OUT / f"{tag}{i}.cu", OUT / f"lib{tag}{i}.so"
+        (inc / header).write_text(head)
+        path, lib = out_dir / f"{tag}{i}.cu", out_dir / f"lib{tag}{i}.so"
         path.write_text(src)
         procs.append((name, lib, subprocess.Popen(
             [kernels._nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-I", str(inc),
@@ -233,12 +236,12 @@ def build(variants: dict, tag: str) -> dict:
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on variant {name!r}:\n{out[-3000:]}")
         for _, entry, regs, (stores, loads) in cs.ptxas_entries("== v\n" + out):
-            if "mma" in entry:
+            if shown in entry:
                 print(f"{tag} {name}: {entry} {regs} registers, spills {stores}/{loads} B")
         libs[name] = ctypes.CDLL(str(lib))
-        for fn in ("mde_window_attention", "mde_window_attention_bwd"):
+        for fn, argtypes in kernels._SIGNATURES.items():
             if hasattr(libs[name], fn):
-                getattr(libs[name], fn).argtypes = kernels._SIGNATURES[fn]
+                getattr(libs[name], fn).argtypes = argtypes
                 getattr(libs[name], fn).restype = ctypes.c_int
     return libs
 
