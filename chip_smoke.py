@@ -5,8 +5,8 @@
 1. Prints the card (``nvidia-smi`` name and power limit), builds the port's
    CUDA kernels from ``mde_tpu_torch/ops/kernels/csrc`` with ``nvcc`` for
    sm_90a and prints each kernel's registers and spills (ptxas) and the
-   shared memory a block takes (K1, K2 and K3's tiled bodies as their
-   sources count it).
+   shared memory a block takes (K1, K2, K3's and K4's tiled bodies and K5
+   as their sources count it).
 2. Kernel phases: each of the ten kernels against its plain PyTorch version
    on the card at its main path's shapes, in bf16 and in f32 with TF32 off;
    its device time (CUDA events around calls queued behind a busy kernel;
@@ -20,7 +20,8 @@
    bf16) a second time on windows whose depth indices are all equal. K1 is
    also timed at the KSA decoder's head dim 16 and its backward at the
    train step's stage 3, where 18 of the flagship's 24 backward launches
-   run; K3 also at the train step's batch 4. Each kernel is also timed with
+   run; K3 also at the train step's batch 4; K5 also at the KSA decoder's
+   stages 1 and 2 (128 and 256 channels). Each kernel is also timed with
    its calls following a synchronisation, so that any host gaps between
    them count (``host_ms``).
 3. Flagship serving at full width: ``oda2_red_order_swin2`` (Swin-B, red33
@@ -492,17 +493,18 @@ def channel_sdpa(q, k, v, heads, grad=None):
     raise RuntimeError("no SDPA backend took the channel-attention yardstick")
 
 
-def channel_phase(dev, backward: bool):
+def channel_phase(dev, backward: bool, c: int = 64):
     """K5 forward at the KSA decoder's stage-0 serving shape (batch 8), or
     its backward at the train step's (batch 4): 49 tokens, 64 channels on
-    both sides, 4 heads of 16."""
+    both sides, 4 heads of 16. With ``c`` 128 or 256, the forward at stage
+    1 or 2: a quarter or a sixteenth of the windows, heads of 16."""
     from mde_tpu_torch.ops.kernels.channel_attention import (channel_attention,
                                                              channel_attention_bwd,
                                                              plain_channel_attention,
                                                              plain_channel_attention_bwd)
     g = torch.Generator(device=dev).manual_seed(8 + backward)
-    bw = 512 * (TRAIN_BATCH if backward else BATCH)
-    n, c, heads = 49, 64, 4
+    bw = 512 * (TRAIN_BATCH if backward else BATCH) * 64 * 64 // (c * c)
+    n, heads = 49, c // 16
     scale = (1.0 / n) ** 0.5
     names = {}
 
@@ -1042,10 +1044,10 @@ def kernel_name(mangled: str) -> str:
 
 def build_report(kernels) -> dict:
     """Registers and spills (ptxas) of every kernel in the sources of K1,
-    K1 bwd, K3 and K3 dxdw, and the shared memory a block takes as the
-    kernels' sources count it (K1 at N 49 with the bias; K3's tiled bodies
-    by kernel size), by kernel, for the ``kernels`` line; logs the shared
-    memory."""
+    K1 bwd, K3, K3 dxdw, K4 and K5, and the shared memory a block takes as
+    the kernels' sources count it (K1 at N 49 with the bias; K3's and K4's
+    tiled bodies by kernel size; K5 at the KSA decoder's three stages), by
+    kernel, for the ``kernels`` line; logs the shared memory."""
     lib, rows = kernels.library(), ptxas_entries(kernels.ptxas_report())
     dtypes = (("bf16", 1), ("f32", 0))
     smem = {"window_attention": {f"N 49 hd {hd} {tag}": lib.mde_window_attention_smem(
@@ -1055,7 +1057,11 @@ def build_report(kernels) -> dict:
             "depthwise_conv2d": {f"{k}x{k} {tag}": lib.mde_depthwise_conv2d_smem(k, code)
                                  for k in (3, 5, 7) for tag, code in dtypes},
             "depthwise_conv2d_dxdw": {f"{k}x{k} {tag}": lib.mde_depthwise_conv2d_dxdw_smem(k, code)
-                                      for k in (3, 5, 7) for tag, code in dtypes}}
+                                      for k in (3, 5, 7) for tag, code in dtypes},
+            "glu_ff": {f"{k}x{k} {tag}": lib.mde_glu_ff_smem(k, code)
+                       for k in (3, 5, 7) for tag, code in dtypes},
+            "channel_attention": {f"N 49 C {c}/{c // 16} {tag}": lib.mde_channel_attention_smem(
+                49, c, c, c // 16, code) for c in (64, 128, 256) for tag, code in dtypes}}
     out = {}
     for name, sizes in smem.items():
         log(f"{name}: shared memory a block: " +
@@ -1099,10 +1105,11 @@ def main() -> int:
         f"head dim 64, with the table; f32 {k2[False, 0]} B), K2 bwd bf16 "
         f"{k2[True, 1]} B (f32 {k2[True, 0]} B), K3 bf16 5x5 "
         f"{build['depthwise_conv2d']['smem_bytes']['5x5 bf16']} B and K3 dxdw bf16 5x5 "
-        f"{build['depthwise_conv2d_dxdw']['smem_bytes']['5x5 bf16']} B (tiled bodies), K4 none, "
-        f"K5 {pair_smem_bytes(49, 16, 16)} B and K5 bwd "
-        f"{pair_smem_bytes(49, 16, 16, backward=True)} B per (window, head) pair (N 49, head "
-        f"dims 16), several pairs a block")
+        f"{build['depthwise_conv2d_dxdw']['smem_bytes']['5x5 bf16']} B and K4 bf16 5x5 "
+        f"{build['glu_ff']['smem_bytes']['5x5 bf16']} B (tiled bodies), K5 bf16 "
+        f"{build['channel_attention']['smem_bytes']['N 49 C 64/4 bf16']} B (tensor cores, "
+        f"N 49, 4 heads of 16) and K5 bwd {pair_smem_bytes(49, 16, 16)} B per (window, head) "
+        f"pair (head dims 16, several pairs a block)")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1128,9 +1135,11 @@ def main() -> int:
                                               512, True, dev)],
             "window_attention_bwd": [window_bwd_phase("stage 3", 32 * TRAIN_BATCH, 512, 16,
                                                       32, dev)],
-            "depthwise_conv2d": [depthwise_phase(dev, TRAIN_BATCH)]}
+            "depthwise_conv2d": [depthwise_phase(dev, TRAIN_BATCH)],
+            "channel_attention": [channel_phase(dev, False, c) for c in (128, 256)]}
     for p in (phases[1], phases[6], *more["window_attention"],
-              *more["window_attention_bwd"]):
+              *more["window_attention_bwd"], phases[11], *more["channel_attention"],
+              phases[12]):
         log(f"{p['phase']}: {p['ms'] / p['library_ms']:.2f}x the SDPA yardstick, "
             f"{p['ms'] / p['bound_ms']:.2f}x the bound")
     for p in (phases[5], *more["depthwise_conv2d"], phases[8]):

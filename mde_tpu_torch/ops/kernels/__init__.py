@@ -62,7 +62,9 @@ _SIGNATURES = {
     "mde_depthwise_conv2d_dxdw_smem": [_I] * 2,
     "mde_depthwise_bwd_parts": [_I] * 4,
     "mde_glu_ff": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "mde_glu_ff_smem": [_I] * 2,
     "mde_channel_attention": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    "mde_channel_attention_smem": [_I] * 5,
     "mde_channel_attention_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
 }
 

@@ -6,7 +6,11 @@ and its ``custom_vjp``. The CUDA kernels are ``csrc/channel_attention.cu``
 and ``csrc/channel_attention_bwd.cu``, joined by one
 ``torch.autograd.Function``; ``plain_channel_attention`` mirrors
 ``xla_channel_attention`` (:29) and ``plain_channel_attention_bwd`` the
-backward kernel body (``_bwd_kernel``, :94).
+backward kernel body (``_bwd_kernel``, :94). The forward runs bf16 on the
+tensor cores at windows of up to 128 tokens and head dims that are
+multiples of 8 up to 128, f32 and the other shapes on the CUDA cores (the
+rule ``channel_mma`` in ``csrc/channel_attention.cu``); the backward runs
+on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ from typing import Tuple
 
 import torch
 
-from . import SMEM_LIMIT, check, dtype_code, is_plain, launch, ptr
+from . import SMEM_LIMIT, check, dtype_code, is_plain, launch, library, ptr
 
 
 def plain_channel_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -62,16 +66,17 @@ def plain_channel_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
             dv.to(v.dtype).reshape(bw, n, ec))
 
 
-def pair_smem_bytes(n: int, hd: int, ehd: int, backward: bool = False) -> int:
-    """Shared memory of one (window, head) pair: ``channel_pair_smem_floats``
-    (or ``channel_pair_bwd_smem_floats``) in ``csrc/common.cuh``."""
-    if backward:
-        return (2 * n * hd + 2 * n * ehd + 2 * hd * (ehd + 1)) * 4
-    return (n * hd + 2 * n * ehd + hd * (ehd + 1)) * 4
+def pair_smem_bytes(n: int, hd: int, ehd: int) -> int:
+    """Shared memory of one (window, head) pair of the backward kernel:
+    ``channel_pair_bwd_smem_floats`` in ``csrc/common.cuh``."""
+    return (2 * n * hd + 2 * n * ehd + 2 * hd * (ehd + 1)) * 4
 
 
 def _check_inputs(q, kv, num_heads, backward: bool = False) -> Tuple[int, int, int, int]:
-    """Raise on what the kernels do not take; return (bw, n, c, ec)."""
+    """Raise on what the kernels do not take: bf16 tensors of the forward
+    that do not start on 16 bytes (its tensor-core body copies 16-byte
+    pieces) and blocks beyond a block's shared memory (the forward's as its
+    source counts it). Return (bw, n, c, ec)."""
     bw, n, c = q.shape
     ec2 = kv.shape[-1]
     if ec2 % 2 or c % num_heads or (ec2 // 2) % num_heads:
@@ -80,12 +85,21 @@ def _check_inputs(q, kv, num_heads, backward: bool = False) -> Tuple[int, int, i
     ec = ec2 // 2
     check("q", q, (bw, n, c), q.dtype, q.device)
     check("kv", kv, (bw, n, 2 * ec), q.dtype, q.device)
-    dtype_code(q)
-    need = pair_smem_bytes(n, c // num_heads, ec // num_heads, backward)
+    code = dtype_code(q)
+    if backward:
+        need = pair_smem_bytes(n, c // num_heads, ec // num_heads)
+    else:
+        if q.dtype == torch.bfloat16:
+            for name, t in (("q", q), ("kv", kv)):
+                if t.data_ptr() % 16:
+                    raise ValueError(f"channel_attention: {name} does not start on a 16-byte "
+                                     f"boundary")
+        need = library().mde_channel_attention_smem(n, c, ec, num_heads, code)
     if need > SMEM_LIMIT:
         raise ValueError(f"channel_attention{'_bwd' if backward else ''}: N={n}, head dims "
                          f"{c // num_heads} x {ec // num_heads} need {need} bytes of shared "
-                         f"memory per (window, head); a block has {SMEM_LIMIT}")
+                         f"memory {'per (window, head)' if backward else 'a block'}; a "
+                         f"block has {SMEM_LIMIT}")
     return bw, n, c, ec
 
 

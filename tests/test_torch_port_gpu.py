@@ -416,9 +416,16 @@ def test_depthwise_kernels_take_misaligned_views(cuda, dtype):
 
 
 # (x shape, kernel): odd sides, a side smaller than the kernel, channels in
-# one 16-byte vector or many, and C off the vector width (the scalar path)
+# one 16-byte vector or many, and C off the vector width (the scalar path);
+# then for the two bodies of csrc/glu_ff.cu: strips, rings and channel
+# slices that end inside the tile (70 columns: a last strip part full; 23
+# rows: more than the ring of 10; 72 and 136 channels: a second 64-channel
+# slice part full) at 3x3, 5x5 and 7x7, and sides smaller than the halo at
+# both ends
 GLU_CASES = [((2, 7, 10, 12), 5), ((2, 12, 24, 64), 5), ((1, 5, 3, 2048), 5),
-             ((1, 9, 13, 16), 3), ((2, 6, 5, 10), 5)]
+             ((1, 9, 13, 16), 3), ((2, 6, 5, 10), 5), ((2, 23, 70, 72), 5),
+             ((2, 23, 70, 72), 3), ((1, 23, 70, 72), 7), ((2, 19, 37, 136), 7),
+             ((1, 2, 3, 8), 5), ((1, 2, 3, 8), 7)]
 
 
 def _glu_args(cuda, dtype, shape, k, seed=0):
@@ -434,6 +441,27 @@ def _glu_args(cuda, dtype, shape, k, seed=0):
 @pytest.mark.parametrize("shape,k", GLU_CASES)
 def test_glu_ff_kernel(cuda, dtype, shape, k):
     _check("glu_ff", glu_ff, plain_glu_ff, _glu_args(cuda, dtype, shape, k), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,k", [((2, 23, 70, 72), 5), ((1, 9, 14, 64), 3),
+                                     ((1, 9, 14, 64), 7)])
+def test_glu_ff_bodies_give_the_same_bits(cuda, dtype, shape, k):
+    """A contiguous ab that does not start on 16 bytes (a slice of a flat
+    buffer) takes the column body, an aligned copy of it the tiled body: the
+    two compute the same gate (the tiled body reads the bf16 sigmoid from a
+    table of its computed values), sum the taps in the same order and run
+    the same epilogue, so they give the same bits."""
+    _, w, s, t = _glu_args(cuda, dtype, shape, k, seed=19)
+    n = int(np.prod(shape[:3])) * 2 * shape[-1]
+    flat = torch.randn(n + 1, device=cuda).to(dtype)
+    bad_ab = flat[1:].view(*shape[:3], 2 * shape[-1])
+    assert bad_ab.data_ptr() % 16 != 0
+    out = _check("glu_ff", glu_ff, plain_glu_ff, (bad_ab, w, s, t), dtype)[0]
+    tiled = glu_ff(bad_ab.clone(), w, s, t)
+    torch.cuda.synchronize()
+    assert torch.equal(out, tiled)
 
 
 @pytest.mark.gpu
@@ -483,6 +511,50 @@ def _plain_channel_bwd(q, kv, dout, nh, scale):
 def test_channel_attention_kernel(cuda, dtype, c, ec):
     _check("channel_attention", channel_attention, _plain_channel,
            _channel_args(cuda, dtype, c, ec), dtype)
+
+
+# (n, C, EC, heads) for the forward's two bodies (csrc/channel_attention.cu):
+# the KSA decoder's three stages (49 tokens, head dims 16 at 4, 8 and 16
+# heads); a window off the 16-row tile (33 tokens); head dim 8 (the
+# d- and e-tiles half padding); head dims 24 and 40 at 100 tokens (the
+# larger tensor-core instantiation, both head dims padded); 128 tokens at
+# head dim 64; 3 and 6 heads; bf16 at other shapes takes the CUDA-core
+# body, as the CHANNEL_CASES' head dim 12 does
+CHANNEL_SHAPES = {"ksa0": (49, 64, 64, 4), "ksa1": (49, 128, 128, 8),
+                  "ksa2": (49, 256, 256, 16), "n33": (33, 64, 64, 4), "hd8": (49, 32, 32, 4),
+                  "hd24x40": (100, 96, 160, 4), "n128hd64": (128, 128, 128, 2),
+                  "heads3": (49, 48, 48, 3), "heads6": (49, 96, 96, 6)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(CHANNEL_SHAPES))
+def test_channel_attention_kernel_shapes(cuda, dtype, case):
+    n, c, ec, nh = CHANNEL_SHAPES[case]
+    rng = np.random.RandomState(20)
+    q = _randn(rng, 6, n, c).to(cuda, dtype)
+    kv = _randn(rng, 6, n, 2 * ec).to(cuda, dtype)
+    _check("channel_attention", channel_attention, _plain_channel, (q, kv, nh, n ** -0.5),
+           dtype)
+
+
+@pytest.mark.gpu
+def test_channel_attention_refuses_misaligned_bf16_views(cuda):
+    """A contiguous bf16 q or kv that does not start on 16 bytes is refused
+    before any launch (the tensor-core body copies 16-byte pieces)."""
+    bw, n, c = 4, 49, 64
+    q, kv, nh, scale = _channel_args(cuda, torch.bfloat16, c, c, seed=21)
+    q, kv = q[:bw].contiguous(), kv[:bw].contiguous()
+    flat = torch.randn(bw * n * 2 * c + 1, device=cuda).to(torch.bfloat16)
+    bad_q, bad_kv = flat[1:bw * n * c + 1].view(bw, n, c), flat[1:].view(bw, n, 2 * c)
+    before = dict(kernels.launch_counts)
+    with pytest.raises(ValueError, match="16-byte"):
+        channel_attention(bad_q, kv, nh, scale)
+    with pytest.raises(ValueError, match="16-byte"):
+        channel_attention(q, bad_kv, nh, scale)
+    assert kernels.launch_counts == before
+    _check("channel_attention", channel_attention, _plain_channel, (q, kv, nh, scale),
+           torch.bfloat16)
 
 
 @pytest.mark.gpu
