@@ -6,7 +6,7 @@
    CUDA kernels from ``mde_tpu_torch/ops/kernels/csrc`` with ``nvcc`` for
    sm_90a and prints each kernel's registers and spills (ptxas) and the
    shared memory a block takes (K1, K2, K3's and K4's tiled bodies and K5
-   as their sources count it).
+   fwd and bwd as their sources count it).
 2. Kernel phases: each of the ten kernels against its plain PyTorch version
    on the card at its main path's shapes, in bf16 and in f32 with TF32 off;
    its device time (CUDA events around calls queued behind a busy kernel;
@@ -20,8 +20,9 @@
    bf16) a second time on windows whose depth indices are all equal. K1 is
    also timed at the KSA decoder's head dim 16 and its backward at the
    train step's stage 3, where 18 of the flagship's 24 backward launches
-   run; K3 also at the train step's batch 4; K5 also at the KSA decoder's
-   stages 1 and 2 (128 and 256 channels). Each kernel is also timed with
+   run; K3 also at the train step's batch 4; K5 and its backward also at
+   the KSA decoder's stages 1 and 2 (128 and 256 channels). Which body K3
+   dw took (tiled or gather) is logged. Each kernel is also timed with
    its calls following a synchronisation, so that any host gaps between
    them count (``host_ms``).
 3. Flagship serving at full width: ``oda2_red_order_swin2`` (Swin-B, red33
@@ -389,6 +390,7 @@ def ordered_bwd_phase(dev, pattern: str = "uniform"):
 
 def depthwise_bwd_phase(dev, dxdw: bool):
     """K3 dxdw (or dw alone) at the train step's FF shape."""
+    from mde_tpu_torch.ops import kernels
     from mde_tpu_torch.ops.kernels.depthwise import (depthwise_dw, depthwise_dxdw,
                                                      plain_depthwise_dw, plain_depthwise_dxdw)
     g = torch.Generator(device=dev).manual_seed(6)
@@ -418,9 +420,21 @@ def depthwise_bwd_phase(dev, dxdw: bool):
     if dxdw:
         return kernel_phase("depthwise_conv2d_dxdw", f"K3 dxdw {shape} 5x5", depthwise_dxdw,
                             plain_depthwise_dxdw, make, library, cost, relative=True)
-    return kernel_phase("depthwise_conv2d_dw", f"K3 dw {shape} 5x5", depthwise_dw,
-                        lambda x, dout, w: plain_depthwise_dw(x, dout, 5, 5), make, library,
-                        cost, relative=True)
+    bodies = []
+
+    def make_dw(dtype):  # and note the body that the C entry point picks for them
+        x, dout, w = make(dtype)
+        tiled = kernels.library().mde_depthwise_conv2d_dw_tiled(
+            x.data_ptr(), dout.data_ptr(), x.shape[-1], w.shape[0], kernels.dtype_code(x))
+        bodies.append("tiled" if tiled else "gather")
+        return x, dout, w
+
+    result = kernel_phase("depthwise_conv2d_dw", f"K3 dw {shape} 5x5", depthwise_dw,
+                          lambda x, dout, w: plain_depthwise_dw(x, dout, 5, 5), make_dw,
+                          library, cost, relative=True)
+    result["body"] = bodies[-1]
+    log(f"K3 dw {shape} 5x5: the {result['body']} body ran")
+    return result
 
 
 def glu_phase(dev):
@@ -496,8 +510,8 @@ def channel_sdpa(q, k, v, heads, grad=None):
 def channel_phase(dev, backward: bool, c: int = 64):
     """K5 forward at the KSA decoder's stage-0 serving shape (batch 8), or
     its backward at the train step's (batch 4): 49 tokens, 64 channels on
-    both sides, 4 heads of 16. With ``c`` 128 or 256, the forward at stage
-    1 or 2: a quarter or a sixteenth of the windows, heads of 16."""
+    both sides, 4 heads of 16. With ``c`` 128 or 256, stage 1 or 2: a
+    quarter or a sixteenth of the windows, heads of 16."""
     from mde_tpu_torch.ops.kernels.channel_attention import (channel_attention,
                                                              channel_attention_bwd,
                                                              plain_channel_attention,
@@ -1044,10 +1058,11 @@ def kernel_name(mangled: str) -> str:
 
 def build_report(kernels) -> dict:
     """Registers and spills (ptxas) of every kernel in the sources of K1,
-    K1 bwd, K3, K3 dxdw, K4 and K5, and the shared memory a block takes as
-    the kernels' sources count it (K1 at N 49 with the bias; K3's and K4's
-    tiled bodies by kernel size; K5 at the KSA decoder's three stages), by
-    kernel, for the ``kernels`` line; logs the shared memory."""
+    K1 bwd, K3, K3 dxdw, K3 dw, K4, K5 and K5 bwd, and the shared memory a
+    block takes as the kernels' sources count it (K1 at N 49 with the bias;
+    K3's and K4's tiled bodies by kernel size; K5 and K5 bwd at the KSA
+    decoder's three stages, bf16 on the tensor cores and f32 on the CUDA
+    cores), by kernel, for the ``kernels`` line; logs the shared memory."""
     lib, rows = kernels.library(), ptxas_entries(kernels.ptxas_report())
     dtypes = (("bf16", 1), ("f32", 0))
     smem = {"window_attention": {f"N 49 hd {hd} {tag}": lib.mde_window_attention_smem(
@@ -1058,10 +1073,15 @@ def build_report(kernels) -> dict:
                                  for k in (3, 5, 7) for tag, code in dtypes},
             "depthwise_conv2d_dxdw": {f"{k}x{k} {tag}": lib.mde_depthwise_conv2d_dxdw_smem(k, code)
                                       for k in (3, 5, 7) for tag, code in dtypes},
+            "depthwise_conv2d_dw": {f"{k}x{k} {tag}": lib.mde_depthwise_conv2d_dw_smem(k, code)
+                                    for k in (3, 5, 7) for tag, code in dtypes},
             "glu_ff": {f"{k}x{k} {tag}": lib.mde_glu_ff_smem(k, code)
                        for k in (3, 5, 7) for tag, code in dtypes},
             "channel_attention": {f"N 49 C {c}/{c // 16} {tag}": lib.mde_channel_attention_smem(
-                49, c, c, c // 16, code) for c in (64, 128, 256) for tag, code in dtypes}}
+                49, c, c, c // 16, code) for c in (64, 128, 256) for tag, code in dtypes},
+            "channel_attention_bwd": {
+                f"N 49 C {c}/{c // 16} {tag}": lib.mde_channel_attention_bwd_smem(
+                    49, c, c, c // 16, code) for c in (64, 128, 256) for tag, code in dtypes}}
     out = {}
     for name, sizes in smem.items():
         log(f"{name}: shared memory a block: " +
@@ -1078,7 +1098,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from mde_tpu_torch.ops import kernels
-    from mde_tpu_torch.ops.kernels.channel_attention import pair_smem_bytes
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip().splitlines()[0]
@@ -1106,10 +1125,13 @@ def main() -> int:
         f"{k2[True, 1]} B (f32 {k2[True, 0]} B), K3 bf16 5x5 "
         f"{build['depthwise_conv2d']['smem_bytes']['5x5 bf16']} B and K3 dxdw bf16 5x5 "
         f"{build['depthwise_conv2d_dxdw']['smem_bytes']['5x5 bf16']} B and K4 bf16 5x5 "
-        f"{build['glu_ff']['smem_bytes']['5x5 bf16']} B (tiled bodies), K5 bf16 "
-        f"{build['channel_attention']['smem_bytes']['N 49 C 64/4 bf16']} B (tensor cores, "
-        f"N 49, 4 heads of 16) and K5 bwd {pair_smem_bytes(49, 16, 16)} B per (window, head) "
-        f"pair (head dims 16, several pairs a block)")
+        f"{build['glu_ff']['smem_bytes']['5x5 bf16']} B and K3 dw bf16 5x5 "
+        f"{build['depthwise_conv2d_dw']['smem_bytes']['5x5 bf16']} B (tiled bodies), K5 bf16 "
+        f"{build['channel_attention']['smem_bytes']['N 49 C 64/4 bf16']} B and K5 bwd bf16 "
+        f"{build['channel_attention_bwd']['smem_bytes']['N 49 C 64/4 bf16']} B (tensor cores, "
+        f"one warp, N 49, 4 heads of 16; K5 bwd f32 "
+        f"{build['channel_attention_bwd']['smem_bytes']['N 49 C 64/4 f32']} B on the CUDA "
+        f"cores)")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1136,13 +1158,14 @@ def main() -> int:
             "window_attention_bwd": [window_bwd_phase("stage 3", 32 * TRAIN_BATCH, 512, 16,
                                                       32, dev)],
             "depthwise_conv2d": [depthwise_phase(dev, TRAIN_BATCH)],
-            "channel_attention": [channel_phase(dev, False, c) for c in (128, 256)]}
+            "channel_attention": [channel_phase(dev, False, c) for c in (128, 256)],
+            "channel_attention_bwd": [channel_phase(dev, True, c) for c in (128, 256)]}
     for p in (phases[1], phases[6], *more["window_attention"],
               *more["window_attention_bwd"], phases[11], *more["channel_attention"],
-              phases[12]):
+              phases[12], *more["channel_attention_bwd"]):
         log(f"{p['phase']}: {p['ms'] / p['library_ms']:.2f}x the SDPA yardstick, "
             f"{p['ms'] / p['bound_ms']:.2f}x the bound")
-    for p in (phases[5], *more["depthwise_conv2d"], phases[8]):
+    for p in (phases[5], *more["depthwise_conv2d"], phases[8], phases[9]):
         log(f"{p['phase']}: {p['ms'] / p['library_ms']:.2f}x the cuDNN yardstick, "
             f"{p['ms'] / p['bound_ms']:.2f}x the bound")
     torch.cuda.empty_cache()
@@ -1177,7 +1200,7 @@ def main() -> int:
         "path": paths[name][0], "max_abs_err": p["max_abs_err_bf16"], "ms": p["ms"],
         "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
         "library_ms": p["library_ms"], "host_ms": p["host_ms"]},
-        **{k: p[k] for k in ("library", "unfused_chain_ms", "one_bucket_ms") if k in p},
+        **{k: p[k] for k in ("library", "unfused_chain_ms", "one_bucket_ms", "body") if k in p},
         **build.get(name, {}),
         **({"other_shapes": [{k: q[k] for k in ("phase", "ms", "library_ms", "bound_ms",
                                                  "plain_ms", "host_ms", "max_abs_err_bf16")}

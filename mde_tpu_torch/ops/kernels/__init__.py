@@ -60,12 +60,15 @@ _SIGNATURES = {
     "mde_depthwise_conv2d_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "mde_depthwise_conv2d_smem": [_I] * 2,
     "mde_depthwise_conv2d_dxdw_smem": [_I] * 2,
+    "mde_depthwise_conv2d_dw_smem": [_I] * 2,
+    "mde_depthwise_conv2d_dw_tiled": [_P, _P, _I, _I, _I],
     "mde_depthwise_bwd_parts": [_I] * 4,
     "mde_glu_ff": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "mde_glu_ff_smem": [_I] * 2,
     "mde_channel_attention": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     "mde_channel_attention_smem": [_I] * 5,
     "mde_channel_attention_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    "mde_channel_attention_bwd_smem": [_I] * 5,
 }
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -9,8 +9,9 @@ and ``csrc/channel_attention_bwd.cu``, joined by one
 backward kernel body (``_bwd_kernel``, :94). The forward runs bf16 on the
 tensor cores at windows of up to 128 tokens and head dims that are
 multiples of 8 up to 128, f32 and the other shapes on the CUDA cores (the
-rule ``channel_mma`` in ``csrc/channel_attention.cu``); the backward runs
-on the CUDA cores.
+rule ``channel_mma`` in ``csrc/attention_mma.cuh``); the backward follows
+the same rule (``csrc/channel_attention_bwd.cu``). bf16 tensors that do not
+start on 16 bytes are refused, in the backward dout too.
 """
 
 from __future__ import annotations
@@ -66,40 +67,34 @@ def plain_channel_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
             dv.to(v.dtype).reshape(bw, n, ec))
 
 
-def pair_smem_bytes(n: int, hd: int, ehd: int) -> int:
-    """Shared memory of one (window, head) pair of the backward kernel:
-    ``channel_pair_bwd_smem_floats`` in ``csrc/common.cuh``."""
-    return (2 * n * hd + 2 * n * ehd + 2 * hd * (ehd + 1)) * 4
-
-
-def _check_inputs(q, kv, num_heads, backward: bool = False) -> Tuple[int, int, int, int]:
-    """Raise on what the kernels do not take: bf16 tensors of the forward
-    that do not start on 16 bytes (its tensor-core body copies 16-byte
-    pieces) and blocks beyond a block's shared memory (the forward's as its
-    source counts it). Return (bw, n, c, ec)."""
+def _check_inputs(q, kv, num_heads, dout=None) -> Tuple[int, int, int, int]:
+    """Raise on what the kernels do not take: bf16 q and kv (and, for the
+    backward, dout) that do not start on 16 bytes (the tensor-core bodies
+    copy 16-byte pieces) and blocks beyond a block's shared memory (as the
+    kernels' sources count it). Return (bw, n, c, ec)."""
     bw, n, c = q.shape
     ec2 = kv.shape[-1]
     if ec2 % 2 or c % num_heads or (ec2 // 2) % num_heads:
         raise ValueError(f"channel_attention: q's {c} and kv's {ec2} fused channels do not "
                          f"split into {num_heads} heads (kv holds k | v)")
     ec = ec2 // 2
+    backward = dout is not None
     check("q", q, (bw, n, c), q.dtype, q.device)
     check("kv", kv, (bw, n, 2 * ec), q.dtype, q.device)
-    code = dtype_code(q)
+    named = [("q", q), ("kv", kv)]
     if backward:
-        need = pair_smem_bytes(n, c // num_heads, ec // num_heads)
-    else:
-        if q.dtype == torch.bfloat16:
-            for name, t in (("q", q), ("kv", kv)):
-                if t.data_ptr() % 16:
-                    raise ValueError(f"channel_attention: {name} does not start on a 16-byte "
-                                     f"boundary")
-        need = library().mde_channel_attention_smem(n, c, ec, num_heads, code)
+        check("dout", dout, (bw, n, c), q.dtype, q.device)
+        named.append(("dout", dout))
+    kernel = f"channel_attention{'_bwd' if backward else ''}"
+    if q.dtype == torch.bfloat16:
+        for name, t in named:
+            if t.data_ptr() % 16:
+                raise ValueError(f"{kernel}: {name} does not start on a 16-byte boundary")
+    need = getattr(library(), f"mde_{kernel}_smem")(n, c, ec, num_heads, dtype_code(q))
     if need > SMEM_LIMIT:
-        raise ValueError(f"channel_attention{'_bwd' if backward else ''}: N={n}, head dims "
-                         f"{c // num_heads} x {ec // num_heads} need {need} bytes of shared "
-                         f"memory {'per (window, head)' if backward else 'a block'}; a "
-                         f"block has {SMEM_LIMIT}")
+        raise ValueError(f"{kernel}: N={n}, head dims {c // num_heads} x {ec // num_heads} "
+                         f"need {need} bytes of shared memory a block; a block has "
+                         f"{SMEM_LIMIT}")
     return bw, n, c, ec
 
 
@@ -113,8 +108,7 @@ def channel_attention_bwd(q: torch.Tensor, kv: torch.Tensor, dout: torch.Tensor,
         dq, dk, dv = plain_channel_attention_bwd(q, kv[..., :ec], kv[..., ec:], dout,
                                                  num_heads, scale)
         return dq, torch.cat([dk, dv], dim=-1)
-    bw, n, c, ec = _check_inputs(q, kv, num_heads, backward=True)
-    check("dout", dout, (bw, n, c), q.dtype, q.device)
+    bw, n, c, ec = _check_inputs(q, kv, num_heads, dout)
     dq, dkv = torch.empty_like(q), torch.empty_like(kv)
     launch("channel_attention_bwd", "mde_channel_attention_bwd", q.device, ptr(q), ptr(kv),
            ptr(dout), ptr(dq), ptr(dkv), bw, n, c, ec, num_heads, float(scale), dtype_code(q))

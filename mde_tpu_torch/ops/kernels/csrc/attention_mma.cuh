@@ -140,6 +140,26 @@ __device__ __forceinline__ void mma_stage(bf16* dst, const bf16* src, int n, int
   });
 }
 
+// Stage rows [0, n) and columns [0, hd) of a bf16 matrix with rows `ldg`
+// apart into `rows` rows of `ld` elements, zero-filling rows [n, rows) and
+// columns [hd, pad16(hd)), by the 32 lanes of one warp (mma_stage's copies,
+// with the warp's lanes in place of the block's threads).
+__device__ __forceinline__ void warp_stage(bf16* dst, const bf16* src, int n, int rows, int hd,
+                                           int ldg, int ld, int lane) {
+  for_chunks(lane, 32, rows, mma_pad16(hd) >> 3, [&](int r, int ch) {
+    const bool valid = r < n && (ch << 3) < hd;
+    cp_async16(dst + r * ld + (ch << 3), valid ? src + (size_t)r * ldg + (ch << 3) : src,
+               valid);
+  });
+}
+
+// K5's shape rule (channel_attention*.cu): bf16 on the tensor cores where
+// both head dims and the window fit mma_shape; f32 and the rest on the
+// CUDA cores.
+inline bool channel_mma(int n, int hd, int ehd, int dtype) {
+  return dtype == MDE_BF16 && mma_shape(n, hd) && mma_shape(n, ehd);
+}
+
 // Multiply what mma_stage copied by `scale`, rounding each product to bf16,
 // after this thread's copies completed (no barrier needed: each thread
 // scales its own chunks).

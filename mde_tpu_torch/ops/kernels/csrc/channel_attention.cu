@@ -132,19 +132,6 @@ static int launch_cuda_cores(const void* q, const void* kv, void* out, int bw, i
   return (int)cudaGetLastError();
 }
 
-// Stage rows [0, n) and columns [0, hd) of a bf16 matrix with rows `ldg`
-// apart into `rows` rows of `ld` elements, zero-filling rows [n, rows) and
-// columns [hd, pad16(hd)), by the 32 lanes of one warp (mma_stage's copies,
-// with the warp's lanes in place of the block's threads).
-__device__ __forceinline__ void warp_stage(bf16* dst, const bf16* src, int n, int rows, int hd,
-                                           int ldg, int ld, int lane) {
-  for_chunks(lane, 32, rows, mma_pad16(hd) >> 3, [&](int r, int ch) {
-    const bool valid = r < n && (ch << 3) < hd;
-    cp_async16(dst + r * ld + (ch << 3), valid ? src + (size_t)r * ldg + (ch << 3) : src,
-               valid);
-  });
-}
-
 // Shared memory of the tensor-core body: q, k and v in pad16(n) rows of
 // mma_ld(head dim) elements.
 static size_t mma_smem(int n, int hd, int ehd) {
@@ -258,12 +245,6 @@ static int launch_mma(const void* q, const void* kv, void* out, int bw, int n, i
   kernel<<<(unsigned)blocks, 32, smem, stream>>>((const bf16*)q, (const bf16*)kv, (bf16*)out,
                                                  n, c, ec, heads, scale);
   return (int)cudaGetLastError();
-}
-
-// The shape rule: bf16 on the tensor cores where both head dims and the
-// window fit mma_shape; f32 and the rest on the CUDA cores.
-inline bool channel_mma(int n, int hd, int ehd, int dtype) {
-  return dtype == MDE_BF16 && mma_shape(n, hd) && mma_shape(n, ehd);
 }
 
 // q: contiguous (bw, n, c); kv: contiguous (bw, n, 2 ec), k | v along the

@@ -14,13 +14,14 @@ XLA grouped conv for dx (:480-489): on the card cuDNN's grouped conv is the
 slow half of such a pair (PERF.md), and dxdw computes both gradients in one
 pass (JAX's ``MDE_DWCONV_BWD=fused``).
 
-The forward and dxdw kernels each have two bodies, chosen by shape in their
-C entry points: a tiled body (``csrc/depthwise_tile.cuh``) for square 3x3,
-5x5 and 7x7 kernels on C in whole 16-byte vectors with 16-byte aligned
-tensors, and for the rest (odd non-square kernels, other C, misaligned
-views) the forward's column body and the backward's gather body
-(``csrc/depthwise_bwd.cuh``, which dw always takes). Both are kernels;
-nothing falls back from one to the other.
+Each kernel has two bodies, chosen by shape in its C entry point: a tiled
+body (``csrc/depthwise_tile.cuh``; the backward's sweep and dw role in
+``csrc/depthwise_bwd_tile.cuh``, shared by dxdw and dw, which give the same
+dw bits) for square 3x3, 5x5 and 7x7 kernels on C in whole 16-byte vectors
+with 16-byte aligned tensors, and for the rest (odd non-square kernels,
+other C, misaligned views) the forward's column body and the backward's
+gather body (``csrc/depthwise_bwd.cuh``). Both are kernels; nothing falls
+back from one to the other.
 """
 
 from __future__ import annotations

@@ -181,9 +181,27 @@ def _dw_case(shape, k, seed=4):
     return x, rng.randn(k, k, shape[-1]).astype(np.float32), g
 
 
-@pytest.mark.parametrize("shape,k", DW_CASES)
-def test_depthwise_grads_match_jax(shape, k):
+# the f32 cases under their first ids, and bf16 inputs for dw alone
+DW_GRAD_CASES = ([pytest.param(shape, k, "float32", id=f"shape{i}-{k}")
+                  for i, (shape, k) in enumerate(DW_CASES)] +
+                 [pytest.param(*DW_CASES[i], "bfloat16", id=f"shape{i}-{DW_CASES[i][1]}-bfloat16")
+                  for i in (0, 1)])
+
+
+@pytest.mark.parametrize("shape,k,dtype", DW_GRAD_CASES)
+def test_depthwise_grads_match_jax(shape, k, dtype):
     x, w, g = _dw_case(shape, k)
+    if dtype == "bfloat16":
+        # dw from bf16 inputs, products and sums in f32 (the f32 cases
+        # cannot tell where the inputs are widened): within f32 rounding
+        # of the TPU kernel's sums
+        tx, tg = (torch.from_numpy(a).to(torch.bfloat16) for a in (x, g))
+        ref = _dw_pallas(jnp.asarray(x, jnp.bfloat16), jnp.asarray(g, jnp.bfloat16), k, k,
+                         interpret=True)
+        ours = plain_depthwise_dw(tx, tg, k, k)
+        assert ours.dtype == torch.float32
+        assert _max_abs(ours, ref) <= TOL * max(1.0, float(jnp.max(jnp.abs(ref))))
+        return
     rdx, rdw = jax.grad(lambda a, b: jnp.sum(xla_depthwise_conv2d(a, b) * g),
                         argnums=(0, 1))(jnp.asarray(x), jnp.asarray(w))
     pdx, pdw = _dxdw_pallas(jnp.asarray(x), jnp.asarray(g), jnp.asarray(w), k, k,

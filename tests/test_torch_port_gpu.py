@@ -373,26 +373,32 @@ def test_depthwise_bwd_kernels(cuda, dtype, shape, k):
 @pytest.mark.gpu
 def test_depthwise_dxdw_is_deterministic(cuda):
     """dx and dw are the same bits on every run: per-(image, strip) partials
-    summed in a fixed order, no atomics."""
+    summed in a fixed order, no atomics. dw alone's tiled body runs dxdw's
+    dw role on the same strips, so it gives dxdw's dw bits."""
     rng = np.random.RandomState(11)
-    for dtype in (torch.float32, torch.bfloat16):
-        x, g = (_randn(rng, 2, 19, 37, 136).to(cuda, dtype) for _ in range(2))
-        w = (_randn(rng, 5, 5, 136) * 0.2).to(cuda, dtype)
-        dx1, dw1 = depthwise_dxdw(x, g, w)
-        dx2, dw2 = depthwise_dxdw(x, g, w)
-        torch.cuda.synchronize()
-        assert torch.equal(dx1, dx2) and torch.equal(dw1, dw2)
+    for k in (5, 3, 7):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, g = (_randn(rng, 2, 19, 37, 136).to(cuda, dtype) for _ in range(2))
+            w = (_randn(rng, k, k, 136) * 0.2).to(cuda, dtype)
+            assert kernels.library().mde_depthwise_conv2d_dw_tiled(
+                x.data_ptr(), g.data_ptr(), 136, k, kernels.dtype_code(x)) == 1
+            dx1, dw1 = depthwise_dxdw(x, g, w)
+            dx2, dw2 = depthwise_dxdw(x, g, w)
+            dw3, dw4 = depthwise_dw(x, g, w), depthwise_dw(x, g, w)
+            torch.cuda.synchronize()
+            assert torch.equal(dx1, dx2) and torch.equal(dw1, dw2)
+            assert torch.equal(dw3, dw4) and torch.equal(dw3, dw1)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_depthwise_kernels_take_misaligned_views(cuda, dtype):
     """A contiguous view that does not start on 16 bytes (a slice of a flat
-    buffer) is not refused: the forward and dxdw launch their column and
+    buffer) is not refused: the forward, dxdw and dw launch their column and
     gather bodies, which take any alignment. The forward's two bodies sum in the same
     order, so the view gives the bits that an aligned copy gives through the
-    tiled body; dxdw's two bodies sum dx in other orders and agree within
-    the stated tolerances."""
+    tiled body; the backward's two bodies sum in other orders and agree
+    within the stated tolerances."""
     shape, k = (2, 9, 14, 64), 5
     n = int(np.prod(shape))
     flat = torch.randn(2 * n + 1, device=cuda).to(dtype)
@@ -413,6 +419,15 @@ def test_depthwise_kernels_take_misaligned_views(cuda, dtype):
     scale = max(1.0, dw_tiled.abs().max().item())
     tol = (TOL if dtype == torch.float32 else BF16_REL["depthwise_conv2d_dw"]) * scale
     assert (dw - dw_tiled).abs().max().item() <= tol
+    lib, code = kernels.library(), kernels.dtype_code(x)
+    assert lib.mde_depthwise_conv2d_dw_tiled(bad_x.data_ptr(), bad_g.data_ptr(), shape[-1], k,
+                                             code) == 0
+    assert lib.mde_depthwise_conv2d_dw_tiled(x.data_ptr(), g.data_ptr(), shape[-1], k, code) == 1
+    dw_gather = _check("depthwise_conv2d_dw", depthwise_dw,
+                       lambda x, g, w: plain_depthwise_dw(x, g, k, k), (bad_x, bad_g, w), dtype,
+                       relative=True)[0]
+    assert torch.equal(depthwise_dw(x, g, w), dw_tiled)
+    assert (dw_gather - dw_tiled).abs().max().item() <= tol
 
 
 # (x shape, kernel): odd sides, a side smaller than the kernel, channels in
@@ -555,6 +570,69 @@ def test_channel_attention_refuses_misaligned_bf16_views(cuda):
     assert kernels.launch_counts == before
     _check("channel_attention", channel_attention, _plain_channel, (q, kv, nh, scale),
            torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(CHANNEL_SHAPES))
+def test_channel_attention_bwd_kernel_shapes(cuda, dtype, case):
+    """The backward's two bodies (csrc/channel_attention_bwd.cu) at the
+    forward's shapes: bf16 on the tensor cores, f32 on the CUDA cores (bf16
+    on the CUDA cores: CHANNEL_CASES' head dim 12)."""
+    n, c, ec, nh = CHANNEL_SHAPES[case]
+    rng = np.random.RandomState(22)
+    q = _randn(rng, 6, n, c).to(cuda, dtype)
+    kv = _randn(rng, 6, n, 2 * ec).to(cuda, dtype)
+    dout = _randn(rng, 6, n, c).to(cuda, dtype)
+    _check("channel_attention_bwd", channel_attention_bwd, _plain_channel_bwd,
+           (q, kv, dout, nh, n ** -0.5), dtype, relative=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["ksa0", "hd24x40"])
+def test_channel_attention_bwd_is_deterministic(cuda, case):
+    """dq and dkv are the same bits on every run: no gradient is summed
+    across (window, head), so neither body has atomics."""
+    n, c, ec, nh = CHANNEL_SHAPES[case]
+    rng = np.random.RandomState(23)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, dout = (_randn(rng, 6, n, c).to(cuda, dtype) for _ in range(2))
+        kv = _randn(rng, 6, n, 2 * ec).to(cuda, dtype)
+        first = channel_attention_bwd(q, kv, dout, nh, n ** -0.5)
+        second = channel_attention_bwd(q, kv, dout, nh, n ** -0.5)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.gpu
+def test_channel_attention_bwd_refuses_misaligned_bf16_views(cuda):
+    """A contiguous bf16 q, kv or dout that does not start on 16 bytes is
+    refused by the backward before any launch, as q and kv are by the
+    forward; f32 views take the CUDA-core body at any alignment."""
+    bw, n, c = 4, 49, 64
+    nh, scale = 4, n ** -0.5
+    flat = torch.randn(bw * n * 2 * c + 1, device=cuda)
+    for dtype in (torch.bfloat16, torch.float32):
+        buf = flat.to(dtype)
+        q, kv, dout = (buf[:bw * n * m].view(bw, n, m).clone() for m in (c, 2 * c, c))
+        bad = {"q": buf[1:bw * n * c + 1].view(bw, n, c),
+               "kv": buf[1:].view(bw, n, 2 * c),
+               "dout": buf[1:bw * n * c + 1].view(bw, n, c)}
+        for name, view in bad.items():
+            assert view.data_ptr() % 16 != 0
+            args = {"q": q, "kv": kv, "dout": dout}
+            args[name] = view
+            call = (args["q"], args["kv"], args["dout"], nh, scale)
+            if dtype == torch.bfloat16:
+                before = dict(kernels.launch_counts)
+                with pytest.raises(ValueError, match="16-byte"):
+                    channel_attention_bwd(*call)
+                assert kernels.launch_counts == before
+            else:
+                _check("channel_attention_bwd", channel_attention_bwd, _plain_channel_bwd, call,
+                       dtype, relative=True)
+        _check("channel_attention_bwd", channel_attention_bwd, _plain_channel_bwd,
+               (q, kv, dout, nh, scale), dtype, relative=True)
 
 
 @pytest.mark.gpu

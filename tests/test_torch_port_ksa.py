@@ -31,7 +31,8 @@ import torch
 import mde_tpu.models.oda2.ksa as jax_ksa
 from mde_tpu.core.family_converters import convert_oda2_ksa_decoder
 from mde_tpu.ops import resize as jax_resize
-from mde_tpu.ops.pallas.channel_attention import fused_channel_attention, xla_channel_attention
+from mde_tpu.ops.pallas.channel_attention import (_pallas_channel_attention_bwd,
+                                                  fused_channel_attention, xla_channel_attention)
 from mde_tpu.ops.ppm import PyramidPoolingModule as JaxPPM
 from mde_tpu_torch.convert import from_jax_variables
 from mde_tpu_torch.models import build_model
@@ -46,6 +47,9 @@ from test_torch_port_flagship import ENC, _random_jax_variables
 TOL = 1e-4
 KERNEL_TOL = 1e-5
 GRAD_TOL = 1e-4
+# bf16 gradients, relative to max(1, max |ref|): an output one bf16 ulp
+# (2^-8 relative) apart in a few elements, from sums in another order
+BF16_GRAD_TOL = 1e-3
 # BatchNorm running statistics, relative to max(1, max |JAX's|): batch means
 # of convolutions that the two frameworks sum in another order (the train
 # step's tolerance, tests/_torch_port_train_case.py)
@@ -96,9 +100,31 @@ def test_channel_attention_plain_matches_jax(c, ec):
     assert torch.equal(fused, ours) and not any(kernels.launch_counts.values())
 
 
-@pytest.mark.parametrize("c,ec", CHANNEL_CASES)
-def test_channel_attention_grads_match_jax(c, ec):
+# the f32 cases under their first ids, and one bf16 case at the KSA
+# decoder's head dims (8 windows, 64 channels, 4 heads of 16)
+CHANNEL_GRAD_CASES = ([pytest.param(c, ec, "float32", id=f"{c}-{ec}")
+                       for c, ec in CHANNEL_CASES] +
+                      [pytest.param(64, 64, "bfloat16", id="64-64-bfloat16")])
+
+
+@pytest.mark.parametrize("c,ec,dtype", CHANNEL_GRAD_CASES)
+def test_channel_attention_grads_match_jax(c, ec, dtype):
     q, k, v, g, nh, scale = _channel_case(c, ec, seed=1)
+    if dtype == "bfloat16":
+        # the TPU kernel's backward on bf16 inputs rounds P and dS to bf16
+        # before the products, as the port's plain backward does (in f32
+        # that rounding is the identity): the two agree but for sums in
+        # another order moving an output rounding by one bf16 ulp
+        tq, tk, tv, tg = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v, g))
+        tq, tkv = tq.requires_grad_(), torch.cat([tk, tv], -1).requires_grad_()
+        channel_attention(tq, tkv, nh, scale).backward(tg)
+        ours = (tq.grad, tkv.grad[..., :ec], tkv.grad[..., ec:])
+        ref = _pallas_channel_attention_bwd(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, g)),
+                                            nh, scale, interpret=True)
+        for name, o, r in zip(("dq", "dk", "dv"), ours, ref):
+            assert o.dtype == torch.bfloat16
+            assert _rel(o, r.astype(jnp.float32)) <= BF16_GRAD_TOL, (name, _rel(o, r))
+        return
     tq = torch.from_numpy(q).requires_grad_()
     tkv = torch.from_numpy(np.concatenate([k, v], -1)).requires_grad_()
     channel_attention(tq, tkv, nh, scale).backward(torch.from_numpy(g))

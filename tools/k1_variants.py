@@ -217,13 +217,15 @@ def build(variants: dict, tag: str, header: str = "attention_mma.cuh",
     """Compile every variant, a (source, edited header) pair, into its own
     library under ``out_dir`` (all nvcc processes at once); return the loaded
     libraries by name and log the registers and spills of each kernel whose
-    name holds ``shown``."""
+    name holds ``shown``. The header is the text of ``header``, or a dict of
+    texts by file name where a variant edits several."""
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = []
     for i, (name, (src, head)) in enumerate(variants.items()):
         inc = out_dir / f"{tag}{i}_include"
         inc.mkdir(exist_ok=True)
-        (inc / header).write_text(head)
+        for fname, text in (head if isinstance(head, dict) else {header: head}).items():
+            (inc / fname).write_text(text)
         path, lib = out_dir / f"{tag}{i}.cu", out_dir / f"lib{tag}{i}.so"
         path.write_text(src)
         procs.append((name, lib, subprocess.Popen(

@@ -1,7 +1,7 @@
-"""Time design variants of K4 (the fused GLU feed-forward) and K5's forward
-(the KSA channel attention) on one card.
+"""Time design variants of K4 (the fused GLU feed-forward) and K5 (the KSA
+channel attention, forward and backward) on one card.
 
-    python3 tools/k4_k5_variants.py
+    python3 tools/k4_k5_variants.py [K4] [K5] [K5bwd]
 
 Each variant is a copy of ``csrc/glu_ff.cu`` (with ``csrc/depthwise_tile.cuh``)
 or of ``csrc/channel_attention.cu`` (with ``csrc/attention_mma.cuh``) with
@@ -13,13 +13,18 @@ in the sigmoid, the warps of a block and the blocks an SM it is compiled for, th
 and shifts reloaded at each store; and one part of the work left out to
 see what it costs (the gate, the taps' multiply-adds, the affine and GELU,
 all three, the copies after the first rows). K5: the softmax's exp
-(``__expf``), and the products left out (copies and stores alone). The variants that leave work out give wrong results and
-are timed only. Every variant is built with ``nvcc`` into its own library
+(``__expf``), and the products left out (copies and stores alone). K5
+backward (``csrc/channel_attention_bwd.cu``): q, k, dO and v staged as one
+cp.async group rather than two (S waiting for dO and v), ``__expf`` in
+the softmax, and the products left out (copies in, zeros stored). The
+variants that leave work out give wrong results and are timed only. Every variant is built with ``nvcc`` into its own library
 under ``build/k4_k5_variants/`` (``k1_variants.build``), loaded with
 ``ctypes`` and called through the port's C entry point at the shapes
 ``chip_smoke.py`` times (bf16): K4 at (8, 112, 224, 2 x 2048) -> 2048 5x5,
 K5 at the KSA decoder's three serving stages (batch 8: 4096 windows of 49
-tokens at 64 channels and 4 heads, 1024 at 128 and 8, 256 at 256 and 16).
+tokens at 64 channels and 4 heads, 1024 at 128 and 8, 256 at 256 and 16),
+its backward at the train step's (batch 4: 2048, 512 and 128 windows).
+The arguments pick the kernels (default: all).
 Times are device ms per call (``chip_smoke.time_ms``), each variant twice,
 in turns; "err" is the largest difference from the built kernel's output.
 Needs a CUDA card and ``nvcc``.
@@ -107,6 +112,29 @@ def k5_variant(fast_exp: bool = False, no_products: bool = False) -> tuple:
     return src, (CSRC / MMA).read_text()
 
 
+def k5_bwd_variant(one_group: bool = False, fast_exp: bool = False,
+                   no_products: bool = False) -> tuple:
+    src = (CSRC / "channel_attention_bwd.cu").read_text()
+    if one_group:  # S waits for dO and v too
+        src = edit(src, "      cp_async_wait<1>();", "      cp_async_wait<0>();")
+    if fast_exp:
+        src = edit(src, "mma_softmax<ET>(s, ne, inv0, inv1);",
+                   "mma_softmax<ET, true>(s, ne, inv0, inv1);")
+    if no_products:  # copies in, zeros stored
+        src = edit(src, "  for (int d0 = 0; d0 < hd; d0 += 16) {",
+                   "  cp_async_wait<0>();\n  __syncwarp();\n"
+                   "  for (int d0 = 0; d0 < hd && n < 0; d0 += 16) {")
+        src = edit(src, "        if (kt >= ne) break;\n        uint32_t fa[4];\n"
+                        "        ldsm_x4<false>(fa, tile_a(sk",
+                   "        if (kt >= ne || n > 0) break;\n        uint32_t fa[4];\n"
+                   "        ldsm_x4<false>(fa, tile_a(sk")
+        src = edit(src, "        if (kt >= nd) break;\n        uint32_t fa[4];\n"
+                        "        ldsm_x4<false>(fa, tile_a(sa",
+                   "        if (kt >= nd || n > 0) break;\n        uint32_t fa[4];\n"
+                   "        ldsm_x4<false>(fa, tile_a(sa")
+    return src, (CSRC / MMA).read_text()
+
+
 K4 = {"as built (8 warps, 4 columns, 2 blocks an SM, packed bf16 gate, sigmoid table "
       "without a branch)": k4_variant(),
       "sigmoid computed per element (no table)": k4_variant(no_table=True),
@@ -130,18 +158,42 @@ K4 = {"as built (8 warps, 4 columns, 2 blocks an SM, packed bf16 gate, sigmoid t
 K5 = {"as built (a warp a block, one (window, head) each)": k5_variant(),
       "__expf in the softmax": k5_variant(fast_exp=True),
       "copies and stores alone (wrong)": k5_variant(no_products=True)}
+K5_BWD = {"as built (a warp a block; q, k then dO, v in two cp.async groups)":
+              k5_bwd_variant(),
+          "one cp.async group": k5_bwd_variant(one_group=True),
+          "__expf in the softmax": k5_bwd_variant(fast_exp=True),
+          "copies in, zeros stored (wrong)": k5_bwd_variant(no_products=True)}
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("k4_k5_variants: no CUDA device", file=sys.stderr)
         return 1
+    parts = sys.argv[1:] or ["K4", "K5", "K5bwd"]
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(7)
     stream = torch.cuda.current_stream().cuda_stream
-    k4 = build(K4, "k4", TILE, "tiled", OUT)
-    k5 = build(K5, "k5", MMA, "mma", OUT)
     bf16 = kernels.dtype_code(torch.empty(0, dtype=torch.bfloat16))
+    n = 49
+    if "K5bwd" in parts:
+        k5_bwd = build(K5_BWD, "k5bwd", MMA, "mma", OUT)
+        for ch in (64, 128, 256):
+            bw, heads = 512 * cs.TRAIN_BATCH * 64 * 64 // (ch * ch), ch // 16
+            q, dout = (torch.randn(bw, n, ch, generator=g, device=dev).to(torch.bfloat16)
+                       for _ in range(2))
+            kv = torch.randn(bw, n, 2 * ch, generator=g, device=dev).to(torch.bfloat16)
+
+            def call_bwd(lib, outs):
+                return lib.mde_channel_attention_bwd(
+                    q.data_ptr(), kv.data_ptr(), dout.data_ptr(), outs[0].data_ptr(),
+                    outs[1].data_ptr(), bw, n, ch, ch, heads, n ** -0.5, bf16, stream)
+
+            compare(f"K5 bwd ({bw}, {n}, {ch})/{heads}", k5_bwd, call_bwd,
+                    lambda: (torch.empty_like(q), torch.empty_like(kv)))
+    if "K4" not in parts and "K5" not in parts:
+        return 0
+    k4 = build(K4, "k4", TILE, "tiled", OUT) if "K4" in parts else {}
+    k5 = build(K5, "k5", MMA, "mma", OUT) if "K5" in parts else {}
 
     b, h, w, c = cs.BATCH, 112, 224, 2048
     ab = torch.randn(b, h, w, 2 * c, generator=g, device=dev).to(torch.bfloat16)
@@ -153,12 +205,12 @@ def main() -> int:
         return lib.mde_glu_ff(ab.data_ptr(), wt.data_ptr(), sc.data_ptr(), sh.data_ptr(),
                               outs[0].data_ptr(), b, h, w, c, 5, 5, 1, bf16, stream)
 
-    compare(f"K4 ({b}, {h}, {w}, {2 * c}) -> {c} 5x5", k4, call_k4,
-            lambda: (torch.empty(b, h, w, c, dtype=torch.bfloat16, device=dev),))
+    if k4:
+        compare(f"K4 ({b}, {h}, {w}, {2 * c}) -> {c} 5x5", k4, call_k4,
+                lambda: (torch.empty(b, h, w, c, dtype=torch.bfloat16, device=dev),))
     del ab
 
-    n = 49
-    for ch in (64, 128, 256):
+    for ch in (64, 128, 256) if k5 else ():
         bw, heads = 512 * cs.BATCH * 64 * 64 // (ch * ch), ch // 16
         q = torch.randn(bw, n, ch, generator=g, device=dev).to(torch.bfloat16)
         kv = torch.randn(bw, n, 2 * ch, generator=g, device=dev).to(torch.bfloat16)

@@ -21,7 +21,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 # phase name -> the chip_smoke call that runs it (dev: the card)
 PHASES = {"K4": "glu_phase(dev)", "K5 fwd": "channel_phase(dev, False)",
-          "K5 bwd": "channel_phase(dev, True)"}
+          "K5 bwd": "channel_phase(dev, True)",
+          "K5 bwd stage 1": "channel_phase(dev, True, 128)",
+          "K5 bwd stage 2": "channel_phase(dev, True, 256)",
+          "K3 dxdw": "depthwise_bwd_phase(dev, True)",
+          "K3 dw": "depthwise_bwd_phase(dev, False)"}
 SETUP = """
 import json, torch, chip_smoke as cs
 from mde_tpu_torch.ops import kernels
