@@ -44,7 +44,24 @@
    depth 0.2): its launch counts, finite logs and moved parameters, 5 timed
    steps after 2 warm-up, peak memory, one profiled step, and one run with
    ``use_checkpoint``.
-5. ``oda2_ksa_reg`` at full width (Swin-L, KSA decoder at dec_dim 512, the
+5. The flagship at KITTI's test shape: the f32 forward of one 352x1216
+   image (resized to 448x1536, where every Swin stage pads its token grid
+   to whole windows) on the card against the CPU, fed the card's index
+   maps, with the windows each kernel sees logged and checked.
+6. The driver: a synthetic KITTI tree (16 train and 4 test samples of
+   375x1242, written with the port's PNG codec) in a temporary directory,
+   then ``train.driver.Trainer`` on the flagship as ``bench.py`` pins it
+   (bf16, batch 4, ``use_checkpoint`` on as in JAX): the loader's rate
+   alone (``host_only``), ``fit(max_steps=4)`` with its exact launch
+   counts (four recomputing steps and one validation forward at
+   352x1216), finite losses and metrics and a ``step_4`` checkpoint, its
+   img/s with the loader feeding it against the bare step's, its peak
+   memory; a second ``Trainer`` resumed from the checkpoint (step, best
+   value, every parameter, statistic and moment equal bit for bit);
+   ``predict`` (4 uint16 PNGs equal to ``Predictor.predict`` x 256,
+   truncated); validate's time at 352x1216; one profiled fit step (the
+   loader's next batch and the step).
+7. ``oda2_ksa_reg`` at full width (Swin-L, KSA decoder at dec_dim 512, the
    build's defaults, ``use_checkpoint`` on): the f32 batch-1 forward card
    against CPU; bf16 serving at batch 8 (32 K1 and 6 K5 launches), timed
    and profiled; the f32 train step card against CPU at 224x448, at batch 2
@@ -54,16 +71,21 @@
    profiled.
 
 Any failure exits non-zero before the result lines. The last three lines
-are the card, the ``kernels`` JSON line and the ``ok`` JSON line.
+are the card, the ``kernels`` JSON line and the ``ok`` JSON line. The
+``kernels`` line takes the launches of K1, K2 and K3 and their backward
+kernels from the driver's ``fit``.
 """
 
 from __future__ import annotations
 
 import gc
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -148,6 +170,18 @@ KSA_TRAIN_OPT = dict(TRAIN_OPT, model=KSA)
 KSA_SERVE_LAUNCHES = {"window_attention": 32, "channel_attention": 6}
 KSA_TRAIN_LAUNCHES = {"window_attention": 56, "window_attention_bwd": 32,
                       "channel_attention": 6, "channel_attention_bwd": 6}
+# one eval forward of the flagship (no gradient, so nothing recomputes)
+EVAL_LAUNCHES = {"window_attention": 24, "ordered_attention": 6, "depthwise_conv2d": 6}
+# KITTI's test images after the KB-crop; the flagship resizes them to 448x1536
+EVAL_HW = (352, 1216)
+# 7x7 windows an image at each Swin stage of 448x1536: token grids 112x384,
+# 56x192, 28x96 and 14x48, each padded to whole windows (stage depths 2, 2,
+# 18, 2); K2 sees 14x48 windows of 8x8 at 1/4 scale, K3 (B, 112, 384, 2048)
+EVAL_WINDOWS = [880] * 2 + [224] * 2 + [56] * 18 + [14] * 2
+# the driver phase's synthetic KITTI tree: raw images and depth maps of the
+# camera's shape, and the focal column of the split lists
+KITTI_RAW_HW = (375, 1242)
+DRIVER_TRAIN, DRIVER_TEST, DRIVER_STEPS = 16, 4, 4
 
 
 def log(*args):
@@ -670,7 +704,7 @@ def model_f32_check(dev) -> None:
     replay = IndexReplay()
     try:
         replay.record()
-        model = build_model(FLAGSHIP, 0.001, 80.0, device=dev, seed=0)
+        model = build_model(FLAGSHIP, 0.001, 80.0, device=dev, seed=0, use_checkpoint=False)
         perturb_ff_bns(model, 7)
         with torch.no_grad():
             out, outs = model(x.to(dev))
@@ -695,7 +729,8 @@ def model_f32_check(dev) -> None:
         if len(fused_errs) != FLAGSHIP["num_repeats"] + 1 or max(fused_errs) > MODEL_F32_TOL:
             raise RuntimeError("flagship f32 forward with fused FFs disagrees with the default")
         del model, out, outs, fused_outs
-        cpu_model = build_model(FLAGSHIP, 0.001, 80.0, device="cpu", seed=0)
+        cpu_model = build_model(FLAGSHIP, 0.001, 80.0, device="cpu", seed=0,
+                                use_checkpoint=False)
         perturb_ff_bns(cpu_model, 7)
         replay.flips = []
         replay.replay()
@@ -754,7 +789,8 @@ def model_bf16_run(dev) -> dict:
     launch counts."""
     from mde_tpu_torch.models import build_model
     from mde_tpu_torch.serve import Predictor
-    model = build_model(FLAGSHIP, 0.001, 80.0, device=dev, seed=0, dtype=torch.bfloat16)
+    model = build_model(FLAGSHIP, 0.001, 80.0, device=dev, seed=0, dtype=torch.bfloat16,
+                        use_checkpoint=False)
     predictor = Predictor(model)
     images = torch.from_numpy(
         np.random.RandomState(1).rand(BATCH, 352, 704, 3).astype(np.float32)).to(dev)
@@ -802,12 +838,12 @@ def train_f32_check(dev) -> None:
     replay = IndexReplay()
     try:
         replay.record()
-        card = one_train_step(dev, batch, path_drop_prob=0.0)
+        card = one_train_step(dev, batch, path_drop_prob=0.0, use_checkpoint=False)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         replay.replay()
         t0 = time.perf_counter()
-        cpu = one_train_step("cpu", batch, path_drop_prob=0.0)
+        cpu = one_train_step("cpu", batch, path_drop_prob=0.0, use_checkpoint=False)
         log(f"flagship f32 CPU train step (plain versions): {time.perf_counter() - t0:.1f} s")
     finally:
         replay.restore()
@@ -846,12 +882,12 @@ def compare_steps(tag, card, cpu) -> None:
         raise RuntimeError(f"{tag} on the card disagrees with the CPU (logs {bad})")
 
 
-def train_run(tag, opt, dev, expect, warmup, timed, profile, **overrides) -> dict:
+def train_run(tag, opt, dev, expect, warmup, timed, profile, **overrides) -> tuple:
     """Full-width bf16 train steps at batch 4 of a fresh model of ``opt``:
     one counted step (every launch count from 0, then exactly ``expect``,
     every other kernel 0; finite logs, moved parameters), more warm-up
     steps up to ``warmup``, ``timed`` timed steps, peak memory and, with
-    ``profile``, one profiled step. Returns the counted launches."""
+    ``profile``, one profiled step. Returns (the counted launches, img/s)."""
     from mde_tpu_torch.models import build_model
     from mde_tpu_torch.ops import kernels
     from mde_tpu_torch.train.state import TrainState
@@ -888,25 +924,27 @@ def train_run(tag, opt, dev, expect, warmup, timed, profile, **overrides) -> dic
         times.append(time.perf_counter() - t0)
     times = times[warmup - 1:]
     peak = torch.cuda.max_memory_allocated()
-    log(f"{tag} at 352x704: {TRAIN_BATCH / float(np.median(times)):.2f} img/s (median of "
+    rate = TRAIN_BATCH / float(np.median(times))
+    log(f"{tag} at 352x704: {rate:.2f} img/s (median of "
         f"{len(times)} steps after {warmup} warm-up, {[round(t * 1e3, 2) for t in times]} ms), "
         f"peak memory {peak / 2 ** 30:.2f} GiB, loss {float(logs['loss']):.4f}")
     if profile:
         profile_call(lambda: step(state, batch, generator))
     del state, model
     torch.cuda.empty_cache()
-    return run
+    return run, rate
 
 
-def train_bf16_run(dev) -> dict:
+def train_bf16_run(dev) -> tuple:
     """The flagship's bf16 train step at batch 4, then one recomputing run.
-    Returns the first run's counted launches."""
+    Returns the first run's counted launches and the recomputing run's
+    img/s."""
     tag = f"flagship bf16 train step batch {TRAIN_BATCH} (resized to 448x896, use_checkpoint="
-    counts = train_run(tag + "False)", TRAIN_OPT, dev, TRAIN_LAUNCHES, warmup=3, timed=5,
-                       profile=True, use_checkpoint=False)
-    train_run(tag + "True)", TRAIN_OPT, dev, CHECKPOINT_LAUNCHES, warmup=2, timed=2,
-              profile=False, use_checkpoint=True)
-    return counts
+    counts, _ = train_run(tag + "False)", TRAIN_OPT, dev, TRAIN_LAUNCHES, warmup=3, timed=5,
+                          profile=True, use_checkpoint=False)
+    _, rate = train_run(tag + "True)", TRAIN_OPT, dev, CHECKPOINT_LAUNCHES, warmup=2, timed=2,
+                        profile=False, use_checkpoint=True)
+    return counts, rate
 
 
 def ksa_f32_check(dev) -> None:
@@ -990,6 +1028,317 @@ def ksa_train_f32_check(dev, size: int, freeze_bn: bool) -> None:
     cpu = one_train_step("cpu", batch, KSA_TRAIN_OPT, freeze_bn=freeze_bn, path_drop_prob=0.0)
     log(f"{tag}: CPU step (plain versions, use_checkpoint=True) {time.perf_counter() - t0:.1f} s")
     compare_steps(tag, card, cpu)
+
+
+def kernel_inputs(model) -> tuple:
+    """Record the input shape of every module of ``model`` that launches K1
+    (windows, tokens, channels), K2 (an image's map before its windows) or
+    K3: (records, hook handles)."""
+    from mde_tpu_torch.ops.attention import WindowAttention
+    from mde_tpu_torch.ops.depthwise import DepthwiseConv2d
+    from mde_tpu_torch.ops.ordered_attention import PreNormOrderedSwinSA
+    kinds = {WindowAttention: "K1", PreNormOrderedSwinSA: "K2", DepthwiseConv2d: "K3"}
+    seen = {"K1": [], "K2": [], "K3": []}
+    handles = [m.register_forward_pre_hook(
+        lambda module, args, kind=kinds[type(m)]: seen[kind].append(tuple(args[0].shape)))
+        for m in model.modules() if type(m) in kinds]
+    return seen, handles
+
+
+def eval_shape_f32_check(dev) -> None:
+    """The flagship's f32 forward of one 352x1216 image (KITTI's test shape,
+    resized to 448x1536): the card against the CPU, fed the card's index
+    maps, with the windows K1, K2 and K3 see at this shape checked."""
+    from mde_tpu_torch.models import build_model
+    from mde_tpu_torch.ops import kernels
+    x = torch.from_numpy(np.random.RandomState(9).rand(1, *EVAL_HW, 3).astype(np.float32))
+    replay = IndexReplay()
+    try:
+        replay.record()
+        model = build_model(FLAGSHIP, 0.001, 80.0, device=dev, seed=0, use_checkpoint=False)
+        seen, handles = kernel_inputs(model)
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            _, outs = model(x.to(dev))
+        torch.cuda.synchronize()
+        counts = dict(kernels.launch_counts)
+        for h in handles:
+            h.remove()
+        gpu_outs = [o.cpu() for o in outs]
+        del model, outs
+        torch.cuda.empty_cache()
+        windows = [s[0] for s in seen["K1"]]
+        log(f"flagship f32 batch 1 at {EVAL_HW[0]}x{EVAL_HW[1]} (resized to 448x1536): "
+            f"launches {counts}; K1 windows an image by block {windows} (of 49 tokens: "
+            f"{sorted({s[1] for s in seen['K1']})}); K2 inputs {sorted(set(seen['K2']))} "
+            f"({seen['K2'][0][1] * seen['K2'][0][2] // 64} windows of 8x8); K3 inputs "
+            f"{sorted(set(seen['K3']))}")
+        if (counts != dict(dict.fromkeys(kernels.KERNELS, 0), **EVAL_LAUNCHES)
+                or windows != EVAL_WINDOWS or set(seen["K2"]) != {(1, 112, 384, 512)}
+                or set(seen["K3"]) != {(1, 112, 384, 2048)}):
+            raise RuntimeError("the flagship at 352x1216 did not run the kernels at the "
+                               "expected shapes")
+        cpu_model = build_model(FLAGSHIP, 0.001, 80.0, device="cpu", seed=0,
+                                use_checkpoint=False)
+        replay.replay()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            _, ref_outs = cpu_model(x)
+        log(f"flagship f32 CPU forward at {EVAL_HW[0]}x{EVAL_HW[1]} (plain versions): "
+            f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        replay.restore()
+    errs = [(a - b).abs().max().item() for a, b in zip(gpu_outs, ref_outs)]
+    log(f"flagship f32 batch 1 at {EVAL_HW[0]}x{EVAL_HW[1]}, card vs CPU: output "
+        f"{tuple(gpu_outs[-1].shape)}, max_abs_err per map {errs} m (tolerance "
+        f"{MODEL_F32_TOL}); index flips per repeat {replay.flips} of "
+        f"{replay.card[0].numel()} (the CPU run was fed the card's indices)")
+    if (len(errs) != FLAGSHIP["num_repeats"] + 1 or max(errs) > MODEL_F32_TOL
+            or gpu_outs[-1].shape != (1, 112, 384, 1) or not torch.isfinite(gpu_outs[-1]).all()):
+        raise RuntimeError("flagship f32 forward at 352x1216 on the card disagrees with the CPU")
+
+
+def write_kitti_tree(root: str, seed: int = 0) -> dict:
+    """A synthetic KITTI tree under ``root``: DRIVER_TRAIN train and
+    DRIVER_TEST test samples, 375x1242 8-bit RGB under ``data/raw/`` and
+    uint16 depth x 256 (about 30% zeros) under ``data/gts/``, every PNG
+    Paeth-filtered (``paeth_png``; the slowest filter to decode), and the
+    Eigen split lists with a focal column under ``splits/KITTI/``, for
+    ``MDE_SPLIT_DIR``. Returns the config's ``dataset`` section."""
+    rng = np.random.RandomState(seed)
+    h, w = KITTI_RAW_HW
+    rows = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None, None]
+    for mode, n in (("train", DRIVER_TRAIN), ("test", DRIVER_TEST)):
+        lines = []
+        for i in range(n):
+            img = f"2011_09_26/2011_09_26_drive_{mode}_sync/image_02/data/{i:010d}.png"
+            gt = f"2011_09_26_drive_{mode}_sync/proj_depth/groundtruth/image_02/{i:010d}.png"
+            image = (255 * np.clip(0.6 * rows + 0.4 * rng.rand(h, w, 3), 0, 1)).astype(np.uint8)
+            depth = (rng.uniform(1.0, 80.0, (h, w)) * 256).astype(np.uint16)
+            depth[rng.rand(h, w) < 0.3] = 0
+            for sub, rel, arr in (("raw", img, image), ("gts", gt, depth)):
+                path = os.path.join(root, "data", sub, rel)
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                with open(path, "wb") as f:
+                    f.write(paeth_png(arr))
+            lines.append(f"{img} {gt} 721.5377")
+        os.makedirs(os.path.join(root, "splits", "KITTI"), exist_ok=True)
+        with open(os.path.join(root, "splits", "KITTI", f"kitti_eigen_{mode}.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return {"data_type": "KITTI", "data_path": os.path.join(root, "data")}
+
+
+def paeth_png(image: np.ndarray) -> bytes:
+    """PNG bytes of an (H, W, 3) uint8 RGB or (H, W) uint16 gray image with
+    every row Paeth-filtered, as encoders that pick filters by row (libpng's,
+    Pillow's) often write KITTI's files; the port's writer uses Up only."""
+    import struct
+    import zlib
+    from mde_tpu_torch.data.png import PAETH, SIGNATURE
+    h, w = image.shape[:2]
+    if image.dtype == np.uint16:
+        rows, bpp, header = image.astype(">u2").view(np.uint8).reshape(h, -1), 2, (16, 0)
+    else:
+        rows, bpp, header = image.reshape(h, -1), 3, (8, 2)
+    x = np.zeros((h + 1, rows.shape[1] + bpp), np.int16)
+    x[1:, bpp:] = rows
+    a, b, c = x[1:, :-bpp], x[:-1, bpp:], x[:-1, :-bpp]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    filtered = np.empty((h, rows.shape[1] + 1), np.uint8)
+    filtered[:, 0] = PAETH
+    filtered[:, 1:] = (rows - pred) & 0xFF
+
+    def chunk(kind, body):
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+    return (SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, *header, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(filtered.tobytes())) + chunk(b"IEND", b""))
+
+
+def png_decode_rates(card: str) -> None:
+    """Decode of one 375x1242 RGB image with the port's codec: written
+    Up-filtered (the port's writer) and Paeth-filtered, serially, and the
+    Paeth file also in 4 threads at once (the loader's decode pool); each
+    must read back the image."""
+    from concurrent.futures import ThreadPoolExecutor
+    from mde_tpu_torch.data.png import decode_png, encode_png
+    rng = np.random.RandomState(1)
+    h, w = KITTI_RAW_HW
+    rows = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None, None]
+    image = (255 * np.clip(0.6 * rows + 0.4 * rng.rand(h, w, 3), 0, 1)).astype(np.uint8)
+    for name, data in (("Up", encode_png(image)), ("Paeth", paeth_png(image))):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = decode_png(data)
+            times.append(time.perf_counter() - t0)
+        if not np.array_equal(out, image):
+            raise RuntimeError(f"the PNG codec misread a {name}-filtered image")
+        log(f"driver: decode of a {h}x{w} RGB PNG, every row {name}-filtered, one thread: "
+            f"{1e3 * min(times):.1f} ms ({1 / min(times):.1f} img/s; {card})")
+    with ThreadPoolExecutor(4) as pool:
+        t0 = time.perf_counter()
+        outs = list(pool.map(decode_png, [data] * 32))
+        took = time.perf_counter() - t0
+    if not all(np.array_equal(o, image) for o in outs):
+        raise RuntimeError("the PNG codec misread a Paeth-filtered image in a thread")
+    log(f"driver: decode of 32 such Paeth-filtered PNGs in 4 threads: {len(outs) / took:.1f} "
+        f"img/s ({card})")
+
+
+def driver_opt(root: str, dataset: dict, **changes) -> dict:
+    """The flagship's train config as ``bench.py`` pins it, on KITTI, batch 4
+    with 4 workers, one epoch, print_freq 2, valid_freq 4, the Garg crop."""
+    return dict(dict(TRAIN_OPT, output_dir=os.path.join(root, "run"), checkpoint="",
+                     wandb={"mode": "disabled"}, dataset=dataset,
+                     dataloader={"batch_size": TRAIN_BATCH, "num_workers": 4},
+                     train=dict(TRAIN_OPT["train"], epoch=1, print_freq=2,
+                                valid_freq=DRIVER_STEPS),
+                     eval={"garg_crop": True, "eigen_crop": False, "flip_eval": False,
+                           "min_depth_eval": 1e-3, "max_depth_eval": 80.0}), **changes)
+
+
+def same_state(a, b) -> bool:
+    """Two train states hold the same bits: parameters, BatchNorm
+    statistics, moments and update count."""
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    oa, ob = a.optimizer, b.optimizer
+    return (list(sa) == list(sb) and all(torch.equal(sa[k], sb[k]) for k in sa)
+            and oa.count == ob.count and oa.names == ob.names
+            and all(torch.equal(x, y) for x, y in zip(oa.mu + oa.nu, ob.mu + ob.nu)))
+
+
+def driver_run(dev, card: str, bare_rate: float) -> dict:
+    """The driver on a synthetic KITTI tree: the loader alone, ``fit``
+    (counted, timed by events between its steps), resume, ``predict``,
+    validate's time, one profiled fit step. Returns fit's launch counts."""
+    from mde_tpu_torch.core.config import load_config
+    from mde_tpu_torch.data.augment import normalize_eval_batch
+    from mde_tpu_torch.data.loader import DataLoader
+    from mde_tpu_torch.data.png import read_png
+    from mde_tpu_torch.data.splits import parse_split_line
+    from mde_tpu_torch.ops import kernels
+    from mde_tpu_torch.serve import Predictor
+    from mde_tpu_torch.train.driver import Trainer
+    root = tempfile.mkdtemp(prefix="chip_smoke_kitti_")
+    split_env = os.environ.get("MDE_SPLIT_DIR")
+    os.environ["MDE_SPLIT_DIR"] = os.path.join(root, "splits")
+    try:
+        t0 = time.perf_counter()
+        dataset = write_kitti_tree(root)
+        log(f"driver: synthetic KITTI tree of {DRIVER_TRAIN} train and {DRIVER_TEST} test "
+            f"samples at {KITTI_RAW_HW[0]}x{KITTI_RAW_HW[1]} written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        png_decode_rates(card)
+        trainer = Trainer(load_config(driver_opt(root, dataset)), dtype=torch.bfloat16)
+        trainer.init_state()
+
+        host = DataLoader(trainer.train_loader.dataset, TRAIN_BATCH, shuffle=True,
+                          num_workers=4, host_only=True)
+        t0 = time.perf_counter()
+        n = sum(b["image"].shape[0] for b in host.epoch(0))
+        log(f"driver: the loader alone (host_only, 4 threads, decode of Paeth-filtered PNGs, "
+            f"KB-crop, stacking): {n / (time.perf_counter() - t0):.2f} img/s over {n} "
+            f"images ({card})")
+
+        # each step's logs, and an event after it on the card, kept without a read
+        step, seen, events = trainer._get_step(False), [], []
+
+        def watched(state, batch, generator):
+            state, logs = step(state, batch, generator)
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+            seen.append(logs)
+            return state, logs
+
+        trainer._steps[False] = watched
+        free_garbage()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = trainer.fit(max_steps=DRIVER_STEPS)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = dict(kernels.launch_counts)
+        test_batches = len(trainer.test_loader)
+        expect = {k: DRIVER_STEPS * CHECKPOINT_LAUNCHES.get(k, 0)
+                  + test_batches * EVAL_LAUNCHES.get(k, 0) for k in kernels.KERNELS}
+        log(f"driver: fit({DRIVER_STEPS} steps) launches {counts} (expected {DRIVER_STEPS} "
+            f"recomputing steps and {test_batches} eval forward: {expect})")
+        if counts != expect:
+            raise RuntimeError(f"driver fit: expected {expect} launches, got {counts}")
+        losses = torch.stack([lg["loss"] for lg in seen]).tolist()
+        gaps = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+        rate = TRAIN_BATCH / (float(np.median(gaps)) / 1e3)
+        peak = torch.cuda.max_memory_allocated()
+        log(f"driver: fit in {fit_s:.1f} s, losses {losses}, metrics {metrics}")
+        log(f"driver: fit steps with the loader feeding them: {rate:.2f} img/s (median of the "
+            f"{len(gaps)} gaps between step ends on the card, {[round(g, 2) for g in gaps]} "
+            f"ms) against the bare recomputing step's {bare_rate:.2f} img/s; peak memory "
+            f"{peak / 2 ** 30:.2f} GiB ({card})")
+        ckpt_dir = os.path.join(root, "run", "checkpoints")
+        if (len(losses) != DRIVER_STEPS or not all(np.isfinite(losses)) or len(metrics) != 9
+                or not all(np.isfinite(v) for v in metrics.values())
+                or os.listdir(ckpt_dir) != [f"step_{DRIVER_STEPS}"]):
+            raise RuntimeError(f"driver fit: losses {losses}, metrics {metrics}, checkpoints "
+                               f"{os.listdir(ckpt_dir)}")
+
+        resumed = Trainer(load_config(driver_opt(root, dataset, checkpoint=ckpt_dir)),
+                          dtype=torch.bfloat16, seed=1)
+        resumed.init_state()
+        same = same_state(trainer.state, resumed.state)
+        log(f"driver: resumed at step {resumed.global_step}, best value {resumed.best_value} "
+            f"(fit's {trainer.best_value}); parameters, statistics and moments equal: {same}")
+        if (resumed.global_step != DRIVER_STEPS or resumed.best_value != trainer.best_value
+                or not same):
+            raise RuntimeError("driver: the resumed state differs from the saved one")
+        del resumed
+        free_garbage()
+
+        out = os.path.join(root, "predictions")
+        written = trainer.predict(out)
+        ds, predictor = trainer.test_loader.dataset, Predictor(trainer.model)
+        for i in range(len(ds)):
+            rel = os.path.splitext(parse_split_line(ds.filenames[i], "KITTI")[0])[0] + ".png"
+            got = read_png(os.path.join(out, rel))
+            image = normalize_eval_batch(torch.from_numpy(ds.load_raw(i)[0][None]).to(dev))
+            want = (predictor.predict(image)[0, ..., 0].cpu().numpy() * 256.0).astype(np.uint16)
+            if got.shape != EVAL_HW or not np.array_equal(got, want):
+                raise RuntimeError(f"driver predict: {rel} {got.shape} differs from "
+                                   f"Predictor x 256")
+        log(f"driver: predict wrote {written} uint16 PNGs of {EVAL_HW[0]}x{EVAL_HW[1]}, each "
+            f"equal to Predictor.predict x 256, truncated")
+
+        t0 = time.perf_counter()
+        trainer.validate()
+        val_s = time.perf_counter() - t0
+        log(f"driver: validate at {EVAL_HW[0]}x{EVAL_HW[1]} (resized to 448x1536, bf16, batch "
+            f"{TRAIN_BATCH}, decode included): {val_s * 1e3:.1f} ms for {len(ds)} images, "
+            f"{len(ds) / val_s:.2f} img/s ({card})")
+
+        batches = trainer.train_loader.epoch(1)
+        next(batches)
+        generator = torch.Generator(device=dev).manual_seed(5)
+        log("driver: one profiled fit step (the loader's next batch to the card, its "
+            "augmentation, the step):")
+        profile_call(lambda: step(trainer.state, next(batches), generator))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        next(batches)
+        log(f"driver: the loader's next batch after it, on the host clock (its decode done, "
+            f"its pinning, copy and augmentation queued): {(time.perf_counter() - t0) * 1e3:.1f} "
+            f"ms ({card})")
+        batches.close()
+        del trainer
+        free_garbage()
+        return counts
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        if split_env is None:
+            del os.environ["MDE_SPLIT_DIR"]
+        else:
+            os.environ["MDE_SPLIT_DIR"] = split_env
 
 
 def profile_call(call) -> None:
@@ -1176,21 +1525,26 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_f32_check(dev)
     torch.cuda.empty_cache()
-    counts = train_bf16_run(dev)
+    counts, bare_rate = train_bf16_run(dev)
+    eval_shape_f32_check(dev)
+    torch.cuda.empty_cache()
+    driver_counts = driver_run(dev, card, bare_rate)
     ksa_f32_check(dev)
     ksa_serve_run(dev)
     ksa_train_f32_check(dev, 2, freeze_bn=True)
     ksa_train_f32_check(dev, 4, freeze_bn=False)
     torch.cuda.empty_cache()
-    ksa_counts = train_run(f"oda2_ksa_reg bf16 train step batch {TRAIN_BATCH} (resized to "
-                           f"448x896, use_checkpoint=True)", KSA_TRAIN_OPT, dev,
-                           KSA_TRAIN_LAUNCHES, warmup=2, timed=5, profile=True)
+    ksa_counts, _ = train_run(f"oda2_ksa_reg bf16 train step batch {TRAIN_BATCH} (resized to "
+                              f"448x896, use_checkpoint=True)", KSA_TRAIN_OPT, dev,
+                              KSA_TRAIN_LAUNCHES, warmup=2, timed=5, profile=True)
 
     # the line reports each kernel at its main-path shape in bf16 (K1 at
     # stage 1 with the shift mask, K2 with the table) and its launches in
     # one run of the path that carries it
     report = {p["kernel"]: p for p in (phases[1], phases[3], phases[5], *phases[6:])}
-    paths = dict.fromkeys(report, ("flagship bf16 train step", counts))
+    paths = dict.fromkeys(report, (f"Trainer.fit, {DRIVER_STEPS} steps with use_checkpoint "
+                                   f"and one validation at 352x1216", driver_counts))
+    paths["depthwise_conv2d_dw"] = ("flagship bf16 train step", counts)
     paths["glu_ff"] = ("flagship bf16 serving with fused FFs", fused_counts)
     for name in ("channel_attention", "channel_attention_bwd"):
         paths[name] = ("oda2_ksa_reg bf16 train step", ksa_counts)

@@ -6,9 +6,13 @@ by hand for Hopper (``ops/kernels/csrc``); each has a plain PyTorch version
 beside it, which runs for tensors on the CPU. Entry points run on the card
 unless the caller asks for the CPU.
 
-Ported so far: the flagship ``oda2_red_order_swin2`` forward
-(``models.build_model``, ``serve.Predictor``) and its train and eval steps
-(``train.step.make_train_step``, ``make_eval_step``, with the losses, the
-optimizer and the metrics), whose backward passes run through the kernels'
-backward kernels. ROADMAP.md lists the rest.
+Ported so far: the flagship ``oda2_red_order_swin2`` and ``oda2_ksa_reg``
+(``models.build_model``, ``serve.Predictor``), their train and eval steps
+(``train.step``, with the losses, the optimizer and the metrics), whose
+backward passes run through the kernels' backward kernels, and the driver's
+path: the config (``core.config``), the data pipeline (``data``: splits, a
+PNG codec, the dataset, augmentation on the card, the loader), native
+checkpoints (``core.checkpoint``) and ``train.driver`` (``Trainer`` fit,
+validate, predict, resume; ``python -m mde_tpu_torch.train.driver``).
+ROADMAP.md lists the rest.
 """

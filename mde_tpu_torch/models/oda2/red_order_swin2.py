@@ -212,8 +212,8 @@ class ODA2OrderedSwin2RegModel(nn.Module):
     BatchNorm takes batch statistics and the encoder's stochastic depth
     draws from the ``generator`` given to ``forward``. ``use_checkpoint``
     recomputes each Swin block and each head repeat's ordered block in the
-    backward pass; it is off by default here (the JAX model's default is
-    on), since the train step fits the card without it."""
+    backward pass; it is on by default, as in the JAX model, so that one
+    config trains the same way on both."""
 
     def __init__(self, dec_dim: int, min_depth: float, max_depth: float, num_heads: int,
                  num_repeats: int, num_emb: int, window_size: int = 8,
@@ -221,7 +221,7 @@ class ODA2OrderedSwin2RegModel(nn.Module):
                  bias_type: str = "depth", bias_init: str = "linear", neck_type: str = "red",
                  bn_eps: float = 1e-5, path_drop_prob: float = 0.2,
                  dtype: torch.dtype = torch.float32, resize_to_multiple: bool = True,
-                 encoder_kwargs: Optional[dict] = None, use_checkpoint: bool = False):
+                 encoder_kwargs: Optional[dict] = None, use_checkpoint: bool = True):
         super().__init__()
         self.min_depth = min_depth
         self.max_depth = max_depth

@@ -2,7 +2,8 @@
 
 Mirrors the compute of ``mde_tpu.train.driver.Trainer.predict``: forward in
 eval mode, take the last map, resize it back to the input with
-align_corners, clip at 0. Data loading and PNG writing are not ported yet.
+align_corners, clip at 0. ``train.driver.Trainer.predict`` runs it over a
+dataset's split and writes the uint16 PNGs.
 """
 
 from __future__ import annotations

@@ -138,6 +138,15 @@ def make_eval_step(model: nn.Module, opt, min_depth_eval: float, max_depth_eval:
     per-image metrics (each a (B,) tensor) over the pixels that are valid
     and inside the config's eval crop (``mde_tpu/train/step.py:324-361``)."""
     opt_eval = opt["eval"]
+    crops: Dict[Tuple[int, int, torch.device], torch.Tensor] = {}
+
+    def crop_mask(gt_hw: Tuple[int, int], device: torch.device) -> torch.Tensor:
+        """The eval crop of a ground-truth shape on ``device``, copied there
+        once: a copy from the host each batch would wait for the card."""
+        if (*gt_hw, device) not in crops:
+            crops[(*gt_hw, device)] = torch.from_numpy(
+                M.eval_mask(opt_eval, gt_hw, data_type)).to(device)
+        return crops[(*gt_hw, device)]
 
     def predict(images: torch.Tensor) -> torch.Tensor:
         pred = model(images)
@@ -156,7 +165,7 @@ def make_eval_step(model: nn.Module, opt, min_depth_eval: float, max_depth_eval:
         pred = resize_bilinear(pred, gt_hw, align_corners=True)
         pred = pred.clamp(min_depth_eval, max_depth_eval)
         valid = (depths > min_depth_eval) & (depths < max_depth_eval)
-        crop = torch.from_numpy(M.eval_mask(opt_eval, gt_hw, data_type)).to(device)
+        crop = crop_mask(gt_hw, device)
         return M.compute_errors_per_image(depths, pred, valid & crop[None, :, :, None])
 
     return eval_step

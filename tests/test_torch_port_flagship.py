@@ -48,7 +48,7 @@ def _jax_model(cfg):
 
 def _port_model(cfg, seed=0):
     return build_model(cfg, 0.001, 80.0, device="cpu", seed=seed,
-                       resize_to_multiple=False, encoder_kwargs=ENC)
+                       resize_to_multiple=False, encoder_kwargs=ENC, use_checkpoint=False)
 
 
 def _random_jax_variables(model, x, seed):

@@ -10,6 +10,8 @@ with TF32 off and hold at 1e-5 (the backward ones relative to max(1, max
 |plain|): their sums reach ~50); bf16 tolerances are stated in BF16_REL.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -700,8 +702,10 @@ TINY_KW = dict(resize_to_multiple=False, encoder_kwargs=dict(
 
 @pytest.mark.gpu
 def test_tiny_flagship_on_card_matches_cpu(cuda):
-    cpu_model = build_model(TINY, 0.001, 80.0, device="cpu", seed=4, **TINY_KW)
-    gpu_model = build_model(TINY, 0.001, 80.0, device=cuda, seed=4, **TINY_KW)
+    cpu_model = build_model(TINY, 0.001, 80.0, device="cpu", seed=4, use_checkpoint=False,
+                            **TINY_KW)
+    gpu_model = build_model(TINY, 0.001, 80.0, device=cuda, seed=4, use_checkpoint=False,
+                            **TINY_KW)
     x = torch.from_numpy(np.random.RandomState(5).rand(2, 64, 96, 3).astype(np.float32))
     kernels.reset_launch_counts()
     with torch.no_grad():
@@ -732,7 +736,7 @@ def test_tiny_train_step_on_card_matches_cpu(cuda, monkeypatch):
     results = []
     for dev in (cuda, torch.device("cpu")):
         model = build_model(TINY, 0.001, 80.0, device=dev, seed=7, path_drop_prob=0.0,
-                            **TINY_KW)
+                            use_checkpoint=False, **TINY_KW)
         state = TrainState.create(model, opt, 100)
         grads = {}
         update = state.optimizer.update
@@ -799,3 +803,74 @@ def test_tiny_ksa_on_card_matches_cpu(cuda):
     floor = 1e-2 * max(g.abs().max().item() for g in grads[1])
     for a, b in zip(*grads):
         assert (a.cpu() - b).abs().max().item() <= 1e-3 * max(b.abs().max().item(), floor)
+
+
+# the data path and the driver on the card (tests/test_torch_port_data.py and
+# tests/test_torch_port_driver.py hold them against the JAX package on the CPU)
+DRIVER_OPT = {
+    "checkpoint": "", "wandb": {"mode": "disabled"}, "model": dict(TINY, num_repeats=1),
+    "loss": {"alpha": 10.0, "beta": 0.15, "per_image": True},
+    "dataset": {"data_type": "NYU", "data_path": "/nonexistent", "img_size": [64, 64]},
+    "dataloader": {"batch_size": 4, "num_workers": 2},
+    "optimizer": {"lr": 1e-4, "weight_decay": 0.01},
+    "scheduler": {"name": "onecycle", "pct_start": 0.25, "div_factor": 25,
+                  "final_div_factor": 100},
+    "train": {"print_freq": 2, "valid_freq": 2, "epoch": 1, "num_accum": 2, "grad_norm": 0.1},
+    "eval": {"max_depth_eval": 10.0, "min_depth_eval": 0.001, "garg_crop": False,
+             "eigen_crop": True, "flip_eval": False},
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("drop_edge", [False, True], ids=["bands", "drop_edge"])
+def test_augment_on_card_matches_cpu(cuda, drop_edge):
+    """The same draws through ``apply`` on the card and on the CPU, for
+    three seeds: the normalised images within 1e-6, depth equal. The gamma
+    is computed in f64 and rounded once, so the two sides differ only where
+    f64 ``pow``'s last-ulp error moves that rounding."""
+    from mde_tpu_torch.data import augment
+    cfg = augment.AugmentConfig(out_height=352, out_width=704, degree=1.0, data_type="KITTI",
+                                clip_depth=70.0, height_drop=(0.3, 2), width_drop=(0.25, 2),
+                                drop_edge=drop_edge)
+    errs = []
+    for seed in (3, 4, 5):
+        rng = np.random.RandomState(10 + seed)
+        images = torch.from_numpy(rng.rand(4, 352, 1216, 3).astype(np.float32))
+        depths = torch.from_numpy((rng.rand(4, 352, 1216, 1) * 80).astype(np.float32))
+        params = augment.draw_params(cfg, 4, (352, 1216),
+                                     torch.Generator(device=cuda).manual_seed(seed))
+        img, depth = augment.apply(cfg, params, images.to(cuda), depths.to(cuda))
+        ref_img, ref_depth = augment.apply(cfg, {k: v.cpu() for k, v in params.items()},
+                                           images, depths)
+        errs.append((img.cpu() - ref_img).abs().max().item())
+        assert torch.equal(depth.cpu(), ref_depth), seed
+    print(f"augment, card vs CPU, max_abs_err by seed: {errs}")
+    assert max(errs) <= 1e-6, errs
+
+
+@pytest.mark.gpu
+def test_loader_epoch_on_card(cuda):
+    from mde_tpu_torch.data.dataset import DepthDataset
+    from mde_tpu_torch.data.loader import DataLoader
+    ds = DepthDataset("", "KITTI", "train", synthetic_len=8)
+    batches = list(DataLoader(ds, 4, shuffle=True, num_workers=2).epoch(0))
+    assert len(batches) == 2
+    for b in batches:
+        assert b["image"].device.type == "cuda" and b["image"].dtype == torch.float32
+        assert b["image"].shape == (4, 352, 704, 3) and b["depth"].shape == (4, 352, 704, 1)
+        assert torch.isfinite(b["image"]).all() and b["depth"].min() >= 0
+
+
+@pytest.mark.gpu
+def test_tiny_trainer_fit_on_card(cuda, tmp_path):
+    from mde_tpu_torch.core.config import load_config
+    from mde_tpu_torch.train.driver import Trainer
+    opt = load_config(dict(DRIVER_OPT, output_dir=str(tmp_path)))
+    trainer = Trainer(opt, model_overrides=dict(TINY_KW, use_checkpoint=False))
+    kernels.reset_launch_counts()
+    metrics = trainer.fit(max_steps=2)
+    torch.cuda.synchronize()
+    assert trainer.global_step == 2 and next(trainer.model.parameters()).is_cuda
+    assert len(metrics) == 9 and all(np.isfinite(v) for v in metrics.values())
+    assert kernels.launch_counts["window_attention_bwd"] == 2 * 2 * 6
+    assert os.listdir(tmp_path / "checkpoints") == ["step_2"]

@@ -242,13 +242,41 @@ def test_resize_and_gelu():
 def test_port_imports_no_jax():
     code = ("import sys, mde_tpu_torch, mde_tpu_torch.models, mde_tpu_torch.serve, "
             "mde_tpu_torch.convert, mde_tpu_torch.train.step, mde_tpu_torch.train.optim, "
-            "mde_tpu_torch.train.loss, mde_tpu_torch.core.metrics\n"
+            "mde_tpu_torch.train.loss, mde_tpu_torch.core.metrics, mde_tpu_torch.core.config, "
+            "mde_tpu_torch.core.averages, mde_tpu_torch.core.dist, "
+            "mde_tpu_torch.core.checkpoint, mde_tpu_torch.data.splits, mde_tpu_torch.data.png, "
+            "mde_tpu_torch.data.dataset, mde_tpu_torch.data.augment, "
+            "mde_tpu_torch.data.loader, mde_tpu_torch.utils.wandb_utils, "
+            "mde_tpu_torch.utils.visualize, mde_tpu_torch.train.driver\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
-            "'optax', 'mde_tpu')]\n"
+            "'optax', 'orbax', 'mde_tpu')]\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_port_reads_only_the_split_lists_of_the_jax_package():
+    """The only place the port's source names a path under ``mde_tpu/`` is
+    the split lists' directory, ``mde_tpu/data/train_test_inputs``."""
+    import ast
+    import pathlib
+    import mde_tpu_torch
+    from mde_tpu_torch.data import splits
+    root = pathlib.Path(mde_tpu_torch.__file__).parent
+    named = []
+    for path in sorted(root.rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                    and (node.value == "mde_tpu" or node.value.startswith(("mde_tpu/",
+                                                                          "mde_tpu\\")))):
+                named.append((path.relative_to(root).as_posix(), node.lineno))
+    want = [("data/splits.py", n) for p, n in named if p == "data/splits.py"]
+    # the wandb project's name is no path
+    assert [n for n in named if n[0] != "utils/wandb_utils.py"] == want and len(want) == 1
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    assert pathlib.Path(splits.VENDORED_SPLIT_DIR) == repo / "mde_tpu" / "data" / "train_test_inputs"
+    assert splits.load_split("NYU", "test")
 
 
 def test_build_model_defaults_to_cuda():

@@ -140,7 +140,7 @@ def test_schedules_match_optax(total):
 def test_eval_step_matches_jax(ref):
     opt = case.make_opt()
     model = build_model(case.CFG, 0.001, 80.0, device="cpu", resize_to_multiple=False,
-                        encoder_kwargs=case.ENC)
+                        encoder_kwargs=case.ENC, use_checkpoint=False)
     model.load_state_dict(from_jax_variables(ref.variables))
     rng = np.random.RandomState(3)
     batch = {"image": ref.batch["image"],
