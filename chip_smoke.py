@@ -69,15 +69,30 @@
    ``ksa_train_f32_check``); the bf16 train step at batch 4 on 352x704
    (56 K1 forward and 32 backward, 6 K5 forward and 6 backward), timed and
    profiled.
+8. NewCRFs ``large07`` at full width (Swin-L zero-padded, PSP 512, four
+   CRF stages of head dim 32; images not resized): K1's q|k + separate-v
+   entry and its backward at crf0 (serving batch 4 at 352x1216, the train
+   step's batch 4 at 352x704) against their plain versions, timed with
+   their bounds and SDPA yardsticks (K1's ``other_shapes``); the f32
+   forward card against CPU at KITTI's 352x1216 and NYU's 480x640 with the
+   windows each entry sees checked; bf16 serving through ``Predictor`` at
+   batch 4 at 352x1216 (32 K1 launches, 8 through the new entry); the f32
+   train step card against CPU at 224x448 on 2 colour-cast images; the
+   bf16 train step at batch 4 at 352x704 (32 K1 forward and 32 backward,
+   8 and 8 through the new entry), timed and profiled; and
+   ``Trainer.fit(max_steps=2)`` with one validation on the synthetic KITTI
+   tree, its launches and its second step's img/s against the bare step's.
 
 Any failure exits non-zero before the result lines. The last three lines
 are the card, the ``kernels`` JSON line and the ``ok`` JSON line. The
 ``kernels`` line takes the launches of K1, K2 and K3 and their backward
-kernels from the driver's ``fit``.
+kernels from the driver's ``fit``; K1's and K1 bwd's entries also carry
+NewCRFs' launches (``newcrfs_launches``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -170,6 +185,23 @@ KSA_TRAIN_OPT = dict(TRAIN_OPT, model=KSA)
 KSA_SERVE_LAUNCHES = {"window_attention": 32, "channel_attention": 6}
 KSA_TRAIN_LAUNCHES = {"window_attention": 56, "window_attention_bwd": 32,
                       "channel_attention": 6, "channel_attention_bwd": 6}
+# NewCRFs large07 as the JAX build makes it (mde_tpu/models/newcrfs/model.py:
+# 185-193), NeW CRFs' published KITTI setting: Swin-L, window 7, PSP 512, CRF
+# widths 128/256/512/1024 with 4/8/16/32 heads of dim 32, bilinear x4 up, no
+# recompute. Launches derived from the code: 24 Swin-L blocks through K1's
+# fused entry and 8 CRF blocks through its q|k + v entry, forward and, in the
+# train step, backward; the images are not resized
+NEWCRFS = {"name": "newcrfs", "version": "large07"}
+NEWCRFS_TRAIN_OPT = dict(TRAIN_OPT, model=NEWCRFS)
+NEWCRFS_SERVE_LAUNCHES = {"window_attention": 32}
+NEWCRFS_TRAIN_LAUNCHES = {"window_attention": 32, "window_attention_bwd": 32}
+NEWCRFS_SERVE_ENTRIES = {"window_attention_qk_v": 8}
+NEWCRFS_TRAIN_ENTRIES = {"window_attention_qk_v": 8, "window_attention_qk_v_bwd": 8}
+NEWCRFS_BATCH = 4  # serving at the KB crop, and training at 352x704
+NYU_HW = (480, 640)
+# crf0's token grid padded to whole 7x7 windows, by windows an image: 88x304
+# at the KB crop (572), 88x176 at the train crop 352x704 (338)
+CRF0_GRIDS = {572: (91, 308), 338: (91, 182)}
 # one eval forward of the flagship (no gradient, so nothing recomputes)
 EVAL_LAUNCHES = {"window_attention": 24, "ordered_attention": 6, "depthwise_conv2d": 6}
 # KITTI's test images after the KB-crop; the flagship resizes them to 448x1536
@@ -748,10 +780,11 @@ def model_f32_check(dev) -> None:
         raise RuntimeError("flagship f32 forward on the card disagrees with the CPU")
 
 
-def serve_run(tag, predictor, images, expect) -> tuple:
+def serve_run(tag, predictor, images, expect, entries=None) -> tuple:
     """One counted ``predict`` (every launch count from 0, then exactly
-    ``expect``, every other kernel 0), its peak memory, 5 timed calls and a
-    profile. Returns (img/s, the counted launches)."""
+    ``expect``, every other kernel 0, and exactly ``entries`` of them
+    through second entries, none by default), its peak memory, 5 timed
+    calls and a profile. Returns (img/s, the counted launches)."""
     from mde_tpu_torch.ops import kernels
     predictor.predict(images)  # warm-up
     torch.cuda.synchronize()
@@ -761,10 +794,13 @@ def serve_run(tag, predictor, images, expect) -> tuple:
     pred = predictor.predict(images)
     torch.cuda.synchronize()
     counts = dict(kernels.launch_counts)
-    log(f"{tag} serving launches: {counts}")
+    log(f"{tag} serving launches: {counts}, through second entries "
+        f"{kernels.entry_counts}")
     expect = dict(dict.fromkeys(kernels.KERNELS, 0), **expect)
-    if counts != expect:
-        raise RuntimeError(f"{tag}: expected {expect} kernel launches per forward, got {counts}")
+    if counts != expect or kernels.entry_counts != (entries or {}):
+        raise RuntimeError(f"{tag}: expected {expect} kernel launches per forward ("
+                           f"{entries or {}} through second entries), got {counts} "
+                           f"({kernels.entry_counts})")
     b, h, w = images.shape[:3]
     if pred.shape != (b, h, w, 1) or not torch.isfinite(pred).all() or pred.min() < 0:
         raise RuntimeError(f"{tag}: bad prediction {tuple(pred.shape)}")
@@ -882,10 +918,12 @@ def compare_steps(tag, card, cpu) -> None:
         raise RuntimeError(f"{tag} on the card disagrees with the CPU (logs {bad})")
 
 
-def train_run(tag, opt, dev, expect, warmup, timed, profile, **overrides) -> tuple:
+def train_run(tag, opt, dev, expect, warmup, timed, profile, entries=None,
+              **overrides) -> tuple:
     """Full-width bf16 train steps at batch 4 of a fresh model of ``opt``:
     one counted step (every launch count from 0, then exactly ``expect``,
-    every other kernel 0; finite logs, moved parameters), more warm-up
+    every other kernel 0, and ``entries`` of them through second entries,
+    none by default; finite logs, moved parameters), more warm-up
     steps up to ``warmup``, ``timed`` timed steps, peak memory and, with
     ``profile``, one profiled step. Returns (the counted launches, img/s)."""
     from mde_tpu_torch.models import build_model
@@ -906,10 +944,12 @@ def train_run(tag, opt, dev, expect, warmup, timed, profile, **overrides) -> tup
     _, logs = step(state, batch, generator)
     torch.cuda.synchronize()
     run = dict(kernels.launch_counts)
-    log(f"{tag} launches: {run}")
+    log(f"{tag} launches: {run}, through second entries {kernels.entry_counts}")
     expect = dict(dict.fromkeys(kernels.KERNELS, 0), **expect)
-    if run != expect:
-        raise RuntimeError(f"{tag}: expected {expect} kernel launches per train step, got {run}")
+    if run != expect or kernels.entry_counts != (entries or {}):
+        raise RuntimeError(f"{tag}: expected {expect} kernel launches per train step "
+                           f"({entries or {}} through second entries), got {run} "
+                           f"({kernels.entry_counts})")
     logs = {k: float(v) for k, v in logs.items()}
     moved = sum(not torch.equal(p.detach(), before[n]) for n, p in model.named_parameters())
     log(f"  logs of the first step: {logs}; {moved} of {len(before)} parameters moved")
@@ -1027,6 +1067,161 @@ def ksa_train_f32_check(dev, size: int, freeze_bn: bool) -> None:
     t0 = time.perf_counter()
     cpu = one_train_step("cpu", batch, KSA_TRAIN_OPT, freeze_bn=freeze_bn, path_drop_prob=0.0)
     log(f"{tag}: CPU step (plain versions, use_checkpoint=True) {time.perf_counter() - t0:.1f} s")
+    compare_steps(tag, card, cpu)
+
+
+def window_qk_v_phase(tag: str, bw: int, c: int, heads: int, windows: int, dev):
+    """K1's q|k + separate-v entry at a NewCRFs CRF stage with the SW-MSA
+    mask (``windows`` an image; CRF0_GRIDS gives the padded token grid)."""
+    from mde_tpu_torch.ops.kernels.window_attention import (plain_window_attention,
+                                                            window_attention_qk_v)
+    from mde_tpu_torch.ops.window import shifted_window_attn_mask
+    g = torch.Generator(device=dev).manual_seed(11)
+    n = 49
+    mask = shifted_window_attn_mask(*CRF0_GRIDS[windows], 7, 3, dev)
+    bias = torch.randn(heads, n, n, generator=g, device=dev)
+
+    def make(dtype):
+        qk = torch.randn(bw, n, 2 * c, generator=g, device=dev).to(dtype)
+        v = torch.randn(bw, n, c, generator=g, device=dev).to(dtype)
+        return qk, v, bias, mask, heads, (c // heads) ** -0.5
+
+    def plain(qk, v, *rest):
+        return plain_window_attention(qk[..., :c], qk[..., c:], v, *rest)
+
+    def library(args):
+        q, k, v = (t.reshape(bw, n, heads, c // heads).transpose(1, 2)
+                   for t in (*args[0].split(c, dim=-1), args[1]))
+        add = window_mask(bias, mask, bw, q.dtype)
+        return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=add, scale=args[-1])
+
+    def cost(args, outs):
+        return nbytes(*args[:2], *outs), 4 * bw * n * n * c
+
+    return kernel_phase("window_attention", f"K1 q|k+v {tag} ({bw},{n},{c})/{heads} masked",
+                        window_attention_qk_v, plain, make, library, cost)
+
+
+def window_qk_v_bwd_phase(tag: str, bw: int, c: int, heads: int, windows: int, dev):
+    """K1 backward through the q|k + separate-v entry, as window_qk_v_phase."""
+    from mde_tpu_torch.ops.kernels.window_attention import (plain_window_attention_bwd,
+                                                            window_attention_qk_v_bwd)
+    from mde_tpu_torch.ops.window import shifted_window_attn_mask
+    g = torch.Generator(device=dev).manual_seed(12)
+    n = 49
+    mask = shifted_window_attn_mask(*CRF0_GRIDS[windows], 7, 3, dev)
+    bias = torch.randn(heads, n, n, generator=g, device=dev)
+
+    def make(dtype):
+        qk = torch.randn(bw, n, 2 * c, generator=g, device=dev).to(dtype)
+        v, dout = (torch.randn(bw, n, c, generator=g, device=dev).to(dtype) for _ in range(2))
+        return qk, v, dout, bias, mask, heads, (c // heads) ** -0.5
+
+    def plain(qk, v, dout, *rest):
+        dq, dk, dv, dbias = plain_window_attention_bwd(qk[..., :c], qk[..., c:], v, dout, *rest)
+        return torch.cat([dq, dk], dim=-1), dv, dbias
+
+    def library(args):
+        q, k, v = (t.reshape(bw, n, heads, c // heads).transpose(1, 2).detach()
+                   .requires_grad_() for t in (*args[0].split(c, dim=-1), args[1]))
+        out = F.scaled_dot_product_attention(q, k, v, attn_mask=window_mask(bias, mask, bw,
+                                                                              q.dtype),
+                                             scale=args[-1])
+        grad = args[2].reshape(bw, n, heads, c // heads).transpose(1, 2)
+        return lambda: torch.autograd.grad(out, (q, k, v), grad, retain_graph=True)
+
+    def cost(args, outs):
+        return nbytes(*args[:3], *outs), 10 * bw * n * n * c
+
+    return kernel_phase("window_attention_bwd",
+                        f"K1 bwd q|k+v {tag} ({bw},{n},{c})/{heads} masked",
+                        window_attention_qk_v_bwd, plain, make, library, cost, relative=True)
+
+
+def crf_windows(h: int, w: int) -> tuple:
+    """7x7 windows an image of each Swin block and each CRF block of NewCRFs
+    at an h x w image (depths 2, 2, 18, 2; two CRF blocks a stage, crf3
+    first): token grids at strides 4 to 32, padded to whole windows."""
+    grids = []
+    for _ in range(4):
+        h, w = -(-h // (4 if not grids else 2)), -(-w // (4 if not grids else 2))
+        grids.append(-(-h // 7) * -(-w // 7))
+    return ([grids[0]] * 2 + [grids[1]] * 2 + [grids[2]] * 18 + [grids[3]] * 2,
+            [grids[3]] * 2 + [grids[2]] * 2 + [grids[1]] * 2 + [grids[0]] * 2)
+
+
+def newcrfs_f32_check(dev, hw) -> None:
+    """NewCRFs large07's f32 forward of one ``hw`` image, the card against
+    the CPU, with the windows each K1 entry sees checked."""
+    from mde_tpu_torch.models import build_model
+    from mde_tpu_torch.models.newcrfs.layers import CRFWindowAttention
+    from mde_tpu_torch.ops import kernels
+    from mde_tpu_torch.ops.attention import WindowAttention
+    x = torch.from_numpy(np.random.RandomState(13).rand(1, *hw, 3).astype(np.float32))
+    model = build_model(NEWCRFS, 0.001, 80.0, device=dev, seed=0)
+    seen = {WindowAttention: [], CRFWindowAttention: []}
+    handles = [m.register_forward_pre_hook(
+        lambda module, args: seen[type(module)].append(args[0].shape[0]))
+        for m in model.modules() if type(m) in seen]
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        out = model(x.to(dev))
+    torch.cuda.synchronize()
+    counts, entries = dict(kernels.launch_counts), dict(kernels.entry_counts)
+    for h in handles:
+        h.remove()
+    out = out.cpu()
+    del model
+    free_garbage()
+    tag = f"NewCRFs large07 f32 batch 1 at {hw[0]}x{hw[1]}"
+    log(f"{tag}: launches {counts}, through the q|k + v entry {entries}; K1 windows an image "
+        f"by block: encoder {seen[WindowAttention]}, CRF {seen[CRFWindowAttention]}")
+    if (counts != dict(dict.fromkeys(kernels.KERNELS, 0), **NEWCRFS_SERVE_LAUNCHES)
+            or entries != NEWCRFS_SERVE_ENTRIES
+            or (seen[WindowAttention], seen[CRFWindowAttention]) != crf_windows(*hw)):
+        raise RuntimeError(f"{tag}: the kernels did not run at the expected shapes")
+    cpu_model = build_model(NEWCRFS, 0.001, 80.0, device="cpu", seed=0)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ref = cpu_model(x)
+    log(f"{tag}: CPU forward (plain versions) {time.perf_counter() - t0:.1f} s")
+    del cpu_model
+    err = (out - ref).abs().max().item()
+    log(f"{tag}, card vs CPU: output {tuple(out.shape)}, depth range [{ref.min().item():.3f}, "
+        f"{ref.max().item():.3f}] m, max_abs_err {err:.3e} m (tolerance {MODEL_F32_TOL})")
+    if out.shape != (1, *hw, 1) or not torch.isfinite(out).all() or err > MODEL_F32_TOL:
+        raise RuntimeError(f"{tag}: the card disagrees with the CPU")
+
+
+def newcrfs_serve_run(dev) -> tuple:
+    """NewCRFs large07's bf16 serving through ``Predictor`` at batch 4 at
+    the KB crop, counted, timed and profiled. Returns (img/s, launches)."""
+    from mde_tpu_torch.models import build_model
+    from mde_tpu_torch.serve import Predictor
+    model = build_model(NEWCRFS, 0.001, 80.0, device=dev, seed=0, dtype=torch.bfloat16)
+    images = torch.from_numpy(np.random.RandomState(14).rand(
+        NEWCRFS_BATCH, *EVAL_HW, 3).astype(np.float32)).to(dev)
+    result = serve_run(f"NewCRFs large07 bf16 batch {NEWCRFS_BATCH}", Predictor(model), images,
+                       NEWCRFS_SERVE_LAUNCHES, NEWCRFS_SERVE_ENTRIES)
+    del model, images
+    free_garbage()
+    return result
+
+
+def newcrfs_train_f32_check(dev) -> None:
+    """NewCRFs large07's f32 train step, card against CPU, on 2 images of
+    224x448 with colour casts of their own (the PSP's BatchNorms take batch
+    statistics of 2x2, 3x3 and 6x6 pooled maps: on like images they cancel
+    in f32, see ksa_train_f32_check), stochastic depth off."""
+    batch = train_batch(2, 15, hw=(224, 448))
+    batch["image"] *= np.array([[1.0, 0.2, 0.2], [0.2, 0.2, 1.0]], np.float32)[:, None, None]
+    tag = "NewCRFs large07 f32 train step batch 2 at 224x448 (batch statistics, colour casts)"
+    card = one_train_step(dev, batch, NEWCRFS_TRAIN_OPT, path_drop_prob=0.0)
+    torch.cuda.synchronize()
+    free_garbage()
+    t0 = time.perf_counter()
+    cpu = one_train_step("cpu", batch, NEWCRFS_TRAIN_OPT, path_drop_prob=0.0)
+    log(f"{tag}: CPU step (plain versions) {time.perf_counter() - t0:.1f} s")
     compare_steps(tag, card, cpu)
 
 
@@ -1209,6 +1404,41 @@ def same_state(a, b) -> bool:
             and all(torch.equal(x, y) for x, y in zip(oa.mu + oa.nu, ob.mu + ob.nu)))
 
 
+@contextlib.contextmanager
+def kitti_split_dir():
+    """A temporary directory for a synthetic KITTI tree, with
+    ``MDE_SPLIT_DIR`` pointing at its split lists while the block runs;
+    removed, and the variable restored, after it."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_kitti_")
+    split_env = os.environ.get("MDE_SPLIT_DIR")
+    os.environ["MDE_SPLIT_DIR"] = os.path.join(root, "splits")
+    try:
+        yield root
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        if split_env is None:
+            del os.environ["MDE_SPLIT_DIR"]
+        else:
+            os.environ["MDE_SPLIT_DIR"] = split_env
+
+
+def watch_steps(trainer) -> tuple:
+    """Wrap ``trainer``'s step (BatchNorm live) so that each step's logs and
+    an event recorded after it on the card are kept, without a read:
+    (the unwrapped step, the logs, the events)."""
+    step, seen, events = trainer._get_step(False), [], []
+
+    def watched(state, batch, generator):
+        state, logs = step(state, batch, generator)
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+        seen.append(logs)
+        return state, logs
+
+    trainer._steps[False] = watched
+    return step, seen, events
+
+
 def driver_run(dev, card: str, bare_rate: float) -> dict:
     """The driver on a synthetic KITTI tree: the loader alone, ``fit``
     (counted, timed by events between its steps), resume, ``predict``,
@@ -1221,10 +1451,7 @@ def driver_run(dev, card: str, bare_rate: float) -> dict:
     from mde_tpu_torch.ops import kernels
     from mde_tpu_torch.serve import Predictor
     from mde_tpu_torch.train.driver import Trainer
-    root = tempfile.mkdtemp(prefix="chip_smoke_kitti_")
-    split_env = os.environ.get("MDE_SPLIT_DIR")
-    os.environ["MDE_SPLIT_DIR"] = os.path.join(root, "splits")
-    try:
+    with kitti_split_dir() as root:
         t0 = time.perf_counter()
         dataset = write_kitti_tree(root)
         log(f"driver: synthetic KITTI tree of {DRIVER_TRAIN} train and {DRIVER_TEST} test "
@@ -1242,17 +1469,7 @@ def driver_run(dev, card: str, bare_rate: float) -> dict:
             f"KB-crop, stacking): {n / (time.perf_counter() - t0):.2f} img/s over {n} "
             f"images ({card})")
 
-        # each step's logs, and an event after it on the card, kept without a read
-        step, seen, events = trainer._get_step(False), [], []
-
-        def watched(state, batch, generator):
-            state, logs = step(state, batch, generator)
-            events.append(torch.cuda.Event(enable_timing=True))
-            events[-1].record()
-            seen.append(logs)
-            return state, logs
-
-        trainer._steps[False] = watched
+        step, seen, events = watch_steps(trainer)
         free_garbage()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
@@ -1333,12 +1550,58 @@ def driver_run(dev, card: str, bare_rate: float) -> dict:
         del trainer
         free_garbage()
         return counts
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
-        if split_env is None:
-            del os.environ["MDE_SPLIT_DIR"]
-        else:
-            os.environ["MDE_SPLIT_DIR"] = split_env
+
+
+def newcrfs_driver_run(dev, card: str, bare_rate: float) -> dict:
+    """``Trainer.fit(max_steps=2)`` with one validation on the synthetic
+    KITTI tree with NewCRFs large07 (bf16, batch 4): its exact launches,
+    finite losses and metrics, and its img/s against the bare step's.
+    Returns fit's launch counts."""
+    from mde_tpu_torch.core.config import load_config
+    from mde_tpu_torch.ops import kernels
+    from mde_tpu_torch.train.driver import Trainer
+    steps = 2
+    with kitti_split_dir() as root:
+        dataset = write_kitti_tree(root)
+        opt = driver_opt(root, dataset, model=NEWCRFS,
+                         train=dict(TRAIN_OPT["train"], epoch=1, print_freq=steps,
+                                    valid_freq=steps))
+        trainer = Trainer(load_config(opt), dtype=torch.bfloat16)
+        trainer.init_state()
+        _, seen, events = watch_steps(trainer)
+        free_garbage()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = trainer.fit(max_steps=steps)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts, entries = dict(kernels.launch_counts), dict(kernels.entry_counts)
+        evals = len(trainer.test_loader)
+        expect = {k: steps * NEWCRFS_TRAIN_LAUNCHES.get(k, 0)
+                  + evals * NEWCRFS_SERVE_LAUNCHES.get(k, 0) for k in kernels.KERNELS}
+        expect_entries = {k: steps * v + evals * NEWCRFS_SERVE_ENTRIES.get(k, 0)
+                          for k, v in NEWCRFS_TRAIN_ENTRIES.items()}
+        log(f"driver (NewCRFs): fit({steps} steps) launches {counts}, through the q|k + v "
+            f"entry {entries} (expected {steps} steps and {evals} eval forward: {expect}, "
+            f"{expect_entries})")
+        if counts != expect or entries != expect_entries:
+            raise RuntimeError(f"driver fit (NewCRFs): expected {expect} launches, got {counts}")
+        losses = torch.stack([lg["loss"] for lg in seen]).tolist()
+        gap = events[0].elapsed_time(events[1])
+        peak = torch.cuda.max_memory_allocated()
+        log(f"driver (NewCRFs): fit in {fit_s:.1f} s (validation at {EVAL_HW[0]}x{EVAL_HW[1]} "
+            f"included), losses {losses}, metrics {metrics}")
+        log(f"driver (NewCRFs): the second fit step with the loader feeding it: "
+            f"{TRAIN_BATCH / (gap / 1e3):.2f} img/s (the gap between the step ends on the "
+            f"card, {gap:.2f} ms) against the bare step's {bare_rate:.2f} img/s; peak memory "
+            f"{peak / 2 ** 30:.2f} GiB ({card})")
+        if (len(losses) != steps or not all(np.isfinite(losses)) or len(metrics) != 9
+                or not all(np.isfinite(v) for v in metrics.values())):
+            raise RuntimeError(f"driver fit (NewCRFs): losses {losses}, metrics {metrics}")
+        del trainer
+        free_garbage()
+        return counts
 
 
 def profile_call(call) -> None:
@@ -1501,11 +1764,18 @@ def main() -> int:
     # K1 at the other shapes of its paths: the KSA decoder's head dim 16
     # (stage 0, serving) and the train step's stage 3, where 18 of the
     # flagship's 24 backward launches run; K3 at the train step's batch
+    # and K1's q|k + v entry at NewCRFs' crf0: serving at the KB crop (572
+    # windows an image) and the train step at 352x704 (338)
     more = {"window_attention": [phases[0], phases[2],
                                  window_phase("KSA decoder stage 0", 512 * BATCH, 64, 4,
-                                              512, True, dev)],
+                                              512, True, dev),
+                                 window_qk_v_phase("NewCRFs crf0", 572 * NEWCRFS_BATCH, 128,
+                                                   4, 572, dev)],
             "window_attention_bwd": [window_bwd_phase("stage 3", 32 * TRAIN_BATCH, 512, 16,
-                                                      32, dev)],
+                                                      32, dev),
+                                     window_qk_v_bwd_phase("NewCRFs crf0",
+                                                           338 * TRAIN_BATCH, 128, 4, 338,
+                                                           dev)],
             "depthwise_conv2d": [depthwise_phase(dev, TRAIN_BATCH)],
             "channel_attention": [channel_phase(dev, False, c) for c in (128, 256)],
             "channel_attention_bwd": [channel_phase(dev, True, c) for c in (128, 256)]}
@@ -1537,6 +1807,19 @@ def main() -> int:
     ksa_counts, _ = train_run(f"oda2_ksa_reg bf16 train step batch {TRAIN_BATCH} (resized to "
                               f"448x896, use_checkpoint=True)", KSA_TRAIN_OPT, dev,
                               KSA_TRAIN_LAUNCHES, warmup=2, timed=5, profile=True)
+    free_garbage()
+
+    newcrfs_f32_check(dev, EVAL_HW)
+    newcrfs_f32_check(dev, NYU_HW)
+    _, newcrfs_serve_counts = newcrfs_serve_run(dev)
+    newcrfs_train_f32_check(dev)
+    free_garbage()
+    newcrfs_counts, newcrfs_rate = train_run(
+        f"NewCRFs large07 bf16 train step batch {TRAIN_BATCH} (352x704, use_checkpoint=False)",
+        NEWCRFS_TRAIN_OPT, dev, NEWCRFS_TRAIN_LAUNCHES, warmup=2, timed=5, profile=True,
+        entries=NEWCRFS_TRAIN_ENTRIES)
+    free_garbage()
+    newcrfs_fit_counts = newcrfs_driver_run(dev, card, newcrfs_rate)
 
     # the line reports each kernel at its main-path shape in bf16 (K1 at
     # stage 1 with the shift mask, K2 with the table) and its launches in
@@ -1548,6 +1831,17 @@ def main() -> int:
     paths["glu_ff"] = ("flagship bf16 serving with fused FFs", fused_counts)
     for name in ("channel_attention", "channel_attention_bwd"):
         paths[name] = ("oda2_ksa_reg bf16 train step", ksa_counts)
+    # K1's launches on NewCRFs' paths, of them through the q|k + v entry
+    newcrfs = {"window_attention": {
+        "serving": newcrfs_serve_counts["window_attention"],
+        "train_step": newcrfs_counts["window_attention"],
+        "fit": newcrfs_fit_counts["window_attention"],
+        "qk_v_entry": {"serving": NEWCRFS_SERVE_ENTRIES["window_attention_qk_v"],
+                       "train_step": NEWCRFS_TRAIN_ENTRIES["window_attention_qk_v"]}},
+        "window_attention_bwd": {
+        "train_step": newcrfs_counts["window_attention_bwd"],
+        "fit": newcrfs_fit_counts["window_attention_bwd"],
+        "qk_v_entry": {"train_step": NEWCRFS_TRAIN_ENTRIES["window_attention_qk_v_bwd"]}}}
     line = {"kernels": [dict({
         "name": name, "route": "cuda", "source": SOURCES[name][0],
         "replaces": SOURCES[name][1], "launches": paths[name][1][name],
@@ -1556,6 +1850,7 @@ def main() -> int:
         "library_ms": p["library_ms"], "host_ms": p["host_ms"]},
         **{k: p[k] for k in ("library", "unfused_chain_ms", "one_bucket_ms", "body") if k in p},
         **build.get(name, {}),
+        **({"newcrfs_launches": newcrfs[name]} if name in newcrfs else {}),
         **({"other_shapes": [{k: q[k] for k in ("phase", "ms", "library_ms", "bound_ms",
                                                  "plain_ms", "host_ms", "max_abs_err_bf16")}
                              for q in more[name]]} if name in more else {}))

@@ -3,12 +3,12 @@
 ``from_jax_variables`` turns the ``{'params', 'batch_stats'}`` tree of a
 JAX model the port has (arrays of any kind numpy can read) into the port's
 ``state_dict``: the inverse of the JAX package's torch -> flax converters
-(``convert_oda2_red_order_swin2``, ``convert_oda2_ksa_decoder``), written
-without importing the JAX package.
+(``convert_oda2_red_order_swin2``, ``convert_oda2_ksa_decoder``,
+``convert_newcrfs_model``), written without importing the JAX package.
 
 Layouts: dense (in, out) -> (out, in); conv HWIO -> OIHW; depthwise
 (kh, kw, C) -> (C, 1, kh, kw); flax BN scale/bias/mean/var ->
-weight/bias/running_mean/running_var; LN scale -> weight. Swin stages of
+weight/bias/running_mean/running_var; LN and GroupNorm scale -> weight. Swin stages of
 even depth are stored ``nn.scan``-stacked under ``blocks/blk0|blk1`` with a
 leading pair axis: pair p becomes blocks 2p and 2p+1.
 """
@@ -82,6 +82,30 @@ def _ksa_segment(seg: str, parent: str) -> str:
     return seg
 
 
+def _is_newcrfs(paths) -> bool:
+    """Whether a tree is ``NewCRFDepth``'s: it has CRF stages ``crf0``.."""
+    return any(p[0] == "crf0" for p in paths)
+
+
+def _newcrfs_path(path: Path) -> Path:
+    """A path of ``NewCRFDepth``'s tree (blocks unstacked) in the port's
+    segments: the PSP's ``pool{i}_{conv,gn,bn}`` and ``bottleneck_{conv,bn}``,
+    the CRF blocks under ``crf_layer``, the disparity and mask heads."""
+    head, rest = path[0], path[1:]
+    if head == "decoder":
+        if m := re.fullmatch(r"pool(\d+)_(conv|gn|bn)", rest[0]):
+            return ("decoder", "psp_modules", m.group(1), "1", m.group(2)) + rest[1:]
+        if m := re.fullmatch(r"bottleneck_(conv|bn)", rest[0]):
+            return ("decoder", "bottleneck", m.group(1)) + rest[1:]
+    if re.fullmatch(r"crf\d+", head) and rest[0] == "blocks":
+        return (head, "crf_layer") + rest
+    if head == "disp_head1_conv":
+        return ("disp_head1", "conv1") + rest
+    if m := re.fullmatch(r"mask_head_conv(\d)", head):  # Sequential(conv, ReLU, conv)
+        return ("mask_head", str(2 * int(m.group(1)))) + rest
+    return path
+
+
 def _rename(path: Path, segment: Callable[[str, str], str], convbn: bool) -> str:
     segs = []
     for parent, seg in zip(("",) + path[:-2], path[:-1]):
@@ -121,13 +145,18 @@ def from_jax_variables(variables: Mapping, output_scale: int = 4) -> Dict[str, t
     """JAX model variables -> the port's state dict (load it with
     ``model.load_state_dict``, which checks every name and shape).
 
-    The tree is the flagship's ``ODA2OrderedSwin2RegModel`` or
-    ``ODA2KSARegModel``, told apart by the KSA decoder's own segments.
-    ``output_scale`` must be the flagship's: at 2 its last conv head starts
-    with a parameter-free upsample that shifts its indices."""
+    The tree is the flagship's ``ODA2OrderedSwin2RegModel``,
+    ``ODA2KSARegModel`` or ``NewCRFDepth``, told apart by the KSA decoder's
+    and the CRF stages' own segments. ``output_scale`` must be the
+    flagship's: at 2 its last conv head starts with a parameter-free
+    upsample that shifts its indices."""
     params = _flatten(variables["params"])
     stats = _flatten(variables.get("batch_stats", {}))
-    if _is_ksa(list(params) + list(stats)):
+    newcrfs = _is_newcrfs(list(params) + list(stats))
+    if newcrfs:
+        def segment(seg, parent):
+            return seg
+    elif _is_ksa(list(params) + list(stats)):
         segment = _ksa_segment
     else:
         if any("repeat" in path for path in list(params) + list(stats)):
@@ -141,6 +170,9 @@ def from_jax_variables(variables: Mapping, output_scale: int = 4) -> Dict[str, t
         def segment(seg, parent):
             return _flagship_segment(seg, num_repeats, output_scale)
     params, stats = _unstack_blocks(params), _unstack_blocks(stats)
+    if newcrfs:
+        params = {_newcrfs_path(p): a for p, a in params.items()}
+        stats = {_newcrfs_path(p): a for p, a in stats.items()}
     out: Dict[str, torch.Tensor] = {}
     for flat in (params, stats):
         for path, arr in flat.items():

@@ -15,10 +15,12 @@ from typing import Optional, Union
 import torch
 
 from ..ops.init import init_weights
+from .newcrfs.model import NewCRFDepth
 from .oda2.ksa import ODA2KSARegModel
 from .oda2.red_order_swin2 import ODA2OrderedSwin2RegModel
 
-_REGISTRY = {"oda2_red_order_swin2": ODA2OrderedSwin2RegModel, "oda2_ksa_reg": ODA2KSARegModel}
+_REGISTRY = {"oda2_red_order_swin2": ODA2OrderedSwin2RegModel, "oda2_ksa_reg": ODA2KSARegModel,
+             "newcrfs": NewCRFDepth}
 
 
 def available_models():

@@ -4,6 +4,11 @@ Parameter names follow the reference torch state dict
 (``patch_embed.proj``, ``layers.{i}.blocks.{j}.attn.qkv``,
 ``layers.{i}.downsample.reduction``, ``norm{i}``), the names
 ``mde_tpu.core.checkpoint.convert_swin_backbone`` converts from.
+
+``padding_mode`` pads the image to patch multiples, odd maps before a patch
+merge and token maps to window multiples: ``"edge"`` repeats the border (the
+ODA and ODA2 variants, the default), ``"zeros"`` pads with zeros (the
+NewCRFs variant, torch ``F.pad``'s default).
 """
 
 from __future__ import annotations
@@ -24,17 +29,20 @@ from ..ops.window import (cyclic_shift, cyclic_unshift, shifted_window_attn_mask
 
 
 class PatchEmbed(nn.Module):
-    """p x p patchify conv + LayerNorm, after an edge pad to a multiple of p."""
+    """p x p patchify conv + LayerNorm, after a pad to a multiple of p."""
 
-    def __init__(self, patch_size: int = 4, in_ch: int = 3, embed_dim: int = 96):
+    def __init__(self, patch_size: int = 4, in_ch: int = 3, embed_dim: int = 96,
+                 padding_mode: str = "edge"):
         super().__init__()
         self.patch_size = patch_size
+        self.padding_mode = padding_mode
         self.proj = nn.Conv2d(in_ch, embed_dim, patch_size, stride=patch_size)
         self.norm = LayerNorm(embed_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         p = self.patch_size
-        x = conv2d_nhwc(pad_to_multiple(x, p), self.proj.weight, self.proj.bias, stride=p)
+        x = conv2d_nhwc(pad_to_multiple(x, p, self.padding_mode), self.proj.weight,
+                        self.proj.bias, stride=p)
         return self.norm(x)
 
 
@@ -42,14 +50,15 @@ class PatchMerging(nn.Module):
     """2x2 space-to-depth in the reference's order [x00, x10, x01, x11],
     then LayerNorm and Linear(4C -> 2C)."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, padding_mode: str = "edge"):
         super().__init__()
+        self.padding_mode = padding_mode
         self.norm = LayerNorm(4 * dim)
         self.reduction = Linear(4 * dim, 2 * dim, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, w = x.shape[1], x.shape[2]
-        x = pad2d(x, 0, h % 2, 0, w % 2)
+        x = pad2d(x, 0, h % 2, 0, w % 2, self.padding_mode)
         x = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2], x[:, 0::2, 1::2],
                        x[:, 1::2, 1::2]], dim=-1)
         return self.reduction(self.norm(x))
@@ -60,15 +69,18 @@ DropMasks = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
 class SwinBlock(nn.Module):
     """[shift ->] window attention with rel-pos bias (and the SW-MSA mask)
-    -> residual -> LN -> MLP -> residual. Windows are edge-padded. In
+    -> residual -> LN -> MLP -> residual. Windows are padded by
+    ``padding_mode``. In
     training both residual branches go through stochastic depth, each with
     its own per-sample mask (``draw_masks``)."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int = 7, shift_size: int = 0,
-                 mlp_ratio: float = 4.0, qkv_bias: bool = True, path_drop_prob: float = 0.0):
+                 mlp_ratio: float = 4.0, qkv_bias: bool = True, path_drop_prob: float = 0.0,
+                 padding_mode: str = "edge"):
         super().__init__()
         self.window_size = window_size
         self.shift_size = shift_size
+        self.padding_mode = padding_mode
         self.norm1 = LayerNorm(dim)
         self.attn = WindowAttention(dim, num_heads, window_size, qkv_bias)
         self.drop_path = DropPath(path_drop_prob)
@@ -86,7 +98,7 @@ class SwinBlock(nn.Module):
         _, h, w, _ = x.shape
         r, s = self.window_size, self.shift_size
         keep_attn, keep_mlp = masks if masks is not None else (None, None)
-        y = pad_to_multiple(self.norm1(x), r)
+        y = pad_to_multiple(self.norm1(x), r, self.padding_mode)
         hp, wp = y.shape[1], y.shape[2]
         mask = shifted_window_attn_mask(hp, wp, r, s, x.device) if s > 0 else None
         y = window_partition(cyclic_shift(y, s), r)
@@ -104,14 +116,14 @@ class SwinStage(nn.Module):
     def __init__(self, dim: int, depth: int, num_heads: int, window_size: int = 7,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  path_drop_probs: Sequence[float] = (), downsample: bool = False,
-                 use_checkpoint: bool = False):
+                 use_checkpoint: bool = False, padding_mode: str = "edge"):
         super().__init__()
         self.use_checkpoint = use_checkpoint
         pdp = list(path_drop_probs) + [0.0] * (depth - len(path_drop_probs))
         self.blocks = nn.ModuleList(
             SwinBlock(dim, num_heads, window_size, 0 if i % 2 == 0 else window_size // 2,
-                      mlp_ratio, qkv_bias, pdp[i]) for i in range(depth))
-        self.downsample = PatchMerging(dim) if downsample else None
+                      mlp_ratio, qkv_bias, pdp[i], padding_mode) for i in range(depth))
+        self.downsample = PatchMerging(dim, padding_mode) if downsample else None
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -129,17 +141,22 @@ class SwinTransformer(nn.Module):
     through its output LayerNorm ``norm{i}``. Stochastic depth rises
     linearly over the blocks, ``path_drop_prob * i / (total - 1)``
     (``mde_tpu/models/swin.py:315``), drawn from the ``generator`` given to
-    ``forward`` in training."""
+    ``forward`` in training. ``frozen_stages`` >= 0 detaches the patch
+    embedding's output, and each stage i with i + 1 < ``frozen_stages`` its
+    outputs, where JAX stops the gradient (``:309-310,339-341``): the
+    parameters before them get no gradient."""
 
     def __init__(self, patch_size: int = 4, embed_dim: int = 96,
                  depths: Sequence[int] = (2, 2, 6, 2), num_heads: Sequence[int] = (3, 6, 12, 24),
                  window_size: int = 7, mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  path_drop_prob: float = 0.2, out_indices: Sequence[int] = (0, 1, 2, 3),
-                 use_checkpoint: bool = False):
+                 use_checkpoint: bool = False, frozen_stages: int = -1,
+                 padding_mode: str = "edge"):
         super().__init__()
         self.num_features = tuple(int(embed_dim * 2 ** i) for i in range(len(depths)))
         self.out_indices = tuple(out_indices)
-        self.patch_embed = PatchEmbed(patch_size, 3, embed_dim)
+        self.frozen_stages = frozen_stages
+        self.patch_embed = PatchEmbed(patch_size, 3, embed_dim, padding_mode)
         total = sum(depths)
         pdp = [path_drop_prob * i / max(total - 1, 1) for i in range(total)]
         self.layers = nn.ModuleList()
@@ -148,16 +165,20 @@ class SwinTransformer(nn.Module):
             self.layers.append(SwinStage(
                 self.num_features[i], depth, num_heads[i], window_size, mlp_ratio, qkv_bias,
                 pdp[start:start + depth], downsample=i < len(depths) - 1,
-                use_checkpoint=use_checkpoint))
+                use_checkpoint=use_checkpoint, padding_mode=padding_mode))
         for i in self.out_indices:
             self.add_module(f"norm{i}", LayerNorm(self.num_features[i]))
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, ...]:
         x = self.patch_embed(x)
+        if self.frozen_stages >= 0:
+            x = x.detach()
         outs = []
         for i, stage in enumerate(self.layers):
             x_out, x = stage(x, generator)
+            if i + 1 < self.frozen_stages:
+                x, x_out = x.detach(), x_out.detach()
             if i in self.out_indices:
                 outs.append(getattr(self, f"norm{i}")(x_out))
         return tuple(outs)

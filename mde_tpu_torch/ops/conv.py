@@ -35,3 +35,16 @@ class Conv1x1(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv2d_nhwc(x, self.weight, self.bias)
+
+
+class ZeroPadConv(nn.Conv2d):
+    """k x k conv (odd k) after a (k // 2)-pixel zero pad, on NHWC input, in
+    the input's dtype: torch's ``nn.Conv2d(..., padding=k // 2)``."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3, bias: bool = True):
+        if kernel_size % 2 != 1:
+            raise ValueError("ZeroPadConv takes odd kernels only")
+        super().__init__(in_ch, out_ch, kernel_size, bias=bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv2d_nhwc(x, self.weight, self.bias, padding=self.kernel_size[0] // 2)

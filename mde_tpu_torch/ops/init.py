@@ -60,7 +60,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
             lecun_normal_(m.weight, generator)
             if m.bias is not None:
                 m.bias.zero_()
-        elif isinstance(m, (nn.LayerNorm, nn.BatchNorm2d)):
+        elif isinstance(m, (nn.LayerNorm, nn.BatchNorm2d, nn.GroupNorm)):
             m.reset_parameters()
         own = getattr(m, "init_own_parameters", None)
         if own is not None:

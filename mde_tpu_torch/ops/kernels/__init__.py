@@ -43,11 +43,14 @@ KERNELS = ("window_attention", "window_attention_bwd", "ordered_attention",
 # launches of each kernel since the last reset; a wrapper adds one where it
 # launches its kernel, and nowhere else
 launch_counts: Dict[str, int] = dict.fromkeys(KERNELS, 0)
+# of those, the launches through a kernel's second entry (K1's q|k +
+# separate-v entry: ``window_attention_qk_v`` and its backward), by entry
+entry_counts: Dict[str, int] = {}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "mde_window_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
-    "mde_window_attention_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
+    "mde_window_attention": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
+    "mde_window_attention_bwd": [_P] * 10 + [_I] * 7 + [_F, _I, _P],
     "mde_window_attention_smem": [_I] * 4,
     "mde_window_attention_bwd_smem": [_I] * 5,
     "mde_ordered_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
@@ -82,6 +85,7 @@ _library: Optional[ctypes.CDLL] = None
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+    entry_counts.clear()
 
 
 def _nvcc() -> str:
@@ -193,9 +197,11 @@ def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
+def launch(kernel: str, entry: str, device: torch.device, *args,
+           counted_entry: Optional[str] = None) -> None:
     """Call one C entry point on ``device``'s current stream, raise if the
-    launch failed, and count it."""
+    launch failed, and count it (and under ``counted_entry`` too, if
+    given)."""
     lib = library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -204,3 +210,5 @@ def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{entry}: CUDA error {err} "
                            f"({lib.mde_error_string(err).decode()})")
     launch_counts[kernel] += 1
+    if counted_entry is not None:
+        entry_counts[counted_entry] = entry_counts.get(counted_entry, 0) + 1

@@ -471,12 +471,13 @@ __device__ void mma_bwd_rows(const bf16* sq, const bf16* sk, const bf16* sv, con
 
 // Second half, after a barrier: per warp and 16 keys,
 //   dk = bf16(dS)^T . qs, dv = bf16(P)^T . dO
-// over all pad16(n) rows, written to dk and dv (rows `ldg` apart). Reads
+// over all pad16(n) rows, written to dk (rows `ldk` apart) and dv (rows
+// `ldv` apart). Reads
 // sq, sdo, sp and sds only, so the caller may refill sk and sv meanwhile.
 template <int NT, int DT>
 __device__ void mma_bwd_keys(const bf16* sq, const bf16* sdo, int ld, const bf16* sp,
-                             const bf16* sds, bf16* __restrict__ dk,
-                             bf16* __restrict__ dv, int ldg, int n, int hd) {
+                             const bf16* sds, bf16* __restrict__ dk, int ldk,
+                             bf16* __restrict__ dv, int ldv, int n, int hd) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int np = mma_pad16(n), nk = np >> 4, nd = mma_pad16(hd) >> 4;
@@ -510,14 +511,14 @@ __device__ void mma_bwd_keys(const bf16* sq, const bf16* sdo, int ld, const bf16
       if (8 * dn >= hd) break;
       const int c = 8 * dn + 2 * t;
       if (k0 + g < n) {
-        const size_t off = (size_t)(k0 + g) * ldg + c;
-        *reinterpret_cast<uint32_t*>(dk + off) = pack_bf16(gk[dn][0], gk[dn][1]);
-        *reinterpret_cast<uint32_t*>(dv + off) = pack_bf16(gv[dn][0], gv[dn][1]);
+        const size_t r = k0 + g;
+        *reinterpret_cast<uint32_t*>(dk + r * ldk + c) = pack_bf16(gk[dn][0], gk[dn][1]);
+        *reinterpret_cast<uint32_t*>(dv + r * ldv + c) = pack_bf16(gv[dn][0], gv[dn][1]);
       }
       if (k0 + g + 8 < n) {
-        const size_t off = (size_t)(k0 + g + 8) * ldg + c;
-        *reinterpret_cast<uint32_t*>(dk + off) = pack_bf16(gk[dn][2], gk[dn][3]);
-        *reinterpret_cast<uint32_t*>(dv + off) = pack_bf16(gv[dn][2], gv[dn][3]);
+        const size_t r = k0 + g + 8;
+        *reinterpret_cast<uint32_t*>(dk + r * ldk + c) = pack_bf16(gk[dn][2], gk[dn][3]);
+        *reinterpret_cast<uint32_t*>(dv + r * ldv + c) = pack_bf16(gv[dn][2], gv[dn][3]);
       }
     }
   }

@@ -68,8 +68,8 @@ __host__ __device__ inline size_t window_head_smem_floats(int n, int hd) {
 }
 
 // softmax(q.k^T * scale + bias(row, col)) . v for one (window, head).
-// q, k, v point at the head's first element of the window, rows `ld`
-// elements apart; out is contiguous (rows `ldo` apart). Products and sums
+// q, k, v point at the head's first element of the window, q's and k's
+// rows `ld` elements apart, v's `ldv`; out's rows `ldo` apart. Products and sums
 // are f32; the probabilities are rounded to T before P.v, as the plain
 // version rounds them to the input dtype.
 // PRESCALE: scale q in T before q.k^T (the JAX window-attention kernel);
@@ -77,8 +77,8 @@ __host__ __device__ inline size_t window_head_smem_floats(int n, int hd) {
 template <typename T, bool PRESCALE, typename BiasFn>
 __device__ void window_head_attention(const T* __restrict__ q, const T* __restrict__ k,
                                       const T* __restrict__ v, T* __restrict__ out, int n,
-                                      int hd, int ld, int ldo, float scale, float* smem,
-                                      BiasFn bias) {
+                                      int hd, int ld, int ldv, int ldo, float scale,
+                                      float* smem, BiasFn bias) {
   const int ldk = hd + 1;
   float* sq = smem;
   float* sk = sq + n * hd;
@@ -91,7 +91,7 @@ __device__ void window_head_attention(const T* __restrict__ q, const T* __restri
     const float qv = to_float(q[off]);
     sq[i] = PRESCALE ? round_to<T>(qv * scale_t) : qv;
     sk[r * ldk + d] = to_float(k[off]);
-    sv[i] = to_float(v[off]);
+    sv[i] = to_float(v[(size_t)r * ldv + d]);
   }
   __syncthreads();
   for (int i = threadIdx.x; i < n * n; i += blockDim.x) {
@@ -141,8 +141,10 @@ __host__ __device__ inline size_t window_head_bwd_smem_floats(int n, int hd) {
 //   dP = dO . v^T, dS = P * (dP - rowsum(dP * P)),
 //   dq = dS . k * scale, dk = dS^T . qs, dv = P^T . dO,
 // with P and dS rounded to T before those three products, as the JAX kernel
-// casts them. q, k, v point at the head's first element of the window, rows
-// `ld` apart; dout rows `ldo` apart; dq, dk, dv rows `ldg` apart.
+// casts them. q, k, v point at the head's first element of the window, q's
+// and k's rows `ld` apart and v's `ldv`; dout's rows `ldo` apart; each
+// gradient is laid out like its input (dq and dk rows `ld` apart, dv's
+// `ldv`).
 // sink(row, col, ds) receives every f32 dS once; the thread that calls it
 // for a given (row, col) depends only on (row, col) and blockDim, so a sink
 // may accumulate into a per-entry slot without atomics. The caller
@@ -151,8 +153,8 @@ template <typename T, typename BiasFn, typename SinkFn>
 __device__ void window_head_attention_bwd(const T* __restrict__ q, const T* __restrict__ k,
                                           const T* __restrict__ v, const T* __restrict__ dout,
                                           T* __restrict__ dq, T* __restrict__ dk,
-                                          T* __restrict__ dv, int n, int hd, int ld, int ldo,
-                                          int ldg, float scale, float* smem, BiasFn bias,
+                                          T* __restrict__ dv, int n, int hd, int ld, int ldv,
+                                          int ldo, float scale, float* smem, BiasFn bias,
                                           SinkFn sink) {
   const int ldk = hd + 1;
   float* sq = smem;           // q * scale, rounded to T
@@ -167,7 +169,7 @@ __device__ void window_head_attention_bwd(const T* __restrict__ q, const T* __re
     const size_t off = (size_t)r * ld + d;
     sq[i] = round_to<T>(to_float(q[off]) * scale_t);
     sk[r * ldk + d] = to_float(k[off]);
-    sv[r * ldk + d] = to_float(v[off]);
+    sv[r * ldk + d] = to_float(v[(size_t)r * ldv + d]);
     sdo[i] = to_float(dout[(size_t)r * ldo + d]);
   }
   __syncthreads();
@@ -223,10 +225,10 @@ __device__ void window_head_attention_bwd(const T* __restrict__ q, const T* __re
       gk = fmaf(sd[j * n + r], sq[j * hd + d], gk);   // dS[j, r] qs[j, d]
       gv = fmaf(sp[j * n + r], sdo[j * hd + d], gv);  // P[j, r] dO[j, d]
     }
-    const size_t off = (size_t)r * ldg + d;
+    const size_t off = (size_t)r * ld + d;
     dq[off] = from_float<T>(gq * scale);
     dk[off] = from_float<T>(gk);
-    dv[off] = from_float<T>(gv);
+    dv[(size_t)r * ldv + d] = from_float<T>(gv);
   }
 }
 

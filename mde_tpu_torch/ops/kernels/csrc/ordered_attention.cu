@@ -77,7 +77,7 @@ __global__ void ordered_attention_f32_kernel(const float* __restrict__ q,
   auto gather = [=](int r, int col) { return table ? st[si[r] - si[col] + off] : 0.f; };
   const size_t base = (size_t)w * n * c + (size_t)h * hd;
   window_head_attention<float, false>(q + base, k + base, v + base, out + base, n, hd, c, c,
-                                      scale, smem, gather);
+                                      c, scale, smem, gather);
 }
 
 // bf16: one block of MMA_THREADS per (window, head) on the tensor cores.

@@ -209,7 +209,7 @@ __global__ void __launch_bounds__(MMA_THREADS, bwd_min_blocks(NT, DT))
       mma_stage(sv, v + base + (size_t)n * c, n, np, hd, c, ld);
       cp_async_commit();
     }
-    mma_bwd_keys<NT, DT>(sq, sdo, ld, sp, sds, dk + base, dv + base, c, n, hd);
+    mma_bwd_keys<NT, DT>(sq, sdo, ld, sp, sds, dk + base, c, dv + base, c, n, hd);
     __syncthreads();
   }
   if (table)

@@ -29,7 +29,9 @@
 // per slot into a FragBias tile in shared memory (f32 in the order of the C
 // fragments, 16 KB at n = 49), from which each lane reads its logits' bias
 // as float4s. Per window, q, k and v come by 16-byte cp.async straight from
-// the strided views of the fused (B*nW, N, 3C) projection (row stride 3C),
+// strided views: q and k at one row stride, v at its own (3C for all three
+// in the Swin blocks' fused (B*nW, N, 3C) qkv projection; 2C for q and k
+// of the NewCRFs blocks' fused qk and C for their separate v),
 // q is scaled in bf16 in shared memory (mma_scale_staged) and the logits get
 // scale 1; each warp takes 16 query rows, and the softmax's exp is
 // __expf's ex2.approx (FAST_EXP). The runs are sized so that the grid fills
@@ -46,8 +48,11 @@
 // which TF32 would break) and bf16 beyond those shapes (the window-12
 // NewCRFs, n = 144) take the CUDA-core body window_head_attention
 // (common.cuh). The rule is mma_shape below, on (dtype, n, hd) alone. The
-// TPU-only tricks (window pairs packed to 128 lanes, the VMEM block picker)
-// have no counterpart.
+// TPU kernel takes q, k and v as separate arrays (fused_window_attention,
+// :352), as the NewCRFs blocks hand them over; the Swin blocks' fused qkv
+// is the case q = qkv, k = qkv + C, v = qkv + 2C, all at row stride 3C,
+// through the same body. The TPU-only tricks (window pairs packed to 128
+// lanes, the VMEM block picker) have no counterpart.
 
 #include "attention_mma.cuh"
 
@@ -58,10 +63,12 @@ __global__ void window_attention_kernel(const T* __restrict__ q, const T* __rest
                                         const T* __restrict__ v,
                                         const float* __restrict__ bias,
                                         const float* __restrict__ mask, T* __restrict__ out,
-                                        int n, int c, int hd, int ld, int nw, float scale) {
+                                        int n, int c, int hd, int ld, int ldv, int nw,
+                                        float scale) {
   extern __shared__ float smem[];
   const int w = blockIdx.x, h = blockIdx.y;
   const size_t in_off = (size_t)w * n * ld + (size_t)h * hd;
+  const size_t v_off = (size_t)w * n * ldv + (size_t)h * hd;
   const size_t out_off = (size_t)w * n * c + (size_t)h * hd;
   const float* bh = bias ? bias + (size_t)h * n * n : nullptr;
   const float* mw = mask ? mask + (size_t)(w % nw) * n * n : nullptr;
@@ -71,8 +78,8 @@ __global__ void window_attention_kernel(const T* __restrict__ q, const T* __rest
     if (mw) b += mw[r * n + col];
     return b;
   };
-  window_head_attention<T, true>(q + in_off, k + in_off, v + in_off, out + out_off, n, hd, ld,
-                                 c, scale, smem, add);
+  window_head_attention<T, true>(q + in_off, k + in_off, v + v_off, out + out_off, n, hd, ld,
+                                 ldv, c, scale, smem, add);
 }
 
 // bf16 on the tensor cores: one block of MMA_THREADS per (run of wpb
@@ -91,7 +98,7 @@ __global__ void __launch_bounds__(MMA_THREADS, fwd_min_blocks(NT, DT))
     window_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                 const bf16* __restrict__ v, const float* __restrict__ bias,
                                 const float* __restrict__ mask, bf16* __restrict__ out, int bw,
-                                int n, int c, int heads, int ldg, int slots, int wpb,
+                                int n, int c, int heads, int ldg, int ldv, int slots, int wpb,
                                 float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int h = blockIdx.x % heads;
@@ -108,9 +115,10 @@ __global__ void __launch_bounds__(MMA_THREADS, fwd_min_blocks(NT, DT))
   for (int u = u0; u < u1; ++u) {
     const int s = u / images, w = s + (u - s * images) * slots;
     const size_t base = (size_t)w * n * ldg + (size_t)h * hd;
+    const size_t vbase = (size_t)w * n * ldv + (size_t)h * hd;
     mma_stage(sq, q + base, n, np, hd, ldg, ld);
     mma_stage(sk, k + base, n, np, hd, ldg, ld);
-    mma_stage(sv, v + base, n, np, hd, ldg, ld);
+    mma_stage(sv, v + vbase, n, np, hd, ldv, ld);
     cp_async_commit();
     if (s != slot) {  // the last window's readers of sb passed the barrier below
       slot = s;
@@ -136,7 +144,7 @@ static size_t mma_smem(int n, int hd) {
 template <int NT, int DT>
 static int launch_mma(const void* q, const void* k, const void* v, const float* bias,
                       const float* mask, void* out, int bw, int n, int c, int heads, int ld,
-                      int nw, float scale, cudaStream_t stream) {
+                      int ldv, int nw, float scale, cudaStream_t stream) {
   auto kernel = window_attention_mma_kernel<NT, DT>;
   const size_t smem = mma_smem(n, c / heads);
   cudaError_t err = allow_smem(kernel, smem);
@@ -147,50 +155,54 @@ static int launch_mma(const void* q, const void* k, const void* v, const float* 
   const unsigned blocks = (unsigned)((bw + wpb - 1) / wpb) * heads;
   kernel<<<blocks, MMA_THREADS, smem, stream>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
                                                 bias, mask, (bf16*)out, bw, n, c, heads, ld,
-                                                mask ? nw : 1, wpb, scale);
+                                                ldv, mask ? nw : 1, wpb, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 static int launch_cuda_cores(const void* q, const void* k, const void* v, const float* bias,
                              const float* mask, void* out, int bw, int n, int c, int heads,
-                             int ld, int nw, float scale, cudaStream_t stream) {
+                             int ld, int ldv, int nw, float scale, cudaStream_t stream) {
   const int hd = c / heads;
   const size_t smem = window_head_smem_floats(n, hd) * sizeof(float);
   cudaError_t err = allow_smem(window_attention_kernel<T>, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(bw, heads);
   window_attention_kernel<T><<<grid, 128, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, bias, mask, (T*)out, n, c, hd, ld, nw, scale);
+      (const T*)q, (const T*)k, (const T*)v, bias, mask, (T*)out, n, c, hd, ld, ldv, nw,
+      scale);
   return (int)cudaGetLastError();
 }
 
-// q, k, v: (bw, n, c) with rows ld elements apart (3c for the views of one
-// fused projection); bias: (heads, n, n) f32 or null; mask: (nw, n, n) f32
-// or null, nw dividing bw; out: contiguous (bw, n, c). bf16 at mma_shape:
-// 16-byte aligned, ld a multiple of 8. Returns the CUDA error code of the
-// launch (0 on success).
+// q, k, v: (bw, n, c), q's and k's rows ld elements apart, v's ldv (3c
+// and 3c for the views of one fused qkv projection; 2c and c for a fused
+// qk and a separate v); bias: (heads, n, n) f32 or null; mask: (nw, n, n)
+// f32 or null, nw dividing bw; out: contiguous (bw, n, c). bf16 at
+// mma_shape: 16-byte aligned, ld and ldv multiples of 8. Returns the CUDA
+// error code of the launch (0 on success).
 extern "C" int mde_window_attention(const void* q, const void* k, const void* v,
                                     const float* bias, const float* mask, void* out, int bw,
-                                    int n, int c, int heads, int ld, int nw, float scale,
-                                    int dtype, void* stream) {
-  if (heads <= 0 || c % heads != 0 || n <= 0 || bw <= 0 || (mask && (nw <= 0 || bw % nw)))
+                                    int n, int c, int heads, int ld, int ldv, int nw,
+                                    float scale, int dtype, void* stream) {
+  if (heads <= 0 || c % heads != 0 || n <= 0 || bw <= 0 || ld < c || ldv < c ||
+      (mask && (nw <= 0 || bw % nw)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int hd = c / heads;
   if (dtype == MDE_F32)
-    return launch_cuda_cores<float>(q, k, v, bias, mask, out, bw, n, c, heads, ld, nw, scale,
-                                    s);
+    return launch_cuda_cores<float>(q, k, v, bias, mask, out, bw, n, c, heads, ld, ldv, nw,
+                                    scale, s);
   if (dtype != MDE_BF16) return (int)cudaErrorInvalidValue;
   if (!mma_shape(n, hd))
-    return launch_cuda_cores<bf16>(q, k, v, bias, mask, out, bw, n, c, heads, ld, nw, scale,
-                                   s);
+    return launch_cuda_cores<bf16>(q, k, v, bias, mask, out, bw, n, c, heads, ld, ldv, nw,
+                                   scale, s);
   // the tensor-core body copies and stores 16-byte pieces
-  if ((((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) & 15) || ld % 8)
+  if ((((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) & 15) || ld % 8 ||
+      ldv % 8)
     return (int)cudaErrorMisalignedAddress;
   if (n <= 64 && hd <= 32)
-    return launch_mma<4, 2>(q, k, v, bias, mask, out, bw, n, c, heads, ld, nw, scale, s);
-  return launch_mma<8, 8>(q, k, v, bias, mask, out, bw, n, c, heads, ld, nw, scale, s);
+    return launch_mma<4, 2>(q, k, v, bias, mask, out, bw, n, c, heads, ld, ldv, nw, scale, s);
+  return launch_mma<8, 8>(q, k, v, bias, mask, out, bw, n, c, heads, ld, ldv, nw, scale, s);
 }
 
 // Bytes of shared memory one block of mde_window_attention takes for this

@@ -6,9 +6,13 @@
 // mask[w mod nW]) from the saved q, k, v (qs = q*scale in the input dtype,
 // :203), forms dS = P * (dP - rowsum(dP * P)) with dP = dO . v^T, and writes
 //   dq = dS . k * scale, dk = dS^T . qs, dv = P^T . dO
-// (P and dS rounded to the input dtype first, dq scaled in f32) into one
-// fused (B*nW, N, 3C) gradient laid out like the qkv projection, plus
-// dbias[h] = sum over windows of the unrounded f32 dS.
+// (P and dS rounded to the input dtype first, dq scaled in f32), each laid
+// out like its input, plus dbias[h] = sum over windows of the unrounded f32
+// dS. The inputs are strided views as in the forward: q and k at one row
+// stride, v at its own; dq and dk go out at q's stride and dv at v's. The
+// Swin blocks' fused qkv (all at 3C) thus gets one fused (B*nW, N, 3C)
+// dqkv, and the NewCRFs blocks' fused qk (2C) and separate v (C) a fused
+// dqk and a dv, with no slice or concatenation copies either way.
 //
 // What bounds it on an H100: at the train path's stage-1 shape (2048
 // windows of 49 tokens, 128 channels, 4 heads, head dim 32, batch 4, bf16)
@@ -57,11 +61,14 @@
 // windows, head), everything staged as f32, dbias summed per block in
 // shared memory (each entry owned by one thread).
 template <typename T>
-__global__ void window_attention_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
+__global__ void window_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                                            const T* __restrict__ v,
+                                            const T* __restrict__ dout,
                                             const float* __restrict__ bias,
-                                            const float* __restrict__ mask,
-                                            T* __restrict__ dqkv, float* __restrict__ dbias,
-                                            int bw, int n, int c, int hd, int nw, int wpb,
+                                            const float* __restrict__ mask, T* __restrict__ dq,
+                                            T* __restrict__ dk, T* __restrict__ dv,
+                                            float* __restrict__ dbias, int bw, int n, int c,
+                                            int hd, int ld, int ldv, int nw, int wpb,
                                             float scale) {
   extern __shared__ float smem[];
   const int h = blockIdx.y;
@@ -82,13 +89,13 @@ __global__ void window_attention_bwd_kernel(const T* __restrict__ qkv, const T* 
     auto sink = [=](int r, int col, float ds) {
       if (dbias) acc[r * n + col] += ds;
     };
-    const size_t in_off = (size_t)w * n * 3 * c + (size_t)h * hd;
+    const size_t in_off = (size_t)w * n * ld + (size_t)h * hd;
+    const size_t v_off = (size_t)w * n * ldv + (size_t)h * hd;
     const size_t out_off = (size_t)w * n * c + (size_t)h * hd;
     // the body's first __syncthreads also orders the zeroing of acc above
-    window_head_attention_bwd<T>(qkv + in_off, qkv + in_off + c, qkv + in_off + 2 * c,
-                                 dout + out_off, dqkv + in_off, dqkv + in_off + c,
-                                 dqkv + in_off + 2 * c, n, hd, 3 * c, c, 3 * c, scale, smem,
-                                 add, sink);
+    window_head_attention_bwd<T>(q + in_off, k + in_off, v + v_off, dout + out_off,
+                                 dq + in_off, dk + in_off, dv + v_off, n, hd, ld, ldv, c,
+                                 scale, smem, add, sink);
     __syncthreads();
   }
   if (dbias)
@@ -126,17 +133,20 @@ constexpr int bwd_min_blocks(int nt, int dt) { return nt <= 4 && dt <= 2 ? 3 : 1
 // bf16 on the tensor cores: one block of MMA_THREADS per (run of wpb
 // windows, head), head-fastest, windows in the forward's order (slots = nW
 // with a mask, 1 without). NT and DT bound pad16(n) / 16 and pad16(hd) / 16.
+// q, k, dq and dk rows are ldg apart, v and dv rows ldv.
 template <int NT, int DT>
 __global__ void __launch_bounds__(MMA_THREADS, bwd_min_blocks(NT, DT))
-    window_attention_bwd_mma_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
+    window_attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
                                     const float* __restrict__ bias,
-                                    const float* __restrict__ mask, bf16* __restrict__ dqkv,
+                                    const float* __restrict__ mask, bf16* __restrict__ dq,
+                                    bf16* __restrict__ dk, bf16* __restrict__ dv,
                                     float* __restrict__ dbias, int bw, int n, int c, int heads,
-                                    int slots, int wpb, float scale) {
+                                    int ldg, int ldv, int slots, int wpb, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int h = blockIdx.x % heads;
   const int u0 = (blockIdx.x / heads) * wpb, u1 = min(bw, u0 + wpb);
-  const int hd = c / heads, np = mma_pad16(n), ld = mma_ld(hd), ldg = 3 * c;
+  const int hd = c / heads, np = mma_pad16(n), ld = mma_ld(hd);
   const int images = bw / slots;
   float* sb = reinterpret_cast<float*>(smem_raw);  // bias + mask, FragBias order
   float* sdb = sb + np * np;                         // dbias partial, the same order
@@ -155,12 +165,13 @@ __global__ void __launch_bounds__(MMA_THREADS, bwd_min_blocks(NT, DT))
   for (int u = u0; u < u1; ++u) {
     const int s = u / images, w = s + (u - s * images) * slots;
     const size_t base = (size_t)w * n * ldg + (size_t)h * hd;
+    const size_t vbase = (size_t)w * n * ldv + (size_t)h * hd;
     const size_t obase = (size_t)w * n * c + (size_t)h * hd;
     if (u == u0) {  // later windows' k and v were copied during the last one
-      mma_stage(sk, qkv + base + c, n, np, hd, ldg, ld);
-      mma_stage(sv, qkv + base + 2 * c, n, np, hd, ldg, ld);
+      mma_stage(sk, k + base, n, np, hd, ldg, ld);
+      mma_stage(sv, v + vbase, n, np, hd, ldv, ld);
     }
-    mma_stage(sq, qkv + base, n, np, hd, ldg, ld);
+    mma_stage(sq, q + base, n, np, hd, ldg, ld);
     mma_stage(sdo, dout + obase, n, np, hd, c, ld);
     cp_async_commit();
     if (s != slot) {  // the last window's readers of sb passed its middle barrier
@@ -170,18 +181,16 @@ __global__ void __launch_bounds__(MMA_THREADS, bwd_min_blocks(NT, DT))
     cp_async_wait<0>();
     mma_scale_staged(sq, np, hd, ld, scale_t);
     __syncthreads();
-    mma_bwd_rows<NT, DT, true>(sq, sk, sv, sdo, ld, sp, sds, dqkv + base, ldg, n, hd, scale,
+    mma_bwd_rows<NT, DT, true>(sq, sk, sv, sdo, ld, sp, sds, dq + base, ldg, n, hd, scale,
                                FragBias{reinterpret_cast<const float4*>(sb)}, sink);
     __syncthreads();
     if (u + 1 < u1) {
       const int s1 = (u + 1) / images, w1 = s1 + (u + 1 - s1 * images) * slots;
-      const size_t next = (size_t)w1 * n * ldg + (size_t)h * hd;
-      mma_stage(sk, qkv + next + c, n, np, hd, ldg, ld);
-      mma_stage(sv, qkv + next + 2 * c, n, np, hd, ldg, ld);
+      mma_stage(sk, k + (size_t)w1 * n * ldg + (size_t)h * hd, n, np, hd, ldg, ld);
+      mma_stage(sv, v + (size_t)w1 * n * ldv + (size_t)h * hd, n, np, hd, ldv, ld);
       cp_async_commit();
     }
-    mma_bwd_keys<NT, DT>(sq, sdo, ld, sp, sds, dqkv + base + c, dqkv + base + 2 * c, ldg, n,
-                         hd);
+    mma_bwd_keys<NT, DT>(sq, sdo, ld, sp, sds, dk + base, ldg, dv + vbase, ldv, n, hd);
     __syncthreads();
   }
   if (dbias)
@@ -207,10 +216,20 @@ static size_t cuda_cores_bwd_smem(int n, int hd, bool with_dbias) {
          sizeof(float);
 }
 
+// The launches take the pointers of mde_window_attention_bwd, packed.
+struct BwdArgs {
+  const void *q, *k, *v, *dout;
+  const float *bias, *mask;
+  void *dq, *dk, *dv;
+  float* dbias;
+  int bw, n, c, heads, ld, ldv, nw;
+  float scale;
+};
+
 template <int NT, int DT>
-static int launch_mma(const void* qkv, const void* dout, const float* bias, const float* mask,
-                      void* dqkv, float* dbias, int bw, int n, int c, int heads, int nw,
-                      float scale, cudaStream_t stream) {
+static int launch_mma(const BwdArgs& a, cudaStream_t stream) {
+  const int bw = a.bw, n = a.n, c = a.c, heads = a.heads;
+  float* dbias = a.dbias;
   auto kernel = window_attention_bwd_mma_kernel<NT, DT>;
   const size_t smem = mma_bwd_smem(n, c / heads, dbias != nullptr);
   cudaError_t err = allow_smem(kernel, smem);
@@ -222,54 +241,56 @@ static int launch_mma(const void* qkv, const void* dout, const float* bias, cons
   const int wpb = balanced_windows_per_block(kernel, smem, bw, heads, 16);
   if (wpb <= 0) return (int)cudaGetLastError();
   const unsigned blocks = (unsigned)((bw + wpb - 1) / wpb) * heads;
-  kernel<<<blocks, MMA_THREADS, smem, stream>>>((const bf16*)qkv, (const bf16*)dout, bias,
-                                                mask, (bf16*)dqkv, dbias, bw, n, c, heads,
-                                                mask ? nw : 1, wpb, scale);
+  kernel<<<blocks, MMA_THREADS, smem, stream>>>(
+      (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v, (const bf16*)a.dout, a.bias, a.mask,
+      (bf16*)a.dq, (bf16*)a.dk, (bf16*)a.dv, dbias, bw, n, c, heads, a.ld, a.ldv,
+      a.mask ? a.nw : 1, wpb, a.scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-static int launch_cuda_cores(const void* qkv, const void* dout, const float* bias,
-                             const float* mask, void* dqkv, float* dbias, int bw, int n, int c,
-                             int heads, int nw, float scale, cudaStream_t stream) {
-  const int hd = c / heads;
-  const size_t smem = cuda_cores_bwd_smem(n, hd, dbias != nullptr);
+static int launch_cuda_cores(const BwdArgs& a, cudaStream_t stream) {
+  const int hd = a.c / a.heads;
+  const size_t smem = cuda_cores_bwd_smem(a.n, hd, a.dbias != nullptr);
   cudaError_t err = allow_smem(window_attention_bwd_kernel<T>, smem);
   if (err != cudaSuccess) return (int)err;
-  const int wpb = windows_per_block(bw, heads);
-  dim3 grid((bw + wpb - 1) / wpb, heads);
+  const int wpb = windows_per_block(a.bw, a.heads);
+  dim3 grid((a.bw + wpb - 1) / wpb, a.heads);
   window_attention_bwd_kernel<T><<<grid, 256, smem, stream>>>(
-      (const T*)qkv, (const T*)dout, bias, mask, (T*)dqkv, dbias, bw, n, c, hd, nw, wpb, scale);
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout, a.bias, a.mask, (T*)a.dq,
+      (T*)a.dk, (T*)a.dv, a.dbias, a.bw, a.n, a.c, hd, a.ld, a.ldv, a.nw, wpb, a.scale);
   return (int)cudaGetLastError();
 }
 
-// qkv, dqkv: contiguous (bw, n, 3c), q | k | v along the last dim; dout:
-// contiguous (bw, n, c); bias: (heads, n, n) f32 or null; mask: (nw, n, n)
-// f32 or null, nw dividing bw; dbias: (heads, n, n) f32, zeroed by the
-// caller, or null (only with bias). bf16 at mma_shape: 16-byte aligned.
-// Returns the CUDA error code of the launch (0 on success).
-extern "C" int mde_window_attention_bwd(const void* qkv, const void* dout, const float* bias,
-                                        const float* mask, void* dqkv, float* dbias, int bw,
-                                        int n, int c, int heads, int nw, float scale, int dtype,
-                                        void* stream) {
-  if (heads <= 0 || c % heads != 0 || n <= 0 || bw <= 0 || (mask && (nw <= 0 || bw % nw)) ||
-      (dbias && !bias))
+// q, k, v: (bw, n, c), q's and k's rows ld elements apart, v's ldv (3c and
+// 3c for the views of one fused qkv projection; 2c and c for a fused qk
+// and a separate v); dq, dk, dv: laid out like q, k, v (rows ld, ld and
+// ldv apart); dout: contiguous (bw, n, c); bias: (heads, n, n) f32 or null;
+// mask: (nw, n, n) f32 or null, nw dividing bw; dbias: (heads, n, n) f32,
+// zeroed by the caller, or null (only with bias). bf16 at mma_shape:
+// 16-byte aligned, ld and ldv multiples of 8. Returns the CUDA error code
+// of the launch (0 on success).
+extern "C" int mde_window_attention_bwd(const void* q, const void* k, const void* v,
+                                        const void* dout, const float* bias, const float* mask,
+                                        void* dq, void* dk, void* dv, float* dbias, int bw,
+                                        int n, int c, int heads, int ld, int ldv, int nw,
+                                        float scale, int dtype, void* stream) {
+  if (heads <= 0 || c % heads != 0 || n <= 0 || bw <= 0 || ld < c || ldv < c ||
+      (mask && (nw <= 0 || bw % nw)) || (dbias && !bias))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  const BwdArgs a{q, k, v, dout, bias, mask, dq, dk, dv, dbias, bw, n, c, heads, ld, ldv, nw,
+                  scale};
   const int hd = c / heads;
-  if (dtype == MDE_F32)
-    return launch_cuda_cores<float>(qkv, dout, bias, mask, dqkv, dbias, bw, n, c, heads, nw,
-                                    scale, s);
+  if (dtype == MDE_F32) return launch_cuda_cores<float>(a, s);
   if (dtype != MDE_BF16) return (int)cudaErrorInvalidValue;
-  if (!mma_shape(n, hd))
-    return launch_cuda_cores<bf16>(qkv, dout, bias, mask, dqkv, dbias, bw, n, c, heads, nw,
-                                   scale, s);
+  if (!mma_shape(n, hd)) return launch_cuda_cores<bf16>(a, s);
   // the tensor-core bodies copy 16-byte pieces
-  if (((uintptr_t)qkv | (uintptr_t)dout | (uintptr_t)dqkv) & 15)
+  if ((((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout | (uintptr_t)dq |
+        (uintptr_t)dk | (uintptr_t)dv) & 15) || ld % 8 || ldv % 8)
     return (int)cudaErrorMisalignedAddress;
-  if (n <= 64 && hd <= 32)
-    return launch_mma<4, 2>(qkv, dout, bias, mask, dqkv, dbias, bw, n, c, heads, nw, scale, s);
-  return launch_mma<8, 8>(qkv, dout, bias, mask, dqkv, dbias, bw, n, c, heads, nw, scale, s);
+  if (n <= 64 && hd <= 32) return launch_mma<4, 2>(a, s);
+  return launch_mma<8, 8>(a, s);
 }
 
 // Bytes of shared memory one block of mde_window_attention_bwd takes for

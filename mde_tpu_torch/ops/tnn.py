@@ -3,8 +3,8 @@
 Parameters are kept in f32; each layer computes in the dtype of its input,
 so a model runs in bf16 by casting its input once, as the JAX modules'
 ``dtype`` field does. LayerNorm's eps is 1e-5 (torch's), GELU follows the
-JAX dtype rule (exact erf in f32, the tanh form in bf16), and BatchNorm
-computes and keeps its statistics as flax does.
+JAX dtype rule (exact erf in f32, the tanh form in bf16), and BatchNorm and
+GroupNorm compute (and BatchNorm keeps) their statistics as flax does.
 """
 
 from __future__ import annotations
@@ -81,6 +81,28 @@ class BatchNorm(nn.BatchNorm2d):
         return ((x.float() - mean) * mul + self.bias).to(x.dtype)
 
 
+class GroupNorm(nn.GroupNorm):
+    """GroupNorm over the last (channel) dim of NHWC input with flax's
+    numerics (flax 0.12 ``GroupNorm``): each group's statistics over its
+    pixels and channels in f32, the variance as ``E[x^2] - E[x]^2``
+    clipped at 0, eps 1e-5, the input normalised in f32 as
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` and cast back to its
+    dtype."""
+
+    def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5):
+        super().__init__(num_groups, num_channels, eps=eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        g = self.num_groups
+        x32 = x.float().reshape(*x.shape[:-1], g, x.shape[-1] // g)
+        dims = tuple(range(1, x.dim() - 1)) + (x.dim(),)
+        mean = x32.mean(dim=dims, keepdim=True)
+        var = ((x32 * x32).mean(dim=dims, keepdim=True) - mean * mean).clamp_min(0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight.reshape(g, -1)
+        y = (x32 - mean) * mul + self.bias.reshape(g, -1)
+        return y.reshape(x.shape).to(x.dtype)
+
+
 def bn_use_running_average(bn: BatchNorm) -> bool:
     """A BatchNorm normalises with its running statistics in eval mode or
     inside a freeze scope that covers it (``mde_tpu/ops/tnn.py:86-94``)."""
@@ -115,8 +137,9 @@ def bn_freeze_scope(model: nn.Module,
 
 
 def conv2d_nhwc(x: torch.Tensor, weight: torch.Tensor, bias=None,
-                stride: int = 1) -> torch.Tensor:
-    """VALID convolution of NHWC ``x`` with an OIHW weight, in x's dtype."""
+                stride: int = 1, padding: int = 0) -> torch.Tensor:
+    """Convolution of NHWC ``x`` with an OIHW weight, in x's dtype: VALID,
+    or after ``padding`` zeros on every side."""
     y = F.conv2d(x.permute(0, 3, 1, 2), weight.to(x.dtype),
-                 None if bias is None else bias.to(x.dtype), stride=stride)
+                 None if bias is None else bias.to(x.dtype), stride=stride, padding=padding)
     return y.permute(0, 2, 3, 1)

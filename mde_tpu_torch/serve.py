@@ -24,6 +24,9 @@ class Predictor:
         """images: (B, H, W, 3) f32 array or tensor -> (B, H, W, 1) f32 depth
         on the model's device."""
         x = torch.as_tensor(images, dtype=torch.float32, device=self.device)
-        pred, _ = self.model(x)
+        # a model returns its map alone (NewCRFs) or first in a tuple
+        # (``mde_tpu/train/driver.py:242-243``)
+        out = self.model(x)
+        pred = out[0] if isinstance(out, tuple) else out
         pred = resize_bilinear(pred, (x.shape[1], x.shape[2]), align_corners=True)
         return pred.clamp_min(0.0)

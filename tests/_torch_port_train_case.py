@@ -180,6 +180,42 @@ def port_names(params, stats=None):
 
 
 
+def jax_step(model, opt, variables, data):
+    """(grads, logs, new batch_stats, new params) of one step of JAX's
+    ``make_train_step`` of ``model`` and ``opt`` from ``variables`` on the
+    numpy batch ``data``, the gradients stashed by a first link in the
+    optimizer chain: the reference side of a family's train-step test."""
+    stash = optax.GradientTransformation(
+        lambda params: jax.tree_util.tree_map(jnp.zeros_like, params),
+        lambda updates, state, params=None: (updates, updates))
+    tx = optax.chain(stash, jax_build_optimizer(opt, TOTAL_STEPS))
+    state = JaxTrainState.create(variables["params"], variables["batch_stats"], tx)
+    step = jax_make_train_step(model, opt, 0.001, 80.0, tx, donate=False)
+    new, logs = step(state, {k: jnp.asarray(v) for k, v in data.items()},
+                     jax.random.PRNGKey(0))
+    return (new.opt_state[0], {k: float(v) for k, v in logs.items()}, new.batch_stats,
+            new.params)
+
+
+def port_step_of(model, opt, data):
+    """One step of the port's ``make_train_step`` of ``model`` (weights
+    loaded) and ``opt`` on ``data``: (the gradients its optimizer took,
+    logs)."""
+    state = TrainState.create(model, opt, TOTAL_STEPS)
+    seen = {}
+    real = state.optimizer.update
+
+    def update(grads):
+        seen.update({n: g.clone() for n, g in grads.items()})
+        real(grads)
+
+    state.optimizer.update = update
+    state, logs = make_train_step(opt, 0.001, 80.0)(state, data,
+                                                    torch.Generator().manual_seed(0))
+    assert state.step == 1
+    return seen, {k: float(v) for k, v in logs.items()}
+
+
 def assert_logs(ours, ref):
     for key in ("loss", "loss_si", "grad_norm", "param_norm"):
         assert abs(ours[key] - ref[key]) <= LOG_TOL * max(1.0, abs(ref[key])), (key, ours, ref)

@@ -34,7 +34,9 @@ from mde_tpu_torch.ops.kernels.ordered_attention import (ordered_attention,
 from mde_tpu_torch.ops.kernels.window_attention import (plain_window_attention,
                                                         plain_window_attention_bwd,
                                                         window_attention,
-                                                        window_attention_bwd)
+                                                        window_attention_bwd,
+                                                        window_attention_qk_v,
+                                                        window_attention_qk_v_bwd)
 from mde_tpu_torch.ops.tnn import bn_freeze_scope
 from mde_tpu_torch.ops.window import shifted_window_attn_mask
 from mde_tpu_torch.train.state import TrainState
@@ -874,3 +876,104 @@ def test_tiny_trainer_fit_on_card(cuda, tmp_path):
     assert len(metrics) == 9 and all(np.isfinite(v) for v in metrics.values())
     assert kernels.launch_counts["window_attention_bwd"] == 2 * 2 * 6
     assert os.listdir(tmp_path / "checkpoints") == ["step_2"]
+
+
+# K1's q|k + separate-v entry at the NewCRFs decoder's shapes: crf0 (C 128,
+# 4 heads) and crf3 (C 1024, 32 heads), head dim 32, 7x7 windows, 3 images
+# of 8 windows, with and without the SW-MSA mask
+QK_V_CASES = {"crf0": (128, 4), "crf3": (1024, 32)}
+
+
+def _qk_v_args(cuda, dtype, case, shifted, seed):
+    c, nh = QK_V_CASES[case]
+    rng = np.random.RandomState(seed)
+    mask = shifted_window_attn_mask(14, 28, 7, 3, cuda) if shifted else None
+    qk = _randn(rng, 24, 49, 2 * c).to(cuda, dtype)
+    v = _randn(rng, 24, 49, c).to(cuda, dtype)
+    return qk, v, _randn(rng, nh, 49, 49).to(cuda), mask, nh, (c // nh) ** -0.5
+
+
+def _plain_qk_v(qk, v, bias, mask, nh, scale):
+    c = v.shape[-1]
+    return plain_window_attention(qk[..., :c], qk[..., c:], v, bias, mask, nh, scale)
+
+
+def _plain_qk_v_bwd(qk, v, dout, bias, mask, nh, scale):
+    c = v.shape[-1]
+    dq, dk, dv, dbias = plain_window_attention_bwd(qk[..., :c], qk[..., c:], v, dout, bias,
+                                                   mask, nh, scale)
+    return torch.cat([dq, dk], dim=-1), dv, dbias
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(QK_V_CASES))
+@pytest.mark.parametrize("shifted", [False, True])
+def test_window_attention_qk_v_kernel(cuda, dtype, case, shifted):
+    _check("window_attention", window_attention_qk_v, _plain_qk_v,
+           _qk_v_args(cuda, dtype, case, shifted, 23), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(QK_V_CASES))
+@pytest.mark.parametrize("shifted", [False, True])
+def test_window_attention_qk_v_bwd_kernel(cuda, dtype, case, shifted):
+    qk, v, bias, mask, nh, scale = _qk_v_args(cuda, dtype, case, shifted, 24)
+    dout = _randn(np.random.RandomState(25), *v.shape).to(cuda, dtype)
+    _check("window_attention_bwd", window_attention_qk_v_bwd, _plain_qk_v_bwd,
+           (qk, v, dout, bias, mask, nh, scale), dtype, relative=True)
+
+
+@pytest.mark.gpu
+def test_window_attention_qk_v_refuses_bf16_rows_off_16_bytes(cuda):
+    """bf16 qk and v whose rows do not start on 16 bytes (C 36) are refused
+    before any launch; the same shapes in f32 run."""
+    rng = np.random.RandomState(26)
+    qk, v = _randn(rng, 8, 49, 72).to(cuda), _randn(rng, 8, 49, 36).to(cuda)
+    before = dict(kernels.launch_counts)
+    with pytest.raises(ValueError, match="16-byte"):
+        window_attention_qk_v(qk.bfloat16(), v.bfloat16(), None, None, 3, 12 ** -0.5)
+    assert kernels.launch_counts == before
+    _check("window_attention", window_attention_qk_v, _plain_qk_v,
+           (qk, v, None, None, 3, 12 ** -0.5), torch.float32)
+
+
+NEWCRFS_TINY = dict(name="newcrfs", version="custom04")
+NEWCRFS_KW = dict(path_drop_prob=0.0, encoder_kwargs=dict(
+    embed_dim=8, depths=(1, 1, 2, 1), num_heads=(1, 2, 4, 8), in_channels=(8, 16, 32, 64),
+    crf_dims=(8, 16, 32, 64)))
+
+
+@pytest.mark.gpu
+def test_tiny_newcrfs_on_card_matches_cpu(cuda):
+    """The tiny NewCRFs of the CPU tests at 57x90: its forward on the card
+    (K1 in the 5 encoder blocks through the fused entry and in the 8 CRF
+    blocks through the q|k + v entry) against the CPU's, and the gradients
+    of a training-mode forward with BatchNorm frozen (K1 bwd 13 times)
+    within 1e-3 of each tensor's max |g| (or of 1% of the largest one)."""
+    cpu_model = build_model(NEWCRFS_TINY, 0.001, 10.0, device="cpu", seed=10, **NEWCRFS_KW)
+    gpu_model = build_model(NEWCRFS_TINY, 0.001, 10.0, device=cuda, seed=10, **NEWCRFS_KW)
+    x = torch.from_numpy(np.random.RandomState(11).rand(2, 57, 90, 3).astype(np.float32))
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        out = gpu_model(x.to(cuda))
+        ref = cpu_model(x)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts == dict(NO_LAUNCHES, window_attention=13)
+    assert kernels.entry_counts == {"window_attention_qk_v": 8}
+    assert out.shape == (2, 60, 92, 1)
+    assert (out.cpu() - ref).abs().max().item() <= 1e-3
+    grads = []
+    for model, dev in ((gpu_model, cuda), (cpu_model, torch.device("cpu"))):
+        model.train()
+        with bn_freeze_scope(model):
+            model(x.to(dev)).square().mean().backward()
+        grads.append({n: p.grad.cpu() for n, p in model.named_parameters()})
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["window_attention_bwd"] == 13
+    assert kernels.entry_counts == {"window_attention_qk_v": 16, "window_attention_qk_v_bwd": 8}
+    floor = 1e-2 * max(g.abs().max().item() for g in grads[1].values())
+    for name, g in grads[1].items():
+        assert (grads[0][name] - g).abs().max().item() <= 1e-3 * max(g.abs().max().item(),
+                                                                      floor), name

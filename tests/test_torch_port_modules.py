@@ -247,7 +247,8 @@ def test_port_imports_no_jax():
             "mde_tpu_torch.core.checkpoint, mde_tpu_torch.data.splits, mde_tpu_torch.data.png, "
             "mde_tpu_torch.data.dataset, mde_tpu_torch.data.augment, "
             "mde_tpu_torch.data.loader, mde_tpu_torch.utils.wandb_utils, "
-            "mde_tpu_torch.utils.visualize, mde_tpu_torch.train.driver\n"
+            "mde_tpu_torch.utils.visualize, mde_tpu_torch.train.driver, "
+            "mde_tpu_torch.models.newcrfs\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
             "'optax', 'orbax', 'mde_tpu')]\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -287,4 +288,4 @@ def test_build_model_defaults_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_model({"name": "oda2_red_order_swin2"}, 0.001, 80.0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model({"name": "newcrfs"}, 0.001, 80.0, device="cpu")
+        build_model({"name": "adabins"}, 0.001, 80.0, device="cpu")

@@ -42,7 +42,7 @@ OUT = ROOT / "build" / "k1_variants"
 
 FWD_LOOP = '''    mma_stage(sq, q + base, n, np, hd, ldg, ld);
     mma_stage(sk, k + base, n, np, hd, ldg, ld);
-    mma_stage(sv, v + base, n, np, hd, ldg, ld);
+    mma_stage(sv, v + vbase, n, np, hd, ldv, ld);
     cp_async_commit();
     if (s != slot) {  // the last window's readers of sb passed the barrier below
       slot = s;
@@ -56,7 +56,7 @@ FWD_LOOP = '''    mma_stage(sq, q + base, n, np, hd, ldg, ld);
 FWD_LOOP_PREFETCH = '''    if (u == u0) {
       mma_stage(sq, q + base, n, np, hd, ldg, ld);
       mma_stage(sk, k + base, n, np, hd, ldg, ld);
-      mma_stage(sv, v + base, n, np, hd, ldg, ld);
+      mma_stage(sv, v + vbase, n, np, hd, ldv, ld);
       cp_async_commit();
     }
     if (s != slot) {
@@ -69,7 +69,8 @@ FWD_LOOP_PREFETCH = '''    if (u == u0) {
       bf16* nq = sq0 + ((u + 1 - u0) & 1) * 3 * np * ld;
       mma_stage(nq, q + nb, n, np, hd, ldg, ld);
       mma_stage(nq + np * ld, k + nb, n, np, hd, ldg, ld);
-      mma_stage(nq + 2 * np * ld, v + nb, n, np, hd, ldg, ld);
+      mma_stage(nq + 2 * np * ld, v + (size_t)w1 * n * ldv + (size_t)h * hd, n, np, hd, ldv,
+                ld);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -82,8 +83,10 @@ FWD_BUFFERS = '''  bf16* sq = reinterpret_cast<bf16*>(sb + np * np);
   bf16* sv = sk + np * ld;'''
 FWD_BUFFERS_PREFETCH = '''  bf16* sq0 = reinterpret_cast<bf16*>(sb + np * np);'''
 FWD_WINDOW = '''    const size_t base = (size_t)w * n * ldg + (size_t)h * hd;
+    const size_t vbase = (size_t)w * n * ldv + (size_t)h * hd;
 '''
 FWD_WINDOW_PREFETCH = '''    const size_t base = (size_t)w * n * ldg + (size_t)h * hd;
+    const size_t vbase = (size_t)w * n * ldv + (size_t)h * hd;
     bf16* sq = sq0 + ((u - u0) & 1) * 3 * np * ld;
     bf16* sk = sq + np * ld;
     bf16* sv = sk + np * ld;
@@ -168,8 +171,8 @@ def fwd_variant(min_blocks=7, run=8, exact_exp=False, prefetch=False, no_tile=Fa
                    "    if (u == u0) mma_stage(sq, q + base, n, np, hd, ldg, ld);\n")
         src = edit(src, "    mma_stage(sk, k + base, n, np, hd, ldg, ld);\n",
                    "    if (u == u0) mma_stage(sk, k + base, n, np, hd, ldg, ld);\n")
-        src = edit(src, "    mma_stage(sv, v + base, n, np, hd, ldg, ld);\n",
-                   "    if (u == u0) mma_stage(sv, v + base, n, np, hd, ldg, ld);\n")
+        src = edit(src, "    mma_stage(sv, v + vbase, n, np, hd, ldv, ld);\n",
+                   "    if (u == u0) mma_stage(sv, v + vbase, n, np, hd, ldv, ld);\n")
     if no_compute:
         src = edit(src, "    mma_head_attention<NT, DT, true>(",
                    "    if (n < 0) mma_head_attention<NT, DT, true>(")
@@ -291,7 +294,8 @@ def main() -> int:
             return lib.mde_window_attention(
                 ptr, ptr + c * el, ptr + 2 * c * el, bias.data_ptr(),
                 None if mask is None else mask.data_ptr(), outs[0].data_ptr(), bw, n, c, heads,
-                3 * c, 0 if mask is None else mask.shape[0], (c // heads) ** -0.5, 1, stream)
+                3 * c, 3 * c, 0 if mask is None else mask.shape[0], (c // heads) ** -0.5, 1,
+                stream)
 
         compare(tag, fwd, call,
                 lambda: (torch.empty(bw, n, c, dtype=torch.bfloat16, device=dev),))
@@ -302,13 +306,15 @@ def main() -> int:
         bias = torch.randn(heads, n, n, generator=g, device=dev)
         qkv = torch.randn(bw, n, 3 * c, generator=g, device=dev).to(torch.bfloat16)
         dout = torch.randn(bw, n, c, generator=g, device=dev).to(torch.bfloat16)
+        el = qkv.element_size()
 
         def call(lib, outs):
             outs[1].zero_()  # dbias is summed into a zeroed buffer, as the wrapper does
+            q, dq = qkv.data_ptr(), outs[0].data_ptr()
             return lib.mde_window_attention_bwd(
-                qkv.data_ptr(), dout.data_ptr(), bias.data_ptr(), mask.data_ptr(),
-                outs[0].data_ptr(), outs[1].data_ptr(), bw, n, c, heads, mask.shape[0],
-                (c // heads) ** -0.5, 1, stream)
+                q, q + c * el, q + 2 * c * el, dout.data_ptr(), bias.data_ptr(),
+                mask.data_ptr(), dq, dq + c * el, dq + 2 * c * el, outs[1].data_ptr(), bw, n,
+                c, heads, 3 * c, 3 * c, mask.shape[0], (c // heads) ** -0.5, 1, stream)
 
         compare(tag + " (with dbias zeroing)", bwd, call,
                 lambda: (torch.empty_like(qkv), torch.zeros(heads, n, n, device=dev)))

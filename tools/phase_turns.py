@@ -2,9 +2,11 @@
 
     python3 tools/phase_turns.py OTHER_TREE [PHASE ...]
 
-Runs each checkout's own ``chip_smoke.py`` phase functions, each checkout in
-processes of its own (its kernels built from its own sources into its own
-``build/kernels/``), in the order other, this, this, other, and prints the
+Runs each checkout's own ``chip_smoke.py`` phase functions (K1 fwd and bwd
+at the flagship's stages 1 and 3, K3 dxdw and dw, K4, K5 fwd and bwd), each
+checkout in processes of its own (its kernels built from its own sources
+into its own ``build/kernels/``), in the order other, this, this, other,
+and prints the
 device ms of each phase per run and one JSON line of them all. OTHER_TREE
 is another checkout of the repo, e.g. the parent commit unpacked with
 ``git archive`` into ``chip_trees/``. PHASE names are keys of PHASES
@@ -20,7 +22,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 # phase name -> the chip_smoke call that runs it (dev: the card)
-PHASES = {"K4": "glu_phase(dev)", "K5 fwd": "channel_phase(dev, False)",
+PHASES = {"K1 stage 1": "window_phase('stage 1', 512 * cs.BATCH, 128, 4, 512, True, dev)",
+          "K1 stage 3": "window_phase('stage 3', 32 * cs.BATCH, 512, 16, 32, True, dev)",
+          "K1 bwd stage 1": "window_bwd_phase('stage 1', 512 * cs.TRAIN_BATCH, 128, 4, 512, dev)",
+          "K1 bwd stage 3": "window_bwd_phase('stage 3', 32 * cs.TRAIN_BATCH, 512, 16, 32, dev)",
+          "K4": "glu_phase(dev)", "K5 fwd": "channel_phase(dev, False)",
           "K5 bwd": "channel_phase(dev, True)",
           "K5 bwd stage 1": "channel_phase(dev, True, 128)",
           "K5 bwd stage 2": "channel_phase(dev, True, 256)",
