@@ -83,11 +83,29 @@
    ``Trainer.fit(max_steps=2)`` with one validation on the synthetic KITTI
    tree, its launches and its second step's img/s against the bare step's.
 
+9. The five ODA2 reduction siblings at full width (Swin-B, dec_dim 512, 8
+   heads; the ordered ones 3 repeats, num_emb 128, reduction ratio 8 or
+   window 8; the JAX builds' defaults otherwise): ``oda2_red_order_reg``
+   and ``_cls`` (reduction SAs, DWConv-GLU FFs on K3), ``oda2_red_order_swin``
+   (gen-1: bias-free window SAs on K2), ``oda2_red_reg`` (incremental
+   reduction SAs, PreNormFFs) and ``oda2_conv`` (PPM and conv pyramid).
+   For each: the f32 forward at batch 1 on 352x704 card against CPU (the
+   reg and gen-1 CPU runs fed the card's index maps); bf16 serving at batch
+   8 through ``Predictor`` with exact launches (K1 24, and K3 6 for reg and
+   cls, K2 6 bias-free for gen-1), timed and profiled, reg also with its
+   FFs fused (K1 24, K4 6); the bf16 train step at batch 4 with
+   ``use_checkpoint`` (K1 48 and 24 backward, and K3 6 / dxdw 6 or K2 6 /
+   bwd 6), timed and profiled. The f32 train step card against CPU at
+   224x448, batch 2, for ``oda2_red_order_reg`` and ``oda2_red_order_swin``.
+   K2's backward is also checked and timed bias-free at the gen-1 train
+   shape (1568, 64, 512)/8, one depth value, beside SDPA's backward.
+
 Any failure exits non-zero before the result lines. The last three lines
 are the card, the ``kernels`` JSON line and the ``ok`` JSON line. The
 ``kernels`` line takes the launches of K1, K2 and K3 and their backward
 kernels from the driver's ``fit``; K1's and K1 bwd's entries also carry
-NewCRFs' launches (``newcrfs_launches``).
+NewCRFs' launches (``newcrfs_launches``), the siblings' by model and path
+(``sibling_launches``).
 """
 
 from __future__ import annotations
@@ -202,6 +220,42 @@ NYU_HW = (480, 640)
 # crf0's token grid padded to whole 7x7 windows, by windows an image: 88x304
 # at the KB crop (572), 88x176 at the train crop 352x704 (338)
 CRF0_GRIDS = {572: (91, 308), 338: (91, 182)}
+# the five ODA2 reduction siblings at bench.py's decoder widths (bench.py:74-78)
+# with the name swapped and the JAX builds' defaults otherwise: Swin-B,
+# reduction ratio 8, window 8 (gen-1), use_checkpoint on the encoder only
+ORDERED_SIBLING = {"encoder_type": "base", "dec_dim": 512, "num_heads": 8, "num_repeats": 3,
+                   "num_emb": 128}
+SIBLINGS = {"oda2_red_order_reg": dict(ORDERED_SIBLING, name="oda2_red_order_reg"),
+            "oda2_red_order_cls": dict(ORDERED_SIBLING, name="oda2_red_order_cls"),
+            "oda2_red_order_swin": dict(ORDERED_SIBLING, name="oda2_red_order_swin"),
+            "oda2_red_reg": {"name": "oda2_red_reg", "encoder_type": "base", "dec_dim": 512,
+                             "num_heads": 8},
+            "oda2_conv": {"name": "oda2_conv", "encoder_type": "base", "dec_dim": 512}}
+# launches derived from the code: the 24 Swin-B blocks (K1); the reg and cls
+# heads' 3 blocks of 2 DWConv-GLU FFs (K3, or K4 when fused); gen-1's 3 blocks
+# of 2 bias-free window SAs (K2); the reduction SAs, PreNormFFs, PPM and convs
+# are PyTorch's. The train step recomputes the encoder (K1 48 forward).
+SIBLING_SERVE_LAUNCHES = {
+    "oda2_red_order_reg": {"window_attention": 24, "depthwise_conv2d": 6},
+    "oda2_red_order_cls": {"window_attention": 24, "depthwise_conv2d": 6},
+    "oda2_red_order_swin": {"window_attention": 24, "ordered_attention": 6},
+    "oda2_red_reg": {"window_attention": 24}, "oda2_conv": {"window_attention": 24}}
+SIBLING_FUSED_SERVE_LAUNCHES = {"window_attention": 24, "glu_ff": 6}
+ENCODER_TRAIN_LAUNCHES = {"window_attention": 48, "window_attention_bwd": 24}
+SIBLING_TRAIN_LAUNCHES = {
+    "oda2_red_order_reg": dict(ENCODER_TRAIN_LAUNCHES, depthwise_conv2d=6,
+                               depthwise_conv2d_dxdw=6),
+    "oda2_red_order_cls": dict(ENCODER_TRAIN_LAUNCHES, depthwise_conv2d=6,
+                               depthwise_conv2d_dxdw=6),
+    "oda2_red_order_swin": dict(ENCODER_TRAIN_LAUNCHES, ordered_attention=6,
+                                ordered_attention_bwd=6),
+    "oda2_red_reg": ENCODER_TRAIN_LAUNCHES, "oda2_conv": ENCODER_TRAIN_LAUNCHES}
+# the map shapes of one 352x704 image (resized to 448x896): the ordered heads'
+# 4 maps at 1/4 scale, red_reg's at 1/4 less 2 px, conv's at 1/2
+SIBLING_MAPS = {"oda2_red_order_reg": (4, (1, 112, 224, 1)),
+                "oda2_red_order_cls": (4, (1, 112, 224, 1)),
+                "oda2_red_order_swin": (4, (1, 112, 224, 1)),
+                "oda2_red_reg": (1, (1, 110, 222, 1)), "oda2_conv": (1, (1, 224, 448, 1))}
 # one eval forward of the flagship (no gradient, so nothing recomputes)
 EVAL_LAUNCHES = {"window_attention": 24, "ordered_attention": 6, "depthwise_conv2d": 6}
 # KITTI's test images after the KB-crop; the flagship resizes them to 448x1536
@@ -416,15 +470,16 @@ def window_indices(pattern: str, bw: int, e: int, g, dev) -> torch.Tensor:
     return base.expand(bw, 64).contiguous()
 
 
-def ordered_bwd_phase(dev, pattern: str = "uniform"):
-    """K2 backward, with the table, at the train step's shape, on indices of
-    ``pattern`` (``window_indices``)."""
+def ordered_bwd_phase(dev, pattern: str = "uniform", with_table: bool = True):
+    """K2 backward at the train step's shape: with the table, on indices of
+    ``pattern`` (``window_indices``), as the flagship runs it, or bias-free
+    with one depth value, as the gen-1 head (``oda2_red_order_swin``) does."""
     from mde_tpu_torch.ops.kernels.ordered_attention import (ordered_attention_bwd,
                                                              plain_ordered_attention_bwd)
     g = torch.Generator(device=dev).manual_seed(5)
-    bw, n, c, heads, e = 392 * TRAIN_BATCH, 64, 512, 8, 128
-    idx = window_indices(pattern, bw, e, g, dev)
-    table = torch.randn(2 * e - 1, heads, generator=g, device=dev)
+    bw, n, c, heads, e = 392 * TRAIN_BATCH, 64, 512, 8, 128 if with_table else 1
+    idx = window_indices(pattern, bw, e, g, dev) if with_table else None
+    table = torch.randn(2 * e - 1, heads, generator=g, device=dev) if with_table else None
 
     def make(dtype):
         q, k, v, dout = (torch.randn(bw, n, c, generator=g, device=dev).to(dtype)
@@ -443,7 +498,8 @@ def ordered_bwd_phase(dev, pattern: str = "uniform"):
     def cost(args, outs):
         return nbytes(*args[:6], *outs), 10 * bw * n * n * c
 
-    name = f"K2 bwd ({bw},{n},{c})/{heads} with table, {pattern} indices"
+    name = (f"K2 bwd ({bw},{n},{c})/{heads} "
+            + (f"with table, {pattern} indices" if with_table else "bias-free (gen-1)"))
     # with one index a window a dT entry sums many dS that cancel (each row of
     # dS sums to 0, so the exact dT is 0), and the f32 dT of both versions is
     # rounding of those sums in different orders: that pattern is checked in
@@ -640,6 +696,11 @@ def kernel_phase(kernel, name, fn, plain, make, library, cost, relative=False,
         err = 0.0
         tag = "f32" if dtype == torch.float32 else "bf16"
         for out, ref in zip(outs, refs):
+            if ref is None or out is None:  # an output the call does not make (dT bias-free)
+                if out is not ref:
+                    raise RuntimeError(f"{name}: the kernel and its plain version return "
+                                       f"different outputs")
+                continue
             e = (out.float() - ref.float()).abs().max().item()
             scale = max(1.0, ref.float().abs().max().item())
             tol = (F32_TOL * (scale if relative else 1.0) if dtype == torch.float32
@@ -670,21 +731,23 @@ def kernel_phase(kernel, name, fn, plain, make, library, cost, relative=False,
 
 
 class IndexReplay:
-    """Record the depth-index maps the flagship's head quantises on the
-    card, and hand the same maps to a later run (on the CPU, or on the card
-    along another path), counting where that run's own maps differ (a
-    bucket rounded the other way)."""
+    """Record the depth-index maps an ordered head quantises on the card
+    (the flagship's ``_quantize_logit``, or ``attr`` of ``module``, the
+    function that head calls), and hand the same maps to a later run (on
+    the CPU, or on the card along another path), counting where that run's
+    own maps differ (a bucket rounded the other way)."""
 
-    def __init__(self):
-        import mde_tpu_torch.models.oda2.red_order_swin2 as flagship
-        self.module, self.real = flagship, flagship._quantize_logit
+    def __init__(self, module=None, attr: str = "_quantize_logit"):
+        if module is None:
+            import mde_tpu_torch.models.oda2.red_order_swin2 as module
+        self.module, self.attr, self.real = module, attr, getattr(module, attr)
         self.card, self.flips = [], []
 
     def record(self):
         def quantize(logit, num_emb):
             self.card.append(self.real(logit, num_emb))
             return self.card[-1]
-        self.module._quantize_logit = quantize
+        setattr(self.module, self.attr, quantize)
 
     def replay(self):
         maps = iter(list(self.card))
@@ -693,10 +756,18 @@ class IndexReplay:
             own, card = self.real(logit, num_emb), next(maps).to(logit.device)
             self.flips.append(int((own != card).sum()))
             return card
-        self.module._quantize_logit = quantize
+        setattr(self.module, self.attr, quantize)
 
     def restore(self):
-        self.module._quantize_logit = self.real
+        setattr(self.module, self.attr, self.real)
+
+
+def sibling_replay() -> IndexReplay:
+    """The index replay of a sibling's quantising head (the reg and gen-1
+    heads share their loop, in ``red_order_reg``; the others quantise
+    nothing and replay no map)."""
+    import mde_tpu_torch.models.oda2.red_order_reg as reg
+    return IndexReplay(reg, "_logit_to_indices")
 
 
 def fuse_ffs(model) -> int:
@@ -1223,6 +1294,111 @@ def newcrfs_train_f32_check(dev) -> None:
     cpu = one_train_step("cpu", batch, NEWCRFS_TRAIN_OPT, path_drop_prob=0.0)
     log(f"{tag}: CPU step (plain versions) {time.perf_counter() - t0:.1f} s")
     compare_steps(tag, card, cpu)
+
+
+def sibling_maps(out) -> tuple:
+    """The depth maps of a sibling's output: the ordered heads' ``outs``,
+    else the one map."""
+    return tuple(out[1]) if isinstance(out[1], tuple) and out[1][0] is not None else (out[0],)
+
+
+def sibling_f32_check(dev, name: str, seed: int) -> None:
+    """A sibling's full-width f32 forward at batch 1 on 352x704: the card
+    against the CPU, the CPU fed the card's index maps (reg and gen-1)."""
+    from mde_tpu_torch.models import build_model
+    cfg = SIBLINGS[name]
+    x = torch.from_numpy(np.random.RandomState(seed).rand(1, 352, 704, 3).astype(np.float32))
+    replay = sibling_replay()
+    try:
+        replay.record()
+        model = build_model(cfg, 0.001, 80.0, device=dev, seed=0, use_checkpoint=False)
+        with torch.no_grad():
+            card = [m.cpu() for m in sibling_maps(model(x.to(dev)))]
+        torch.cuda.synchronize()
+        del model
+        free_garbage()
+        cpu_model = build_model(cfg, 0.001, 80.0, device="cpu", seed=0, use_checkpoint=False)
+        replay.replay()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            ref = sibling_maps(cpu_model(x))
+        log(f"{name} f32 CPU forward (plain versions): {time.perf_counter() - t0:.1f} s")
+    finally:
+        replay.restore()
+    count, shape = SIBLING_MAPS[name]
+    errs = [(a - b).abs().max().item() for a, b in zip(card, ref)]
+    log(f"{name} f32 batch 1 at 352x704 (resized to 448x896), card vs CPU: {count} maps of "
+        f"{shape}, max_abs_err per map {errs} m (tolerance {MODEL_F32_TOL}); index flips per "
+        f"repeat {replay.flips} (the CPU run was fed the card's indices)")
+    if (len(card) != count or any(tuple(m.shape) != shape or not torch.isfinite(m).all()
+                                  for m in card) or max(errs) > MODEL_F32_TOL):
+        raise RuntimeError(f"{name} f32 forward on the card disagrees with the CPU")
+
+
+def sibling_serve_run(dev, name: str, seed: int) -> dict:
+    """A sibling's bf16 serving at batch 8 through ``Predictor``, counted,
+    timed and profiled; ``oda2_red_order_reg`` also with its six FFs fused
+    (K4). Returns {"serving": launches[, "serving_fused": launches]}."""
+    from mde_tpu_torch.models import build_model
+    from mde_tpu_torch.serve import Predictor
+    model = build_model(SIBLINGS[name], 0.001, 80.0, device=dev, seed=0, dtype=torch.bfloat16)
+    predictor = Predictor(model)
+    images = torch.from_numpy(
+        np.random.RandomState(seed).rand(BATCH, 352, 704, 3).astype(np.float32)).to(dev)
+    tag = f"{name} bf16 batch {BATCH} (resized to 448x896)"
+    rate, counts = serve_run(tag, predictor, images, SIBLING_SERVE_LAUNCHES[name])
+    runs = {"serving": counts}
+    if name == "oda2_red_order_reg":
+        if fuse_ffs(model) != 6:
+            raise RuntimeError(f"{name} should hold six DWConv-GLU FFs")
+        fused, runs["serving_fused"] = serve_run(tag + " with fused FFs (K4)", predictor,
+                                                 images, SIBLING_FUSED_SERVE_LAUNCHES)
+        log(f"{name} bf16 batch {BATCH} serving: fused FFs {fused:.2f} img/s against the "
+            f"default {rate:.2f} img/s in this run")
+    del model, predictor, images
+    free_garbage()
+    return runs
+
+
+def sibling_train_f32_check(dev, name: str, seed: int) -> None:
+    """A sibling's full-width f32 train step at batch 2 on 224x448, the
+    card against the CPU (fed the card's index maps), stochastic depth and
+    recompute off."""
+    batch = train_batch(2, seed, hw=(224, 448))
+    opt = dict(TRAIN_OPT, model=SIBLINGS[name])
+    tag = f"{name} f32 train step batch 2 at 224x448"
+    replay = sibling_replay()
+    try:
+        replay.record()
+        card = one_train_step(dev, batch, opt, path_drop_prob=0.0, use_checkpoint=False)
+        torch.cuda.synchronize()
+        free_garbage()
+        replay.replay()
+        t0 = time.perf_counter()
+        cpu = one_train_step("cpu", batch, opt, path_drop_prob=0.0, use_checkpoint=False)
+        log(f"{tag}: CPU step (plain versions) {time.perf_counter() - t0:.1f} s; index flips "
+            f"per repeat {replay.flips} (the CPU run was fed the card's indices)")
+    finally:
+        replay.restore()
+    compare_steps(tag, card, cpu)
+
+
+def sibling_runs(dev) -> dict:
+    """Every phase of the five siblings. Returns {name: {path: launches}}."""
+    runs = {}
+    for i, name in enumerate(SIBLINGS):
+        sibling_f32_check(dev, name, 20 + i)
+        free_garbage()
+        runs[name] = sibling_serve_run(dev, name, 30 + i)
+        runs[name]["train_step"], _ = train_run(
+            f"{name} bf16 train step batch {TRAIN_BATCH} (resized to 448x896, "
+            f"use_checkpoint=True)", dict(TRAIN_OPT, model=SIBLINGS[name]), dev,
+            SIBLING_TRAIN_LAUNCHES[name], warmup=2, timed=3, profile=True)
+        free_garbage()
+    for i, name in enumerate(("oda2_red_order_reg", "oda2_red_order_swin")):
+        sibling_train_f32_check(dev, name, 40 + i)
+        free_garbage()
+    return runs
 
 
 def kernel_inputs(model) -> tuple:
@@ -1776,11 +1952,13 @@ def main() -> int:
                                      window_qk_v_bwd_phase("NewCRFs crf0",
                                                            338 * TRAIN_BATCH, 128, 4, 338,
                                                            dev)],
+            "ordered_attention_bwd": [ordered_bwd_phase(dev, with_table=False)],
             "depthwise_conv2d": [depthwise_phase(dev, TRAIN_BATCH)],
             "channel_attention": [channel_phase(dev, False, c) for c in (128, 256)],
             "channel_attention_bwd": [channel_phase(dev, True, c) for c in (128, 256)]}
     for p in (phases[1], phases[6], *more["window_attention"],
-              *more["window_attention_bwd"], phases[11], *more["channel_attention"],
+              *more["window_attention_bwd"], phases[4], phases[7],
+              *more["ordered_attention_bwd"], phases[11], *more["channel_attention"],
               phases[12], *more["channel_attention_bwd"]):
         log(f"{p['phase']}: {p['ms'] / p['library_ms']:.2f}x the SDPA yardstick, "
             f"{p['ms'] / p['bound_ms']:.2f}x the bound")
@@ -1820,6 +1998,8 @@ def main() -> int:
         entries=NEWCRFS_TRAIN_ENTRIES)
     free_garbage()
     newcrfs_fit_counts = newcrfs_driver_run(dev, card, newcrfs_rate)
+    free_garbage()
+    siblings = sibling_runs(dev)
 
     # the line reports each kernel at its main-path shape in bf16 (K1 at
     # stage 1 with the shift mask, K2 with the table) and its launches in
@@ -1842,6 +2022,12 @@ def main() -> int:
         "train_step": newcrfs_counts["window_attention_bwd"],
         "fit": newcrfs_fit_counts["window_attention_bwd"],
         "qk_v_entry": {"train_step": NEWCRFS_TRAIN_ENTRIES["window_attention_qk_v_bwd"]}}}
+    # each kernel's launches on the siblings' paths, where it has any
+    sibling_launches = {name: {model: {path: counts[name] for path, counts in runs.items()
+                                       if counts[name]}
+                               for model, runs in siblings.items()} for name in report}
+    sibling_launches = {name: {m: v for m, v in by_model.items() if v}
+                        for name, by_model in sibling_launches.items()}
     line = {"kernels": [dict({
         "name": name, "route": "cuda", "source": SOURCES[name][0],
         "replaces": SOURCES[name][1], "launches": paths[name][1][name],
@@ -1851,6 +2037,7 @@ def main() -> int:
         **{k: p[k] for k in ("library", "unfused_chain_ms", "one_bucket_ms", "body") if k in p},
         **build.get(name, {}),
         **({"newcrfs_launches": newcrfs[name]} if name in newcrfs else {}),
+        **({"sibling_launches": sibling_launches[name]} if sibling_launches[name] else {}),
         **({"other_shapes": [{k: q[k] for k in ("phase", "ms", "library_ms", "bound_ms",
                                                  "plain_ms", "host_ms", "max_abs_err_bf16")}
                              for q in more[name]]} if name in more else {}))

@@ -4,7 +4,9 @@
 JAX model the port has (arrays of any kind numpy can read) into the port's
 ``state_dict``: the inverse of the JAX package's torch -> flax converters
 (``convert_oda2_red_order_swin2``, ``convert_oda2_ksa_decoder``,
-``convert_newcrfs_model``), written without importing the JAX package.
+``convert_newcrfs_model``, ``convert_oda2_red_order_decoder``,
+``convert_oda2_red_order_swin_decoder``, ``convert_oda2_red_decoder``,
+``convert_oda2_conv_decoder``), written without importing the JAX package.
 
 Layouts: dense (in, out) -> (out, in); conv HWIO -> OIHW; depthwise
 (kh, kw, C) -> (C, 1, kh, kw); flax BN scale/bias/mean/var ->
@@ -69,17 +71,42 @@ def _flagship_segment(seg: str, num_repeats: int, output_scale: int) -> str:
     return seg
 
 
+def _ppm_segment(seg: str) -> str:
+    """A segment of the V2 pyramid pooling module's tree in the port's names."""
+    if m := re.fullmatch(r"reduce(\d+)_(conv|bn)", seg):
+        return f"conv_reduce_layers.{m.group(1)}.{0 if m.group(2) == 'conv' else 1}"
+    return {"out_conv": "conv.0", "out_bn": "conv.1"}.get(seg, seg)
+
+
 def _ksa_segment(seg: str, parent: str) -> str:
     """A decoder segment of ``oda2_ksa_reg``'s tree in the port's names."""
     if m := re.fullmatch(r"layers(\d+)_blocks(\d+)", seg):
         return f"layers.{m.group(1)}.blocks.{m.group(2)}"
     if m := re.fullmatch(r"layers(\d+)_up", seg):
         return f"layers.{m.group(1)}.upsample"
-    if parent == "ppm32":
-        if m := re.fullmatch(r"reduce(\d+)_(conv|bn)", seg):
-            return f"conv_reduce_layers.{m.group(1)}.{0 if m.group(2) == 'conv' else 1}"
-        return {"out_conv": "conv.0", "out_bn": "conv.1"}.get(seg, seg)
-    return seg
+    return _ppm_segment(seg) if parent == "ppm32" else seg
+
+
+def _sibling_segment(seg: str, parent: str) -> str:
+    """A decoder segment of the ODA2 siblings' trees (``oda2_red_order_reg``
+    and ``_cls``, ``oda2_red_order_swin``, ``oda2_red_reg``, ``oda2_conv``)
+    in the port's names: their necks' modules sit at the decoder's top
+    level ("" drops the ``neck`` segment); ``de_ff{0,1}`` are the
+    reference's ``de_ff.{0,3}``; ``out_conv{j}`` and ``block2_out`` Sequential
+    slots; the conv decoder's ``block{L}_2`` follows the upsample at index
+    2; the head's ``conv{i}_{j}`` and ``attn{i}`` as the flagship's."""
+    if seg == "neck":
+        return ""
+    if parent == "ppm":
+        return _ppm_segment(seg)
+    if m := re.fullmatch(r"de_ff(\d)", seg):
+        return f"de_ff.{3 * int(m.group(1))}"
+    if m := re.fullmatch(r"out_conv(\d)", seg):
+        return f"out_conv.{m.group(1)}"
+    if m := re.fullmatch(r"block(\d+)_(\d|out)", seg):
+        j = 1 if m.group(2) == "out" else int(m.group(2))
+        return f"block{m.group(1)}.{3 if j == 2 else j}"
+    return _flagship_segment(seg, num_repeats=0, output_scale=4)
 
 
 def _is_newcrfs(paths) -> bool:
@@ -113,7 +140,8 @@ def _rename(path: Path, segment: Callable[[str, str], str], convbn: bool) -> str
             seg = f"layers.{seg[6:]}"
         elif path[0] == "decoder":
             seg = segment(seg, parent)
-        segs.append(seg)
+        if seg:
+            segs.append(seg)
     if convbn and segs and segs[-1] == "norm":
         segs[-1] = "bn"
     leaf = {"kernel": "weight", "scale": "weight", "mean": "running_mean",
@@ -122,6 +150,8 @@ def _rename(path: Path, segment: Callable[[str, str], str], convbn: bool) -> str
 
 
 def _leaf(path: Path, arr: np.ndarray) -> np.ndarray:
+    if path[-1] == "depth_bins":  # the reference's NCHW broadcast shape
+        return arr.reshape(1, -1, 1, 1)
     if path[-1] != "kernel":
         return arr
     if arr.ndim == 2:
@@ -141,25 +171,42 @@ def _is_ksa(paths) -> bool:
                and re.fullmatch(r"ppm32|layers\d+_(blocks\d+|up)", p[1]) for p in paths)
 
 
+def _is_sibling(paths) -> bool:
+    """Whether a tree is one of the ODA2 siblings': its decoder holds a
+    ``neck`` (the reduction decoders) or a ``ppm`` (``oda2_conv``), which
+    the flagship's and the KSA decoder's never do."""
+    return any(len(p) > 1 and p[0] == "decoder" and p[1] in ("neck", "ppm") for p in paths)
+
+
+def _family(paths) -> str:
+    if _is_newcrfs(paths):
+        return "newcrfs"
+    if _is_ksa(paths):
+        return "ksa"
+    return "sibling" if _is_sibling(paths) else "flagship"
+
+
 def from_jax_variables(variables: Mapping, output_scale: int = 4) -> Dict[str, torch.Tensor]:
     """JAX model variables -> the port's state dict (load it with
     ``model.load_state_dict``, which checks every name and shape).
 
-    The tree is the flagship's ``ODA2OrderedSwin2RegModel``,
-    ``ODA2KSARegModel`` or ``NewCRFDepth``, told apart by the KSA decoder's
-    and the CRF stages' own segments. ``output_scale`` must be the
-    flagship's: at 2 its last conv head starts with a parameter-free
-    upsample that shifts its indices."""
+    The tree's layout is told from its segments: the KSA decoder's, the CRF
+    stages', the siblings' ``neck`` or ``ppm``, else the flagship's. ``output_scale``
+    must be the flagship's: at 2 its last conv head starts with a
+    parameter-free upsample that shifts its indices."""
     params = _flatten(variables["params"])
     stats = _flatten(variables.get("batch_stats", {}))
-    newcrfs = _is_newcrfs(list(params) + list(stats))
-    if newcrfs:
+    paths = list(params) + list(stats)
+    family = _family(paths)
+    if family == "newcrfs":
         def segment(seg, parent):
             return seg
-    elif _is_ksa(list(params) + list(stats)):
+    elif family == "ksa":
         segment = _ksa_segment
+    elif family == "sibling":
+        segment = _sibling_segment
     else:
-        if any("repeat" in path for path in list(params) + list(stats)):
+        if any("repeat" in path for path in paths):
             raise ValueError("the head is in the nn.scan layout (params under repeat/); "
                              "convert it to the unrolled layout first with "
                              "mde_tpu.core.checkpoint.migrate_head_layout(variables, "
@@ -170,7 +217,7 @@ def from_jax_variables(variables: Mapping, output_scale: int = 4) -> Dict[str, t
         def segment(seg, parent):
             return _flagship_segment(seg, num_repeats, output_scale)
     params, stats = _unstack_blocks(params), _unstack_blocks(stats)
-    if newcrfs:
+    if family == "newcrfs":
         params = {_newcrfs_path(p): a for p, a in params.items()}
         stats = {_newcrfs_path(p): a for p, a in stats.items()}
     out: Dict[str, torch.Tensor] = {}

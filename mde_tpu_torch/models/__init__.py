@@ -10,17 +10,27 @@ backward pass), ``path_drop_prob`` (the encoder's stochastic depth).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Union
 
 import torch
 
 from ..ops.init import init_weights
 from .newcrfs.model import NewCRFDepth
+from .oda2.conv import ODA2ConvModel
 from .oda2.ksa import ODA2KSARegModel
+from .oda2.red_order_reg import ODA2OrderedRegModel
+from .oda2.red_order_swin import ODA2OrderedSwinModel
 from .oda2.red_order_swin2 import ODA2OrderedSwin2RegModel
+from .oda2.red_reg import ODA2RedRegModel
 
-_REGISTRY = {"oda2_red_order_swin2": ODA2OrderedSwin2RegModel, "oda2_ksa_reg": ODA2KSARegModel,
-             "newcrfs": NewCRFDepth}
+# name -> build(model_opt, min_depth, max_depth, **overrides)
+_REGISTRY = {"oda2_red_order_swin2": ODA2OrderedSwin2RegModel.build,
+             "oda2_ksa_reg": ODA2KSARegModel.build, "newcrfs": NewCRFDepth.build,
+             "oda2_red_order_reg": ODA2OrderedRegModel.build,
+             "oda2_red_order_cls": functools.partial(ODA2OrderedRegModel.build, cls_head=True),
+             "oda2_red_order_swin": ODA2OrderedSwinModel.build,
+             "oda2_red_reg": ODA2RedRegModel.build, "oda2_conv": ODA2ConvModel.build}
 
 
 def available_models():
@@ -47,6 +57,6 @@ def build_model(opt, min_depth: float, max_depth: float,
         raise NotImplementedError(
             f"Model {name!r} is not ported yet (ported: {available_models()}); "
             f"see ROADMAP.md Queue 1 for the order of the rest")
-    model = _REGISTRY[name].build(model_opt, min_depth, max_depth, **overrides)
+    model = _REGISTRY[name](model_opt, min_depth, max_depth, **overrides)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval()

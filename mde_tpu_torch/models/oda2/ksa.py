@@ -26,18 +26,17 @@ import torch
 from torch import nn
 
 from ...ops.attention import WindowAttention
-from ...ops.conv import ConvBN
+from ...ops.conv import ConvBN, ValidConv
 from ...ops.drop import DropPath
 from ...ops.kernels.channel_attention import channel_attention
 from ...ops.mlp import SwinMLP
 from ...ops.pad import pad_to_multiple
 from ...ops.ppm import PyramidPoolingModule
-from ...ops.resize import resize_bilinear
-from ...ops.tnn import LayerNorm, Linear, conv2d_nhwc
+from ...ops.tnn import LayerNorm, Linear
 from ...ops.window import (cyclic_shift, shifted_window_attn_mask, window_partition,
                            window_reverse)
-from ..swin import SwinBlock, SwinTransformer, swin_base, swin_large
-from .red_order_swin2 import _resize_policy
+from ..swin import SwinBlock
+from .base import SwinDepthModel
 
 
 class KernelWindowAttention(nn.Module):
@@ -195,7 +194,7 @@ class KSATransformerRegDecoder(nn.Module):
             self.layers.append(KSAStage(blocks, PatchUnMerging(nf[i], bn_eps) if i else None))
         out_ch = min(nf[0], 128)
         self.dec_conv4 = ConvBN(nf[0], out_ch, 3, bn_eps)
-        self.out_conv = nn.Conv2d(out_ch, 1, 3)
+        self.out_conv = ValidConv(out_ch, 1, 3)
 
     def forward(self, features: Sequence[torch.Tensor],
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -204,11 +203,11 @@ class KSATransformerRegDecoder(nn.Module):
         x = self.layers[2](x, self.enc_conv16(e16), generator)
         x = self.layers[1](x, self.enc_conv8(e8), generator)
         x = self.layers[0](x, self.enc_conv4(e4), generator)
-        out = conv2d_nhwc(self.dec_conv4(x), self.out_conv.weight, self.out_conv.bias)
+        out = self.out_conv(self.dec_conv4(x))
         return torch.sigmoid(out.float())
 
 
-class ODA2KSARegModel(nn.Module):
+class ODA2KSARegModel(SwinDepthModel):
     """Swin encoder + KSA decoder. ``forward`` takes (B, H, W, 3) f32
     images and returns ``(depth, None)``: one f32 map at 1/4 scale less 2
     px, ``sigmoid * (max_depth - min_depth) + min_depth``. Activations run
@@ -226,22 +225,8 @@ class ODA2KSARegModel(nn.Module):
                  bn_eps: float = 1e-5, use_checkpoint: bool = True,
                  dtype: torch.dtype = torch.float32, resize_to_multiple: bool = True,
                  encoder_kwargs: Optional[dict] = None):
-        super().__init__()
-        self.min_depth = min_depth
-        self.max_depth = max_depth
-        self.dtype = dtype
-        self.resize_to_multiple = resize_to_multiple
-        kwargs = dict(window_size=7, path_drop_prob=path_drop_prob,
-                      use_checkpoint=use_checkpoint)
-        kwargs.update(encoder_kwargs or {})
-        if encoder_type in ("base", "B"):
-            self.encoder = swin_base(**kwargs)
-        elif encoder_type in ("large", "L"):
-            self.encoder = swin_large(**kwargs)
-        elif encoder_type == "custom":
-            self.encoder = SwinTransformer(**kwargs)
-        else:
-            raise ValueError(f"Unsupported encoder type {encoder_type}.")
+        super().__init__(min_depth, max_depth, encoder_type, path_drop_prob, use_checkpoint,
+                         dtype, resize_to_multiple, encoder_kwargs)
         self.decoder = KSATransformerRegDecoder(
             self.encoder.num_features, dec_dim, depths, dec_num_heads, window_size,
             ppm_proj=min(512, dec_dim), attn_drop_prob=attn_drop_prob, drop_prob=drop_prob,
@@ -249,9 +234,7 @@ class ODA2KSARegModel(nn.Module):
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, None]:
-        if self.resize_to_multiple:
-            x = resize_bilinear(x, _resize_policy(x.shape[1], x.shape[2], self.max_depth))
-        out = self.decoder(self.encoder(x.to(self.dtype), generator), generator)
+        out = self.decoder(self.features(x, generator), generator)
         return out * (self.max_depth - self.min_depth) + self.min_depth, None
 
     @classmethod

@@ -26,9 +26,9 @@ from ...ops.conv import Conv1x1, ConvBN
 from ...ops.mlp import PreNormDWConvFF
 from ...ops.ordered_attention import PreNormOrderedSwinSA
 from ...ops.remat import checkpoint
-from ...ops.resize import resize_bilinear, upsample2d
+from ...ops.resize import upsample2d
 from ...ops.tnn import LayerNorm, Linear
-from ..swin import SwinTransformer, swin_base, swin_large
+from .base import SwinDepthModel, Upsample2d
 
 NECK_TYPES = ("red", "fpn", "segformer", "red33", "red33r", "red33res")
 
@@ -73,17 +73,6 @@ def _conv_head(in_dims: int, upsample: bool, bn_eps: float) -> nn.Sequential:
                ConvBN(in_dims // 4, in_dims // 4, 3, bn_eps),
                Conv1x1(in_dims // 4, 1, bias=False)]
     return nn.Sequential(*layers)
-
-
-class Upsample2d(nn.Module):
-    """Parameter-free bilinear x``scale`` upsample (align_corners)."""
-
-    def __init__(self, scale: int):
-        super().__init__()
-        self.scale = scale
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return upsample2d(x, self.scale)
 
 
 class OrderedSwinRegHead(nn.Module):
@@ -191,20 +180,7 @@ class OrderedSwin2RegDecoder(nn.Module):
         return self.reducer(self.dec_norm(self.dec_linear(dec)))
 
 
-def _resize_policy(h: int, w: int, max_depth: float) -> Tuple[int, int]:
-    """Input resize: KITTI (352, 704) -> (448, 896), (352, 1216) ->
-    (448, 1536); NYU (480, 640) and (448, 608) -> (448, 672); otherwise each
-    side to a multiple of 224 (ceil when max_depth > 40, else round)."""
-    known = {(352, 704): (448, 896), (352, 1216): (448, 1536),
-             (480, 640): (448, 672), (448, 608): (448, 672)}
-    if (h, w) in known:
-        return known[(h, w)]
-    if max_depth > 40:
-        return (max(224, -(-h // 224) * 224), max(224, -(-w // 224) * 224))
-    return (max(224, round(h / 224) * 224), max(224, round(w / 224) * 224))
-
-
-class ODA2OrderedSwin2RegModel(nn.Module):
+class ODA2OrderedSwin2RegModel(SwinDepthModel):
     """The flagship: Swin encoder + ordered decoder. ``forward`` takes
     (B, H, W, 3) f32 images and returns ``(out, outs)``: the last depth map
     and all ``num_repeats + 1`` maps, f32, scaled by ``max_depth``.
@@ -222,31 +198,15 @@ class ODA2OrderedSwin2RegModel(nn.Module):
                  bn_eps: float = 1e-5, path_drop_prob: float = 0.2,
                  dtype: torch.dtype = torch.float32, resize_to_multiple: bool = True,
                  encoder_kwargs: Optional[dict] = None, use_checkpoint: bool = True):
-        super().__init__()
-        self.min_depth = min_depth
-        self.max_depth = max_depth
-        self.dtype = dtype
-        self.resize_to_multiple = resize_to_multiple
-        kwargs = dict(window_size=7, path_drop_prob=path_drop_prob,
-                      use_checkpoint=use_checkpoint)
-        kwargs.update(encoder_kwargs or {})
-        if encoder_type in ("base", "B"):
-            self.encoder = swin_base(**kwargs)
-        elif encoder_type in ("large", "L"):
-            self.encoder = swin_large(**kwargs)
-        elif encoder_type == "custom":
-            self.encoder = SwinTransformer(**kwargs)
-        else:
-            raise ValueError(f"Unsupported encoder type {encoder_type}.")
+        super().__init__(min_depth, max_depth, encoder_type, path_drop_prob, use_checkpoint,
+                         dtype, resize_to_multiple, encoder_kwargs)
         self.decoder = OrderedSwin2RegDecoder(
             self.encoder.num_features, dec_dim, num_heads, num_repeats, num_emb, window_size,
             output_scale, bias_type, bias_init, neck_type, bn_eps, use_checkpoint)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
-        if self.resize_to_multiple:
-            x = resize_bilinear(x, _resize_policy(x.shape[1], x.shape[2], self.max_depth))
-        outs = self.decoder(self.encoder(x.to(self.dtype), generator))
+        outs = self.decoder(self.features(x, generator))
         outs = tuple(o.float() * self.max_depth for o in outs)
         return outs[-1], outs
 

@@ -206,3 +206,15 @@ def swin_tiny(**kwargs) -> SwinTransformer:
     kwargs.setdefault("depths", (2, 2, 6, 2))
     kwargs.setdefault("num_heads", (3, 6, 12, 24))
     return SwinTransformer(**kwargs)
+
+
+def swin_encoder(encoder_type: str, **kwargs) -> SwinTransformer:
+    """The encoder that an ODA2 model's ``encoder_type`` names: ``base``
+    (``B``), ``large`` (``L``) or ``custom`` (every field from ``kwargs``)."""
+    if encoder_type in ("base", "B"):
+        return swin_base(**kwargs)
+    if encoder_type in ("large", "L"):
+        return swin_large(**kwargs)
+    if encoder_type == "custom":
+        return SwinTransformer(**kwargs)
+    raise ValueError(f"Unsupported encoder type {encoder_type}.")

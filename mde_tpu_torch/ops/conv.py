@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+from typing import Callable, Optional
+
 import torch
 from torch import nn
 
@@ -11,30 +13,37 @@ from .tnn import BatchNorm, conv2d_nhwc, gelu
 
 class ConvBN(nn.Module):
     """Replicate pad -> bias-free k x k conv -> BatchNorm (batch statistics
-    in training, running ones in eval) -> GELU. Names match the reference's
-    ``{conv, bn}``."""
+    in training, running ones in eval) -> ``act`` (GELU, or none). Names
+    match the reference's ``{conv, bn}``; ``bn_momentum`` is torch's."""
 
-    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3, bn_eps: float = 1e-5):
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3, bn_eps: float = 1e-5,
+                 act: Optional[Callable[[torch.Tensor], torch.Tensor]] = gelu,
+                 bn_momentum: float = 0.1):
         super().__init__()
         if kernel_size % 2 != 1:
             raise ValueError("ConvBN takes odd kernels only")
+        self.act = act
         self.conv = nn.Conv2d(in_ch, out_ch, kernel_size, bias=False)
-        self.bn = BatchNorm(out_ch, eps=bn_eps)
+        self.bn = BatchNorm(out_ch, eps=bn_eps, momentum=bn_momentum)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         p = self.conv.kernel_size[0] // 2
-        x = conv2d_nhwc(pad2d(x, p, p, p, p, mode="edge"), self.conv.weight)
-        return gelu(self.bn(x))
+        x = self.bn(conv2d_nhwc(pad2d(x, p, p, p, p, mode="edge"), self.conv.weight))
+        return x if self.act is None else self.act(x)
 
 
-class Conv1x1(nn.Conv2d):
+class ValidConv(nn.Conv2d):
+    """k x k VALID conv on NHWC input, in the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv2d_nhwc(x, self.weight, self.bias)
+
+
+class Conv1x1(ValidConv):
     """1x1 conv on NHWC input, in the input's dtype."""
 
     def __init__(self, in_ch: int, out_ch: int, bias: bool):
         super().__init__(in_ch, out_ch, 1, bias=bias)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv2d_nhwc(x, self.weight, self.bias)
 
 
 class ZeroPadConv(nn.Conv2d):

@@ -54,8 +54,11 @@ class DropPath(nn.Module):
 
 class Dropout(nn.Module):
     """Element-wise dropout as flax's ``nn.Dropout``: each element kept with
-    probability ``1 - rate`` and divided by it, or zeroed; the identity in
-    eval mode or at rate 0 (every rate on the flagship's path is 0)."""
+    probability ``keep = 1 - rate`` and divided by ``keep`` rounded to its
+    dtype (flax divides by the weak-typed scalar), or zeroed; the identity
+    in eval mode or at rate 0. ``keep`` is filled on x's device, so the
+    division is a true one there too (a host scalar would make CUDA
+    multiply by its f32 reciprocal) and no copy waits on the host."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
@@ -66,5 +69,5 @@ class Dropout(nn.Module):
         if not self.training or self.rate == 0:
             return x
         keep = _keep_mask(x.shape, self.rate, generator, x.device)
-        return torch.where(keep, x / (1.0 - self.rate), torch.zeros((), dtype=x.dtype,
-                                                                      device=x.device))
+        keep_prob = torch.full((), 1.0 - self.rate, dtype=x.dtype, device=x.device)
+        return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))

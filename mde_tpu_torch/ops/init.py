@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -43,6 +44,14 @@ def depth_embedding_init(num_emb: int, num_heads: int, mode: str,
         return torch.empty(2 * num_emb - 1, num_heads).uniform_(-0.05, 0.05,
                                                                 generator=generator)
     raise ValueError(f"Unsupported bias init {mode}.")
+
+
+def depth_bins_init(num_emb: int) -> torch.Tensor:
+    """The cls head's (num_emb,) learnable depth bins as JAX starts them
+    (``mde_tpu/models/oda2/red_order_reg.py:211-218``): 0.001, then
+    exp(linspace(-10, 0, num_emb - 1)) without its last value, then 0.999."""
+    bins = np.exp(np.linspace(-10.0, 0.0, num_emb - 1)[:-1]).tolist()
+    return torch.tensor([0.001] + bins + [0.999], dtype=torch.float32)
 
 
 @torch.no_grad()

@@ -8,6 +8,7 @@ import torch
 from torch import nn
 
 from .depthwise import DepthwiseConv2d
+from .drop import Dropout
 from .kernels.glu_ff import glu_ff
 from .tnn import BatchNorm, LayerNorm, Linear, bn_use_running_average, gelu
 
@@ -24,10 +25,29 @@ class SwinMLP(nn.Module):
         return self.fc2(gelu(self.fc1(x)))
 
 
+class PreNormFF(nn.Module):
+    """Pre-norm residual FF: LN -> lin1 -> GELU -> dropout -> lin2 ->
+    dropout -> residual (``mde_tpu/ops/mlp.py:88-108``)."""
+
+    def __init__(self, dim: int, feedforward_dims: Optional[int] = None,
+                 drop_prob: float = 0.0):
+        super().__init__()
+        hidden = feedforward_dims or 4 * dim
+        self.norm = LayerNorm(dim)
+        self.lin1 = Linear(dim, hidden)
+        self.lin2 = Linear(hidden, dim)
+        self.drop = Dropout(drop_prob)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        y = self.drop(gelu(self.lin1(self.norm(x))), generator)
+        return self.drop(self.lin2(y), generator) + x
+
+
 class PreNormDWConvFF(nn.Module):
     """Pre-norm GLU + depthwise-conv feed-forward on (B, H, W, C):
     LN -> lin1 -> a * sigmoid(b) -> 5x5 depthwise conv (kernel K3) ->
-    BN -> GELU -> lin3 -> residual (``mde_tpu/ops/mlp.py:111-202``).
+    BN -> GELU -> lin3 -> dropout -> residual (``mde_tpu/ops/mlp.py:111-202``).
 
     ``ff_impl``: ``"auto"`` (the default) keeps this unfused path, the JAX
     module's default. ``"fused"`` (JAX's ``'pallas'``) runs gate, conv,
@@ -41,17 +61,20 @@ class PreNormDWConvFF(nn.Module):
     FF_IMPLS = ("auto", "fused")
 
     def __init__(self, dim: int, feedforward_dims: Optional[int] = None,
-                 kernel_size: int = 5, bn_eps: float = 1e-5, ff_impl: str = "auto"):
+                 kernel_size: int = 5, bn_eps: float = 1e-5, ff_impl: str = "auto",
+                 drop_prob: float = 0.0, bn_momentum: float = 0.1):
         super().__init__()
         hidden = feedforward_dims or 4 * dim
         self.ff_impl = ff_impl
         self.norm = LayerNorm(dim)
         self.lin1 = Linear(dim, 2 * hidden)
         self.conv2 = DepthwiseConv2d(hidden, kernel_size)
-        self.bn2 = BatchNorm(hidden, eps=bn_eps)
+        self.bn2 = BatchNorm(hidden, eps=bn_eps, momentum=bn_momentum)
         self.lin3 = Linear(hidden, dim)
+        self.drop = Dropout(drop_prob)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.ff_impl not in self.FF_IMPLS:
             raise ValueError(f"ff_impl {self.ff_impl!r}: expected one of {self.FF_IMPLS}")
         ab = self.lin1(self.norm(x))
@@ -63,4 +86,4 @@ class PreNormDWConvFF(nn.Module):
         else:
             a, b = ab.chunk(2, dim=-1)
             y = gelu(self.bn2(self.conv2((a * torch.sigmoid(b)).contiguous())))
-        return self.lin3(y) + x
+        return self.drop(self.lin3(y), generator) + x

@@ -3,9 +3,12 @@
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
+from .drop import Dropout
 from .init import depth_embedding_init
 from .kernels.ordered_attention import ordered_attention
 from .tnn import LayerNorm, Linear
@@ -18,13 +21,21 @@ class PreNormOrderedSwinSA(nn.Module):
     ``x``: (B, H, W, C); ``indices``: (B, H, W) integer depth indices in
     [0, num_emb). The logits of each window get ``depth_embedding[i_q - i_k
     + num_emb - 1, head]``. The shifted variant rolls both x and the indices
-    and applies no shift mask, as the reference does."""
+    and applies no shift mask, as the reference does. ``bias_type="none"``
+    (the gen-1 head) holds no table and takes no indices.
+
+    ``drop_prob`` drops ``o_proj``'s output (``mde_tpu/ops/ordered_attention.py:146``).
+    With ``attn_drop_prob`` > 0 in training JAX leaves the kernel for its
+    einsum path; the port does not have that path and raises there."""
 
     def __init__(self, dim: int, num_heads: int, num_emb: int, window_size: int = 8,
-                 shift_size: int = 0, bias_type: str = "depth", bias_init: str = "linear"):
+                 shift_size: int = 0, bias_type: str = "depth", bias_init: str = "linear",
+                 attn_drop_prob: float = 0.0, drop_prob: float = 0.0):
         super().__init__()
         if bias_type not in ("depth", "none"):
             raise NotImplementedError(f"bias_type {bias_type!r}")
+        self.attn_drop_prob = attn_drop_prob
+        self.drop = Dropout(drop_prob)
         self.num_heads = num_heads
         self.num_emb = num_emb
         self.window_size = window_size
@@ -43,7 +54,12 @@ class PreNormOrderedSwinSA(nn.Module):
             self.depth_embedding.data.copy_(depth_embedding_init(
                 self.num_emb, self.num_heads, self.bias_init, generator))
 
-    def forward(self, x: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, indices: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.training and self.attn_drop_prob > 0:
+            raise NotImplementedError(
+                "attention dropout in training (JAX's einsum path) is not ported; "
+                "attn_drop_prob must be 0 to train")
         b, h, w, c = x.shape
         r, s = self.window_size, self.shift_size
         identity = x
@@ -56,5 +72,5 @@ class PreNormOrderedSwinSA(nn.Module):
             idx = window_partition(indices.to(torch.int32), r)[..., 0].contiguous()
         out = ordered_attention(q, k, v, idx, self.depth_embedding, self.num_heads,
                                 (c // self.num_heads) ** -0.5, self.num_emb)
-        out = window_reverse(self.o_proj(out), r, h, w)
+        out = window_reverse(self.drop(self.o_proj(out), generator), r, h, w)
         return cyclic_unshift(out, s) + identity

@@ -35,14 +35,16 @@ class PyramidPoolingModule(nn.Module):
     BatchNorm -> GELU."""
 
     def __init__(self, in_ch: int, proj_ch: int, out_ch: int,
-                 spatial_sizes: Sequence[int] = (1, 2, 3, 6), bn_eps: float = 1e-5):
+                 spatial_sizes: Sequence[int] = (1, 2, 3, 6), bn_eps: float = 1e-5,
+                 bn_momentum: float = 0.1):
         super().__init__()
         self.spatial_sizes = tuple(spatial_sizes)
+        bn = dict(eps=bn_eps, momentum=bn_momentum)
         self.conv_reduce_layers = nn.ModuleList(
-            nn.Sequential(Conv1x1(in_ch, proj_ch, bias=False), BatchNorm(proj_ch, eps=bn_eps))
+            nn.Sequential(Conv1x1(in_ch, proj_ch, bias=False), BatchNorm(proj_ch, **bn))
             for _ in self.spatial_sizes)
         self.conv = nn.Sequential(EdgeConv3x3(in_ch + len(self.spatial_sizes) * proj_ch, out_ch),
-                                  BatchNorm(out_ch, eps=bn_eps))
+                                  BatchNorm(out_ch, **bn))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, w = x.shape[1], x.shape[2]

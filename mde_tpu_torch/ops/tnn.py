@@ -31,10 +31,16 @@ class Linear(nn.Linear):
 
 
 class LayerNorm(nn.LayerNorm):
-    """LayerNorm over the last dim, eps 1e-5, in the input's dtype."""
+    """LayerNorm over the last dim, eps 1e-5, in the input's dtype. Its
+    scale starts at ``scale_init`` (flax's ``scale_init`` constant)."""
 
-    def __init__(self, dim: int, eps: float = 1e-5):
+    def __init__(self, dim: int, eps: float = 1e-5, scale_init: float = 1.0):
+        self.scale_init = scale_init
         super().__init__(dim, eps=eps)
+
+    def reset_parameters(self) -> None:
+        super().reset_parameters()
+        nn.init.constant_(self.weight, self.scale_init)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.layer_norm(x, self.normalized_shape, self.weight.to(x.dtype),

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import mde_tpu_torch.models.oda2.red_order_reg as red_order_reg
 import mde_tpu_torch.models.oda2.red_order_swin2 as flagship
 from mde_tpu_torch.models import build_model
 from mde_tpu_torch.ops import kernels
@@ -210,13 +211,14 @@ def test_window_attention_kernels_refuse_misaligned_bf16_views(cuda):
 
 
 # (n, heads, channels, num_emb, every index of a window equal): the
-# flagship's window; 49 tokens at head dim 32 (padded rows and keys); the
+# flagship's window; the gen-1 head's (oda2_red_order_swin: one depth value,
+# bias-free at its call); 49 tokens at head dim 32 (padded rows and keys); the
 # tiny model's 16 tokens at head dim 8 (the k-dimension padded to 16); one
 # dT bucket per window; 100 tokens at head dim 72, past the kernels' tiles
 # for n and head dims up to 64 (padded to 112 rows and 80)
 ORDERED_CASES = {"flagship": (64, 8, 512, 128, False), "n49": (49, 4, 128, 128, False),
                  "tiny": (16, 4, 32, 16, False), "one_bucket": (64, 8, 512, 128, True),
-                 "n100": (100, 4, 288, 128, False)}
+                 "n100": (100, 4, 288, 128, False), "gen1": (64, 8, 512, 1, True)}
 
 
 def _ordered_args(cuda, dtype, with_table, seed=1, case="flagship"):
@@ -248,12 +250,13 @@ def test_ordered_attention_bwd_kernel(cuda, dtype, with_table, case):
                                                       case=case)
     dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(9)).to(cuda, dtype)
     args = (q, k, v, dout, idx, table, nh, scale, e)
-    if case != "one_bucket" or table is None or dtype == torch.bfloat16:
+    if not ORDERED_CASES[case][4] or table is None or dtype == torch.bfloat16:
         _check("ordered_attention_bwd", ordered_attention_bwd, plain_ordered_attention_bwd,
                args, dtype, relative=True)
         return
-    # One bucket a window: every row of dS sums to 0, so the exact dT is 0
-    # and both versions' f32 dT are rounding of a sum of ~40,000 terms that
+    # One bucket a window (one_bucket, and gen1's one depth value): every
+    # row of dS sums to 0, so the exact dT is 0 and both versions' f32 dT
+    # are rounding of a sum of ~40,000 terms that
     # cancel, in different orders (measured 6e-5 apart, against 1e-5 of
     # max(1, max |dT|)). dq, dk and dv are held as in every other case; dT
     # is held to 0 within 1e-5 of the sum of |dS| of its entry.
@@ -977,3 +980,89 @@ def test_tiny_newcrfs_on_card_matches_cpu(cuda):
     for name, g in grads[1].items():
         assert (grads[0][name] - g).abs().max().item() <= 1e-3 * max(g.abs().max().item(),
                                                                       floor), name
+
+
+# the tiny ODA2 siblings of tests/test_torch_port_oda2_red*.py on 64x96
+# images, with the encoder of TINY_KW: (config, launches of one forward,
+# the module whose _logit_to_indices the head calls, or None)
+SIBLINGS_TINY = {
+    "oda2_red_order_reg": (dict(num_repeats=2, num_emb=16, reduction_ratio=4),
+                           dict(window_attention=6, depthwise_conv2d=4), red_order_reg),
+    "oda2_red_order_cls": (dict(num_repeats=2, num_emb=16, reduction_ratio=4),
+                           dict(window_attention=6, depthwise_conv2d=4), None),
+    "oda2_red_order_swin": (dict(num_repeats=2, num_emb=16, window_size=4),
+                            dict(window_attention=6, ordered_attention=4), red_order_reg),
+    "oda2_red_reg": ({}, dict(window_attention=6), None),
+    "oda2_conv": ({}, dict(window_attention=6), None)}
+# bf16 maps, card against CPU, in metres (depth range 80 m): about three
+# times the largest gap of each sound model on an H100 (tools/sibling_bf16_gaps.py:
+# 0.3125, 0.0490, 0.4688, 0.1922, 0.0390 m). The kernels keep f32 sums where
+# the plain versions round to bf16, and a bf16 sigmoid in [0.5, 1) moves
+# in steps of 2^-8, 0.3125 m
+SIBLING_BF16_TOL = {"oda2_red_order_reg": 1.0, "oda2_red_order_cls": 0.15,
+                    "oda2_red_order_swin": 1.5, "oda2_red_reg": 0.6, "oda2_conv": 0.12}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(SIBLINGS_TINY))
+def test_tiny_sibling_on_card_matches_cpu(cuda, name, dtype, monkeypatch):
+    """A tiny sibling's forward on the card (exact launches) against the
+    CPU's, the CPU fed the card's index maps: f32 within 1e-3 m, bf16
+    within the model's SIBLING_BF16_TOL."""
+    extra, launches, module = SIBLINGS_TINY[name]
+    cfg = dict(extra, name=name, encoder_type="custom", dec_dim=32, num_heads=4)
+    kw = dict(TINY_KW, use_checkpoint=False, dtype=dtype)
+    x = torch.from_numpy(np.random.RandomState(12).rand(2, 64, 96, 3).astype(np.float32))
+    seen = []
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        if module is not None:
+            real = module._logit_to_indices
+            replay = iter(list(seen))
+            monkeypatch.setattr(module, "_logit_to_indices", (
+                (lambda logit, e: seen.append(real(logit, e)) or seen[-1]) if dev.type == "cuda"
+                else (lambda logit, e: next(replay).cpu())))
+        model = build_model(cfg, 0.001, 80.0, device=dev, seed=13, **kw)
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            out = model(x.to(dev))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert kernels.launch_counts == dict(NO_LAUNCHES, **launches)
+        maps = out[1] if isinstance(out[1], tuple) and out[1][0] is not None else (out[0],)
+        outs.append([m.cpu() for m in maps])
+    tol = 1e-3 if dtype == torch.float32 else SIBLING_BF16_TOL[name]
+    for a, b in zip(*outs):
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        assert (a - b).abs().max().item() <= tol, (name, (a - b).abs().max().item())
+
+
+# a train step's backward launches a microbatch of each sibling's decoder
+# at DRIVER_OPT's one repeat: K2 bwd in gen-1's 2 SAs, K3 dxdw in reg's and
+# cls's 2 FFs
+SIBLING_DECODER_BWD = {"oda2_red_order_reg": ("depthwise_conv2d_dxdw", 2),
+                       "oda2_red_order_cls": ("depthwise_conv2d_dxdw", 2),
+                       "oda2_red_order_swin": ("ordered_attention_bwd", 2)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(SIBLINGS_TINY))
+def test_tiny_sibling_trainer_fit_on_card(cuda, name, tmp_path):
+    """Two steps of ``Trainer.fit`` of a tiny sibling on the card (batch 4
+    in two microbatches): the backward launches of 2 x 2 microbatches,
+    finite metrics, the checkpoint."""
+    from mde_tpu_torch.core.config import load_config
+    from mde_tpu_torch.train.driver import Trainer
+    model = dict(DRIVER_OPT["model"], name=name, reduction_ratio=4)
+    opt = load_config(dict(DRIVER_OPT, model=model, output_dir=str(tmp_path)))
+    trainer = Trainer(opt, model_overrides=dict(TINY_KW, use_checkpoint=False))
+    kernels.reset_launch_counts()
+    metrics = trainer.fit(max_steps=2)
+    torch.cuda.synchronize()
+    assert trainer.global_step == 2 and next(trainer.model.parameters()).is_cuda
+    assert len(metrics) == 9 and all(np.isfinite(v) for v in metrics.values())
+    assert kernels.launch_counts["window_attention_bwd"] == 2 * 2 * 6
+    kernel, per_micro = SIBLING_DECODER_BWD.get(name, ("ordered_attention_bwd", 0))
+    assert kernels.launch_counts[kernel] == 2 * 2 * per_micro
+    assert os.listdir(tmp_path / "checkpoints") == ["step_2"]

@@ -248,7 +248,10 @@ def test_port_imports_no_jax():
             "mde_tpu_torch.data.dataset, mde_tpu_torch.data.augment, "
             "mde_tpu_torch.data.loader, mde_tpu_torch.utils.wandb_utils, "
             "mde_tpu_torch.utils.visualize, mde_tpu_torch.train.driver, "
-            "mde_tpu_torch.models.newcrfs\n"
+            "mde_tpu_torch.models.newcrfs, mde_tpu_torch.ops.reduction, "
+            "mde_tpu_torch.models.oda2.red_order_reg, mde_tpu_torch.models.oda2.red_order_swin, "
+            "mde_tpu_torch.models.oda2.red_reg, mde_tpu_torch.models.oda2.conv, "
+            "mde_tpu_torch.models.oda2.base\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
             "'optax', 'orbax', 'mde_tpu')]\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")

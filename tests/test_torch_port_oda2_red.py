@@ -1,0 +1,333 @@
+"""The port's ODA2 reduction pieces and two of the sibling models against
+the JAX package's, in f32 on the CPU.
+
+- ``block_mean`` (on integer-valued maps, whose block sums are exact in
+  both frameworks) and ``sinusoidal_depth_embedding`` (bases 2000 and
+  1000): equal bit for bit.
+- ``PreNormOrderedReductionSA`` and ``PreNormReductionSA``, shift 0 and
+  shift > 0: the output and the gradients of a seeded loss with respect to
+  the input and every parameter, at 1e-4 of max(1, max |JAX's|).
+- ``PreNormFF`` and ``PreNormDWConvFF`` in training with ``drop_prob`` 0.2,
+  and the reduction SAs and the bias-free window SA with their dropouts:
+  the port's dropout is handed the keep masks flax drew (flax's
+  ``nn.Dropout`` calls are intercepted), so the outputs compare at 1e-4.
+- The tiny ``oda2_red_reg`` and ``oda2_conv`` (the custom Swin of
+  ``tests/test_oda2_siblings.py``, dec_dim 32, 64x64 images): the forward
+  through ``from_jax_variables`` at 1e-4 of the depth range, and the port's
+  decoder weights back through the JAX package's own
+  ``convert_oda2_red_decoder`` / ``convert_oda2_conv_decoder`` to exactly
+  the JAX decoder variables. One jitted JAX forward a model.
+- ``build_model`` of every new name runs on the card unless asked, and
+  carries ``bn_momentum`` into every BatchNorm; each tiny sibling trains
+  two steps through ``Trainer.fit`` (port only).
+"""
+
+import os
+import types
+
+import flax.linen as flax_nn
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mde_tpu.core.family_converters import convert_oda2_conv_decoder, convert_oda2_red_decoder
+from mde_tpu.models.oda2.conv import ODA2ConvModel as JaxConvModel
+from mde_tpu.models.oda2.red_reg import ODA2RedRegModel as JaxRedRegModel
+from mde_tpu.ops import mlp as jax_mlp
+from mde_tpu.ops import ordered_attention as jax_ordered
+from mde_tpu.ops import reduction as jax_reduction
+from mde_tpu_torch.convert import from_jax_variables
+from mde_tpu_torch.core.config import load_config
+from mde_tpu_torch.models import build_model
+from mde_tpu_torch.ops import drop, mlp, ordered_attention, reduction
+from mde_tpu_torch.train import driver
+from mde_tpu_torch.train.step import default_adapter
+from test_driver import TINY_OPT
+from test_torch_port_driver import _small_test_split
+from test_torch_port_flagship import _random_jax_variables
+
+TOL = 1e-4
+MAX_DEPTH = 80.0
+TINY_ENC = dict(embed_dim=16, depths=(1, 1, 2, 1), num_heads=(1, 2, 4, 8), window_size=4)
+MODEL_KW = dict(resize_to_multiple=False, encoder_kwargs=TINY_ENC, use_checkpoint=False)
+
+
+def _rel(a, b) -> float:
+    """max |a - b| over max(1, max |b|)."""
+    a = a.detach().float().numpy() if torch.is_tensor(a) else np.asarray(a)
+    b = np.asarray(b, np.float64)
+    return float(np.max(np.abs(a.astype(np.float64) - b))) / max(1.0, float(np.max(np.abs(b))))
+
+
+def _input(seed, *shape):
+    return np.random.RandomState(seed).randn(*shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r", [2, 4, 8])
+def test_block_mean_matches_jax(dtype, r):
+    x = np.random.RandomState(r).randint(-50, 50, (2, 16, 24, 3)).astype(np.float32)
+    ours = reduction.block_mean(torch.from_numpy(x).to(dtype), r)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    ref = jax_reduction.block_mean(jnp.asarray(x, jdt), r)
+    assert ours.dtype == dtype and ours.shape == ref.shape
+    assert np.array_equal(ours.float().numpy(), np.asarray(ref.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("base,num_emb,dims", [(2000.0, 128, 512), (1000.0, 16, 32)])
+def test_sinusoidal_depth_embedding_matches_jax(base, num_emb, dims):
+    ours = reduction.sinusoidal_depth_embedding(num_emb, dims, base)
+    ref = np.asarray(jax_reduction.sinusoidal_depth_embedding(num_emb, dims, base))
+    assert ours.dtype == torch.float32 and np.array_equal(ours.numpy(), ref)
+
+
+def _module_vars(module, seed, *args, **kwargs):
+    """The JAX module's variables, seeded as the flagship test seeds them."""
+    init = types.SimpleNamespace(init=lambda key, x, train: module.init(
+        key, *(None if a is None else jnp.asarray(a) for a in args), **kwargs))
+    return _random_jax_variables(init, jnp.asarray(args[0]), seed)
+
+
+SA_CASES = {"ordered-shift0": ("ordered", 0), "ordered-shift2": ("ordered", 2),
+            "plain-shift0": ("plain", 0), "plain-shift2": ("plain", 2)}
+
+
+@pytest.mark.parametrize("case", list(SA_CASES))
+def test_reduction_sa_matches_jax(case):
+    """Forward and gradients (input and parameters) of both reduction SAs
+    on a 2 x 8 x 12 map of 32 channels, 4 heads, reduction ratio 4."""
+    kind, shift = SA_CASES[case]
+    x, g = _input(1, 2, 8, 12, 32), _input(2, 2, 8, 12, 32)
+    if kind == "ordered":
+        jm = jax_reduction.PreNormOrderedReductionSA(num_heads=4, reduction_ratio=4,
+                                                     shift_size=shift)
+        mod = reduction.PreNormOrderedReductionSA(32, 4, 4, shift)
+        variables = _module_vars(jm, 3, x, None)
+
+        def apply(v, a):
+            return jm.apply(v, a, None)[0]
+    else:
+        jm = jax_reduction.PreNormReductionSA(num_heads=4, reduction_ratio=4, shift_size=shift)
+        mod = reduction.PreNormReductionSA(32, 4, 4, shift)
+        variables = _module_vars(jm, 3, x)
+
+        def apply(v, a):
+            return jm.apply(v, a)[0]
+    mod.load_state_dict(_port_names(variables))
+    xt = torch.from_numpy(x).requires_grad_()
+    out = mod(xt)
+    ref, vjp = jax.vjp(apply, variables, jnp.asarray(x))
+    assert _rel(out, ref) <= TOL
+    out.backward(torch.from_numpy(g))
+    dvars, dx = vjp(jnp.asarray(g))
+    assert _rel(xt.grad, dx) <= TOL
+    grads = _port_names(dvars)
+    params = dict(mod.named_parameters())
+    assert set(grads) == set(params)
+    for name, p in params.items():
+        assert _rel(p.grad, grads[name].numpy()) <= TOL, name
+
+
+def _port_names(variables) -> dict:
+    """A JAX module's variables in the port's names, through the converter:
+    the module is placed as ``sa1`` of the first ordered reduction block
+    (a name path the converter maps one to one) and the prefix dropped."""
+    where = ("decoder", "reducer", "attn0", "sa1")
+
+    def nest(tree):
+        for key in reversed(where):
+            tree = {key: tree}
+        return tree
+
+    state = from_jax_variables(dict({"params": {}}, **{k: nest(v) for k, v in
+                                                        variables.items()}))
+    prefix = "decoder.reducer.attn_layers.0.sa1."
+    assert all(name.startswith(prefix) for name in state)
+    return {name[len(prefix):]: value for name, value in state.items()}
+
+
+def _intercept_dropout_masks():
+    """A flax interceptor that records the keep mask of every
+    ``nn.Dropout`` call that draws one (rate > 0; the mask is where its
+    output is nonzero), in call order."""
+    masks = []
+
+    def interceptor(next_fun, args, kwargs, context):
+        out = next_fun(*args, **kwargs)
+        if (isinstance(context.module, flax_nn.Dropout) and context.method_name == "__call__"
+                and context.module.rate > 0):
+            masks.append(torch.from_numpy(np.asarray(out) != 0))
+        return out
+
+    return masks, interceptor
+
+
+@pytest.mark.parametrize("kind", ["PreNormFF", "PreNormDWConvFF"])
+def test_ff_dropout_matches_flax_with_shared_masks(kind, monkeypatch):
+    """The FFs in training at drop_prob 0.2: flax draws the masks, the
+    port's dropout takes them in the same order."""
+    x = _input(4, 2, 6, 10, 16)
+    jm = getattr(jax_mlp, kind)(drop_prob=0.2)
+    variables = _module_vars(jm, 5, x, train=False)
+    masks, interceptor = _intercept_dropout_masks()
+    with flax_nn.intercept_methods(interceptor):
+        ref, _ = jm.apply(variables, jnp.asarray(x), train=True, mutable=["batch_stats"],
+                          rngs={"dropout": jax.random.PRNGKey(6)})
+    assert len(masks) == (2 if kind == "PreNormFF" else 1)
+    assert all(0.7 < m.float().mean() < 0.9 for m in masks)
+    mod = getattr(mlp, kind)(16, drop_prob=0.2).train()
+    mod.load_state_dict(_port_names(variables))
+    handed = iter(masks)
+    monkeypatch.setattr(drop, "_keep_mask", lambda shape, *a: next(handed))
+    out = mod(torch.from_numpy(x))
+    assert next(handed, None) is None
+    assert _rel(out, ref) <= TOL
+
+
+SA_DROP_CASES = ("PreNormReductionSA", "PreNormOrderedReductionSA", "PreNormOrderedSwinSA")
+
+
+@pytest.mark.parametrize("kind", SA_DROP_CASES)
+def test_sa_dropout_matches_flax_with_shared_masks(kind, monkeypatch):
+    """The SAs in training with dropout (the reduction SAs on their
+    probabilities at 0.1 and their output at 0.2; the gen-1 window SA,
+    bias-free, on its output at 0.2): flax draws the masks, the port's
+    dropout takes them in the same order. The window SA refuses attention
+    dropout in training, where JAX leaves the kernel for its einsum path."""
+    x = _input(8, 2, 8, 12, 32)
+    rates = dict(attn_drop_prob=0.1, drop_prob=0.2)
+    if kind == "PreNormOrderedSwinSA":
+        jm = jax_ordered.PreNormOrderedSwinSA(num_heads=4, num_emb=1, window_size=4,
+                                              shift_size=2, bias_type="none", drop_prob=0.2)
+        mod = ordered_attention.PreNormOrderedSwinSA(32, 4, 1, 4, 2, bias_type="none",
+                                                     drop_prob=0.2)
+        args = (jnp.zeros((2, 8, 12), jnp.int32),)
+        with pytest.raises(NotImplementedError, match="attention dropout"):
+            ordered_attention.PreNormOrderedSwinSA(32, 4, 1, 4, bias_type="none",
+                                                   attn_drop_prob=0.1).train()(
+                torch.from_numpy(x))
+    else:
+        jm = getattr(jax_reduction, kind)(num_heads=4, reduction_ratio=4, shift_size=2,
+                                          **rates)
+        mod = getattr(reduction, kind)(32, 4, 4, 2, **rates)
+        args = (None,) if kind == "PreNormOrderedReductionSA" else ()
+    variables = _module_vars(jm, 9, x, *args)
+    masks, interceptor = _intercept_dropout_masks()
+    with flax_nn.intercept_methods(interceptor):
+        ref = jm.apply(variables, jnp.asarray(x), *args, train=True,
+                       rngs={"dropout": jax.random.PRNGKey(10)})[0]
+    assert len(masks) == (1 if kind == "PreNormOrderedSwinSA" else 2)
+    mod.load_state_dict(_port_names(variables))
+    handed = iter(masks)
+    monkeypatch.setattr(drop, "_keep_mask", lambda shape, *a: next(handed))
+    out = mod.train()(torch.from_numpy(x))
+    assert next(handed, None) is None
+    assert _rel(out, ref) <= TOL
+
+
+def _jax_red_reg():
+    return JaxRedRegModel(dec_dim=32, min_depth=0.001, max_depth=MAX_DEPTH, num_heads=4,
+                          encoder_type="custom", **MODEL_KW)
+
+
+def _jax_conv():
+    return JaxConvModel(decoder_channels=32, min_depth=0.001, max_depth=MAX_DEPTH,
+                        encoder_type="custom", **MODEL_KW)
+
+
+MODELS = {
+    "oda2_red_reg": (_jax_red_reg, dict(name="oda2_red_reg", encoder_type="custom", dec_dim=32,
+                                        num_heads=4),
+                     lambda state: convert_oda2_red_decoder(state), (2, 14, 14, 1)),
+    "oda2_conv": (_jax_conv, dict(encoder_type="custom", dec_dim=32, name="oda2_conv"),
+                  lambda state: convert_oda2_conv_decoder(state), (2, 32, 32, 1)),
+}
+
+
+@pytest.mark.parametrize("name", list(MODELS))
+def test_sibling_model_matches_jax_both_ways(name):
+    make_jax, cfg, convert, shape = MODELS[name]
+    x = np.random.RandomState(7).rand(2, 64, 64, 3).astype(np.float32)
+    jm = make_jax()
+    variables = _random_jax_variables(jm, jnp.asarray(x), seed=8)
+    ref, ref_aux = jax.jit(lambda v, a: jm.apply(v, a, train=False))(variables, jnp.asarray(x))
+    port = build_model(cfg, 0.001, MAX_DEPTH, device="cpu", **MODEL_KW)
+    port.load_state_dict(from_jax_variables(variables))
+    with torch.no_grad():
+        out, aux = port(torch.from_numpy(x))
+    assert out.shape == ref.shape == shape
+    if name == "oda2_conv":
+        assert aux is None and ref_aux is None
+    else:
+        assert aux == (None,) * 4 and tuple(ref_aux) == (None,) * 4
+    # the loss takes the one map, not the None attention slots
+    maps, centers = default_adapter((out, aux))
+    assert len(maps) == 1 and maps[0] is out and centers is None
+    # in units of the depth range
+    assert _rel(out, ref) <= TOL * (MAX_DEPTH - 0.001)
+
+    # port -> JAX: the JAX package's own converter gives back exactly the
+    # decoder variables the port was loaded from
+    state = {k[len("decoder."):]: v.numpy() for k, v in port.state_dict().items()
+             if k.startswith("decoder.")}
+    back = convert(state)
+    ref_dec = {k: v["decoder"] for k, v in variables.items()}
+    leaves = dict(jax.tree_util.tree_leaves_with_path(ref_dec))
+    back_leaves = jax.tree_util.tree_leaves_with_path(back)
+    assert len(back_leaves) == len(leaves)
+    for path, leaf in back_leaves:
+        np.testing.assert_array_equal(leaf, leaves[path], err_msg=jax.tree_util.keystr(path))
+
+
+@pytest.mark.parametrize("name", ["oda2_red_order_reg", "oda2_red_order_cls",
+                                  "oda2_red_order_swin", "oda2_red_reg", "oda2_conv"])
+def test_sibling_build_runs_on_the_card_unless_asked(name):
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal without a card")
+    cfg = {"name": name, "encoder_type": "base", "dec_dim": 512, "num_heads": 8,
+           "num_repeats": 3, "num_emb": 128}
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_model(cfg, 0.001, 80.0)
+
+
+@pytest.mark.parametrize("name", ["oda2_red_order_reg", "oda2_red_order_swin", "oda2_red_reg",
+                                  "oda2_conv"])
+def test_sibling_bn_momentum_reaches_every_batchnorm(name):
+    """A config's ``bn_momentum`` (torch's convention) reaches every
+    BatchNorm of the model, as the JAX builds read it."""
+    from mde_tpu_torch.ops.tnn import BatchNorm
+    cfg = {"name": name, "encoder_type": "custom", "dec_dim": 32, "num_heads": 4,
+           "num_repeats": 1, "num_emb": 16, "reduction_ratio": 4, "window_size": 4,
+           "bn_momentum": 0.05}
+    model = build_model(cfg, 0.001, MAX_DEPTH, device="cpu", **MODEL_KW)
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    assert norms and all(m.momentum == 0.05 for m in norms)
+
+
+SIBLING_NAMES = ["oda2_red_order_reg", "oda2_red_order_cls", "oda2_red_order_swin",
+                 "oda2_red_reg", "oda2_conv"]
+
+
+@pytest.mark.parametrize("name", SIBLING_NAMES)
+def test_sibling_trains_through_trainer_fit(name, tmp_path, monkeypatch):
+    """Two steps of the port's ``Trainer.fit`` on the CPU on
+    ``tests/test_driver.py``'s ``TINY_OPT`` with the sibling's name
+    (synthetic NYU, batch 4 in two microbatches, the test split cut to 16
+    images of 64x64): a validation at step 2 with nine finite metrics and
+    its checkpoint. On one torch thread, as the driver tests run."""
+    monkeypatch.setattr(driver, "DepthDataset", _small_test_split(driver.DepthDataset))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        opt = load_config(dict(TINY_OPT, output_dir=str(tmp_path),
+                               model=dict(TINY_OPT["model"], name=name, reduction_ratio=4),
+                               train=dict(TINY_OPT["train"], valid_freq=2)))
+        trainer = driver.Trainer(opt, model_overrides=MODEL_KW, device="cpu")
+        metrics = trainer.fit(max_steps=2)
+    finally:
+        torch.set_num_threads(threads)
+    assert trainer.global_step == 2
+    assert len(metrics) == 9 and all(np.isfinite(v) for v in metrics.values())
+    assert os.listdir(tmp_path / "checkpoints") == ["step_2"]

@@ -14,6 +14,8 @@
   from one seeded generator (the masks are drawn outside the recompute).
 """
 
+import flax.linen as flax_nn
+import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
@@ -185,17 +187,29 @@ def test_drop_path_recompute_keeps_the_masks():
     assert any(not torch.allclose(plain[n], other[n]) for n in plain)
 
 
-def test_drop_path_and_dropout_numerics():
-    x = torch.from_numpy(np.random.RandomState(5).randn(4, 3, 5, 2).astype(np.float32))
+@pytest.mark.parametrize("dtype,rate", [(torch.float32, 0.5), (torch.bfloat16, 0.1)],
+                         ids=["float32-0.5", "bfloat16-0.1"])
+def test_drop_path_and_dropout_numerics(dtype, rate):
+    """DropPath as JAX's, and Dropout against flax's ``nn.Dropout``: on the
+    elements both keep, the same bits. At rate 0.1 the keep probability 0.9
+    is not a bf16 value: flax divides by it rounded to bf16."""
+    x = torch.from_numpy(np.random.RandomState(5).randn(4, 3, 5, 2).astype(np.float32)).to(dtype)
     drop = DropPath(0.25)
     keep = drop.draw(4, torch.Generator().manual_seed(0), x.device)
     out = drop(x, keep)
     for b in range(4):  # JAX: where(keep, x / keep_prob, 0)
-        expect = x[b] / torch.tensor(0.75) if keep[b] else torch.zeros_like(x[b])
+        expect = x[b] / torch.tensor(0.75, dtype=dtype) if keep[b] else torch.zeros_like(x[b])
         assert torch.equal(out[b], expect)
     assert drop.eval().draw(4, None, x.device) is None and drop(x, None) is x
-    dropout = Dropout(0.5)
+    dropout = Dropout(rate)
+    x = torch.from_numpy(np.random.RandomState(6).randn(100_000).astype(np.float32)).to(dtype)
     y = dropout(x, torch.Generator().manual_seed(1))
-    kept = y != 0
-    assert torch.equal(y[kept], x[kept] / 0.5) and 0 < kept.float().mean() < 1
+    ref = flax_nn.Dropout(rate, deterministic=False).apply(
+        {}, jnp.asarray(x.float().numpy(), jnp.dtype(str(dtype).split(".")[1])),
+        rngs={"dropout": jax.random.PRNGKey(2)})
+    ref = torch.from_numpy(np.array(ref.astype(jnp.float32))).to(dtype)
+    kept, ref_kept = y != 0, ref != 0
+    both = kept & ref_kept
+    assert 0.4 < kept.float().mean() < 0.95
+    assert both.sum() > 0.2 * x.numel() and torch.equal(y[both], ref[both])
     assert dropout.eval()(x) is x and Dropout(0.0)(x) is x
