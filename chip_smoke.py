@@ -36,8 +36,8 @@
    on 352x704 images with every launch count at 0 before and exactly 24
    K1, 6 K2 and 6 K3 forward launches after; then with the six FFs fused
    (24 K1, 6 K2, 6 K4, no K3); each is timed and profiled.
-4. Flagship training at full width: one f32 train step at batch 1, card
-   against CPU (fed the card's index maps), comparing the loss, the
+4. Flagship training at full width: one f32 train step at batch 1 on
+   224x448, card against CPU (fed the card's index maps), comparing the loss, the
    gradient norm, every gradient, the BatchNorm statistics and the
    parameters after AdamW. Then the bf16 train step at batch 4 on 352x704
    images (``make_train_step``, AdamW + OneCycle + clip 0.1, stochastic
@@ -99,13 +99,27 @@
    224x448, batch 2, for ``oda2_red_order_reg`` and ``oda2_red_order_swin``.
    K2's backward is also checked and timed bias-free at the gen-1 train
    shape (1568, 64, 512)/8, one depth value, beside SDPA's backward.
+10. The ODA2 Luna half at full width (Swin-B, dec_dim 512, 8 heads, 256 aux
+   tokens; ``LUNAS``): ``oda2_luna_reg`` and ``_cls`` (Luna-gated pyramid,
+   PPM) and ``oda2_red_luna_reg`` (stacked split-Luna over the reduction
+   neck, 4 layers). For each: the f32 forward at batch 1 on 352x704 card
+   against CPU, every gate's zero-initialised ``o_cross2`` seeded on both
+   sides (the map, the cls bin centers, red-Luna's eight attention
+   weights); bf16 serving at batch 8 through ``Predictor`` (K1 24 only: the
+   Luna attentions are plain einsums), timed and profiled; the bf16 train
+   step at batch 4 with ``use_checkpoint`` (K1 48 and 24 backward; the cls
+   model with the chamfer loss at 0.1), timed and profiled. The f32 train
+   step card against CPU at 224x448, batch 2, for ``oda2_luna_cls``
+   (chamfer 0.1, ``freeze_bn``) and ``oda2_red_luna_reg``, each checking
+   that the loss took the depth map (and the cls centers), not red-Luna's
+   attention weights.
 
 Any failure exits non-zero before the result lines. The last three lines
 are the card, the ``kernels`` JSON line and the ``ok`` JSON line. The
 ``kernels`` line takes the launches of K1, K2 and K3 and their backward
 kernels from the driver's ``fit``; K1's and K1 bwd's entries also carry
-NewCRFs' launches (``newcrfs_launches``), the siblings' by model and path
-(``sibling_launches``).
+NewCRFs' launches (``newcrfs_launches``), the siblings' and the Luna
+models' by model and path (``sibling_launches``).
 """
 
 from __future__ import annotations
@@ -256,6 +270,26 @@ SIBLING_MAPS = {"oda2_red_order_reg": (4, (1, 112, 224, 1)),
                 "oda2_red_order_cls": (4, (1, 112, 224, 1)),
                 "oda2_red_order_swin": (4, (1, 112, 224, 1)),
                 "oda2_red_reg": (1, (1, 110, 222, 1)), "oda2_conv": (1, (1, 224, 448, 1))}
+# the ODA2 Luna half at bench.py's decoder widths with the name swapped and the
+# JAX builds' defaults otherwise (luna.py:277-292, red_luna.py:221-234):
+# Swin-B, dec_dim 512 (the gated decoders' decoder_channels), 8 heads, 256 aux
+# tokens (of 256 in the gated decoders, of dec_dim in red-Luna), red-Luna 4
+# layers; the gated decoders train with dropout 0.1, as JAX builds them.
+# name -> (config, serving launches, train-step launches, the map of one
+# 352x704 image): the 24 Swin-B blocks run K1, the Luna attentions are plain
+# einsums (no kernel), the train step recomputes the encoder; the maps are at
+# 1/4 scale, red-Luna's less 2 px
+LUNA_DECODER = {"encoder_type": "base", "dec_dim": 512, "num_heads": 8, "num_aux": 256}
+LUNAS = {
+    "oda2_luna_reg": (dict(LUNA_DECODER, name="oda2_luna_reg", aux_dim=256),
+                      {"window_attention": 24}, ENCODER_TRAIN_LAUNCHES, (1, 112, 224, 1)),
+    "oda2_luna_cls": (dict(LUNA_DECODER, name="oda2_luna_cls", aux_dim=256),
+                      {"window_attention": 24}, ENCODER_TRAIN_LAUNCHES, (1, 112, 224, 1)),
+    "oda2_red_luna_reg": (dict(LUNA_DECODER, name="oda2_red_luna_reg", num_layers=4),
+                          {"window_attention": 24}, ENCODER_TRAIN_LAUNCHES, (1, 110, 222, 1))}
+# red-Luna's attention weights (probabilities), card against CPU: the maps'
+# tolerance in units of the depth range (80 m)
+LUNA_WEIGHTS_TOL = MODEL_F32_TOL / 80.0
 # one eval forward of the flagship (no gradient, so nothing recomputes)
 EVAL_LAUNCHES = {"window_attention": 24, "ordered_attention": 6, "depthwise_conv2d": 6}
 # KITTI's test images after the KB-crop; the flagship resizes them to 448x1536
@@ -940,8 +974,9 @@ def one_train_step(dev, batch: dict, opt=TRAIN_OPT, freeze_bn: bool = False, **o
 
 
 def train_f32_check(dev) -> None:
-    """Full-width f32 train step at batch 1: the card against the CPU."""
-    batch = train_batch(1, 2)
+    """Full-width f32 train step at batch 1 on 224x448 (a quarter of the
+    pixels of 448x896 keeps the CPU step short): the card against the CPU."""
+    batch = train_batch(1, 2, hw=(224, 448))
     replay = IndexReplay()
     try:
         replay.record()
@@ -954,9 +989,9 @@ def train_f32_check(dev) -> None:
         log(f"flagship f32 CPU train step (plain versions): {time.perf_counter() - t0:.1f} s")
     finally:
         replay.restore()
-    log(f"flagship f32 train step batch 1: index flips per repeat {replay.flips} (the CPU run "
-        f"was fed the card's indices)")
-    compare_steps("flagship f32 train step batch 1", card, cpu)
+    log(f"flagship f32 train step batch 1 at 224x448: index flips per repeat {replay.flips} "
+        f"(the CPU run was fed the card's indices)")
+    compare_steps("flagship f32 train step batch 1 at 224x448", card, cpu)
 
 
 def compare_steps(tag, card, cpu) -> None:
@@ -1397,6 +1432,134 @@ def sibling_runs(dev) -> dict:
         free_garbage()
     for i, name in enumerate(("oda2_red_order_reg", "oda2_red_order_swin")):
         sibling_train_f32_check(dev, name, 40 + i)
+        free_garbage()
+    return runs
+
+
+def luna_opt(name: str) -> dict:
+    """The train config of a Luna model: the flagship's, and for the cls
+    model the chamfer loss at 0.1, so that its bin centers reach it."""
+    opt = dict(TRAIN_OPT, model=LUNAS[name][0])
+    if name == "oda2_luna_cls":
+        opt["loss"] = dict(opt["loss"], chamfer_weight=0.1)
+    return opt
+
+
+def perturb_o_cross2(model, seed: int) -> int:
+    """Seeded weights and biases for every Luna gate's ``o_cross2``, which
+    starts at zero: at init the gate is sigmoid(0) = 0.5 everywhere and a
+    fault in the pixels' attention over the aux tokens would not show.
+    Returns how many it set."""
+    from mde_tpu_torch.models.oda2.luna import ODA2LunaLayer
+    rng = np.random.RandomState(seed)
+    layers = [m for m in model.modules() if isinstance(m, ODA2LunaLayer)]
+    with torch.no_grad():
+        for m in layers:
+            for t in (m.o_cross2.weight, m.o_cross2.bias):
+                t.copy_(torch.from_numpy((0.05 * rng.randn(*t.shape)).astype(np.float32)))
+    return len(layers)
+
+
+def luna_f32_check(dev, name: str, seed: int) -> None:
+    """A Luna model's full-width f32 forward at batch 1 on 352x704, the
+    gates' ``o_cross2`` seeded on both sides: the card against the CPU, the
+    map, the cls bin centers, red-Luna's eight attention weights."""
+    from mde_tpu_torch.models import build_model
+    cfg, _, _, shape = LUNAS[name]
+    x = torch.from_numpy(np.random.RandomState(seed).rand(1, 352, 704, 3).astype(np.float32))
+    outs = []
+    for device in (dev, torch.device("cpu")):
+        model = build_model(cfg, 0.001, 80.0, device=device, seed=0, use_checkpoint=False)
+        gates = perturb_o_cross2(model, 9)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out, second = model(x.to(device))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        else:
+            log(f"{name} f32 CPU forward (plain versions): {time.perf_counter() - t0:.1f} s")
+        second = (() if second is None else (second,) if torch.is_tensor(second)
+                  else tuple(second))
+        outs.append((out.cpu(), [t.cpu() for t in second]))
+        del model, out, second
+        free_garbage()
+    (out, second), (ref, ref_second) = outs
+    err = (out - ref).abs().max().item()
+    errs = [(a - b).abs().max().item() for a, b in zip(second, ref_second)]
+    tol = MODEL_F32_TOL if name == "oda2_luna_cls" else LUNA_WEIGHTS_TOL
+    log(f"{name} f32 batch 1 at 352x704 (resized to 448x896), {gates} gates' o_cross2 seeded, "
+        f"card vs CPU: map {tuple(out.shape)} max_abs_err {err:.3e} m (tolerance "
+        f"{MODEL_F32_TOL}); second output {[tuple(t.shape) for t in second]} max_abs_err "
+        f"{errs} (tolerance {tol})")
+    want = {"oda2_luna_reg": 0, "oda2_luna_cls": 1, "oda2_red_luna_reg": 8}[name]
+    if (tuple(out.shape) != shape or not torch.isfinite(out).all() or err > MODEL_F32_TOL
+            or len(second) != want or any(e > tol for e in errs)
+            or not all(torch.isfinite(t).all() for t in second)):
+        raise RuntimeError(f"{name} f32 forward on the card disagrees with the CPU")
+
+
+def luna_train_f32_check(dev, name: str, seed: int) -> None:
+    """A Luna model's full-width f32 train step at batch 2 on 224x448, the
+    card against the CPU, dropout, stochastic depth and recompute off.
+    ``oda2_luna_cls`` takes the chamfer loss at 0.1 and ``freeze_bn``: its
+    PPM's 1x1 pooled BatchNorm normalises two values, whose gradient is
+    rounding noise with batch statistics (``ksa_train_f32_check``).
+    ``oda2_red_luna_reg``'s loss must take its depth map: the maps that the
+    train step hands the loss are recorded and checked."""
+    import mde_tpu_torch.train.step as step_module
+    batch = train_batch(2, seed, hw=(224, 448))
+    freeze_bn = name == "oda2_luna_cls"
+    tag = (f"{name} f32 train step batch 2 at 224x448"
+           f"{' (chamfer 0.1, freeze_bn)' if freeze_bn else ''}")
+    seen, real = [], step_module.default_adapter
+
+    def record(out):
+        maps, centers = real(out)
+        seen.append(([tuple(m.shape) for m in maps], None if centers is None
+                     else tuple(centers.shape)))
+        return maps, centers
+
+    step_module.default_adapter = record
+    try:
+        kw = dict(freeze_bn=freeze_bn, path_drop_prob=0.0, use_checkpoint=False, drop_prob=0.0)
+        card = one_train_step(dev, batch, luna_opt(name), **kw)
+        torch.cuda.synchronize()
+        free_garbage()
+        t0 = time.perf_counter()
+        cpu = one_train_step("cpu", batch, luna_opt(name), **kw)
+        log(f"{tag}: CPU step (plain versions) {time.perf_counter() - t0:.1f} s; the loss took "
+            f"maps {seen[0][0]} and bin centers {seen[0][1]}")
+    finally:
+        step_module.default_adapter = real
+    want = ([(2, 54, 110, 1)], None) if name == "oda2_red_luna_reg" else (
+        [(2, 56, 112, 1)], (2, 256))
+    if seen != [want, want] or (name == "oda2_luna_cls" and not card[0]["loss_chamfer"] > 0):
+        raise RuntimeError(f"{tag}: the loss took {seen}, expected {want} on both devices")
+    compare_steps(tag, card, cpu)
+
+
+def luna_runs(dev) -> dict:
+    """Every phase of the three Luna models. Returns {name: {path: launches}}."""
+    from mde_tpu_torch.models import build_model
+    from mde_tpu_torch.serve import Predictor
+    runs = {}
+    for i, (name, (cfg, serving, training, _)) in enumerate(LUNAS.items()):
+        luna_f32_check(dev, name, 50 + i)
+        model = build_model(cfg, 0.001, 80.0, device=dev, seed=0, dtype=torch.bfloat16)
+        images = torch.from_numpy(
+            np.random.RandomState(60 + i).rand(BATCH, 352, 704, 3).astype(np.float32)).to(dev)
+        _, counts = serve_run(f"{name} bf16 batch {BATCH} (resized to 448x896)",
+                              Predictor(model), images, serving)
+        runs[name] = {"serving": counts}
+        del model, images
+        free_garbage()
+        runs[name]["train_step"], _ = train_run(
+            f"{name} bf16 train step batch {TRAIN_BATCH} (resized to 448x896, "
+            f"use_checkpoint=True)", luna_opt(name), dev, training, warmup=2, timed=3,
+            profile=True)
+        free_garbage()
+    for i, name in enumerate(("oda2_luna_cls", "oda2_red_luna_reg")):
+        luna_train_f32_check(dev, name, 70 + i)
         free_garbage()
     return runs
 
@@ -2000,6 +2163,7 @@ def main() -> int:
     newcrfs_fit_counts = newcrfs_driver_run(dev, card, newcrfs_rate)
     free_garbage()
     siblings = sibling_runs(dev)
+    siblings.update(luna_runs(dev))
 
     # the line reports each kernel at its main-path shape in bf16 (K1 at
     # stage 1 with the shift mask, K2 with the table) and its launches in

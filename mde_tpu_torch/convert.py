@@ -6,7 +6,9 @@ JAX model the port has (arrays of any kind numpy can read) into the port's
 (``convert_oda2_red_order_swin2``, ``convert_oda2_ksa_decoder``,
 ``convert_newcrfs_model``, ``convert_oda2_red_order_decoder``,
 ``convert_oda2_red_order_swin_decoder``, ``convert_oda2_red_decoder``,
-``convert_oda2_conv_decoder``), written without importing the JAX package.
+``convert_oda2_conv_decoder``, ``convert_oda2_luna_decoder``,
+``convert_oda2_red_luna_decoder``), written without importing the JAX
+package.
 
 Layouts: dense (in, out) -> (out, in); conv HWIO -> OIHW; depthwise
 (kh, kw, C) -> (C, 1, kh, kw); flax BN scale/bias/mean/var ->
@@ -89,18 +91,27 @@ def _ksa_segment(seg: str, parent: str) -> str:
 
 def _sibling_segment(seg: str, parent: str) -> str:
     """A decoder segment of the ODA2 siblings' trees (``oda2_red_order_reg``
-    and ``_cls``, ``oda2_red_order_swin``, ``oda2_red_reg``, ``oda2_conv``)
-    in the port's names: their necks' modules sit at the decoder's top
-    level ("" drops the ``neck`` segment); ``de_ff{0,1}`` are the
-    reference's ``de_ff.{0,3}``; ``out_conv{j}`` and ``block2_out`` Sequential
-    slots; the conv decoder's ``block{L}_2`` follows the upsample at index
-    2; the head's ``conv{i}_{j}`` and ``attn{i}`` as the flagship's."""
+    and ``_cls``, ``oda2_red_order_swin``, ``oda2_red_reg``, ``oda2_conv``,
+    ``oda2_luna_reg`` and ``_cls``, ``oda2_red_luna_reg``) in the port's
+    names: their necks' modules sit at the decoder's top level ("" drops
+    the ``neck`` segment); ``de_ff{0,1}`` and a gate's ``luna/ff{0,1}`` are
+    the reference's ``de_ff.{0,3}`` and ``ff.{0,3}``, ``bins{0,1}``
+    ``bins.{0,2}``; red-Luna's ``layers{i}_{luna1,ff_aux,luna2,ff}`` its
+    ``layers.{i}.*``; ``out_conv{j}``, ``block2_out`` and ``block4_out``
+    Sequential slots; the conv decoder's ``block{L}_2`` follows the upsample
+    at index 2; the head's ``conv{i}_{j}`` and ``attn{i}`` as the
+    flagship's."""
     if seg == "neck":
         return ""
     if parent == "ppm":
         return _ppm_segment(seg)
-    if m := re.fullmatch(r"de_ff(\d)", seg):
-        return f"de_ff.{3 * int(m.group(1))}"
+    if m := re.fullmatch(r"(de_)?ff(\d)", seg):
+        if m.group(1) or parent == "luna":
+            return f"{m.group(1) or ''}ff.{3 * int(m.group(2))}"
+    if m := re.fullmatch(r"bins(\d)", seg):
+        return f"bins.{2 * int(m.group(1))}"
+    if m := re.fullmatch(r"layers(\d+)_(luna1|luna2|ff_aux|ff)", seg):
+        return f"layers.{m.group(1)}.{m.group(2)}"
     if m := re.fullmatch(r"out_conv(\d)", seg):
         return f"out_conv.{m.group(1)}"
     if m := re.fullmatch(r"block(\d+)_(\d|out)", seg):
@@ -173,9 +184,13 @@ def _is_ksa(paths) -> bool:
 
 def _is_sibling(paths) -> bool:
     """Whether a tree is one of the ODA2 siblings': its decoder holds a
-    ``neck`` (the reduction decoders) or a ``ppm`` (``oda2_conv``), which
-    the flagship's and the KSA decoder's never do."""
-    return any(len(p) > 1 and p[0] == "decoder" and p[1] in ("neck", "ppm") for p in paths)
+    ``neck`` (the reduction decoders), a ``ppm`` (``oda2_conv``, the Luna
+    decoders), a gate ``block{L}_gate`` (the Luna decoders), or
+    ``aux_linear1`` or ``luna`` (red-Luna), which the flagship's and the
+    KSA decoder's never do."""
+    return any(len(p) > 1 and p[0] == "decoder"
+               and re.fullmatch(r"neck|ppm|aux_linear1|luna|block\d+_gate", p[1])
+               for p in paths)
 
 
 def _family(paths) -> str:

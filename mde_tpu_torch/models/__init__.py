@@ -19,8 +19,10 @@ from ..ops.init import init_weights
 from .newcrfs.model import NewCRFDepth
 from .oda2.conv import ODA2ConvModel
 from .oda2.ksa import ODA2KSARegModel
+from .oda2.luna import ODA2LunaModel
 from .oda2.red_order_reg import ODA2OrderedRegModel
 from .oda2.red_order_swin import ODA2OrderedSwinModel
+from .oda2.red_luna import ODA2RedLunaRegModel
 from .oda2.red_order_swin2 import ODA2OrderedSwin2RegModel
 from .oda2.red_reg import ODA2RedRegModel
 
@@ -30,7 +32,10 @@ _REGISTRY = {"oda2_red_order_swin2": ODA2OrderedSwin2RegModel.build,
              "oda2_red_order_reg": ODA2OrderedRegModel.build,
              "oda2_red_order_cls": functools.partial(ODA2OrderedRegModel.build, cls_head=True),
              "oda2_red_order_swin": ODA2OrderedSwinModel.build,
-             "oda2_red_reg": ODA2RedRegModel.build, "oda2_conv": ODA2ConvModel.build}
+             "oda2_red_reg": ODA2RedRegModel.build, "oda2_conv": ODA2ConvModel.build,
+             "oda2_luna_reg": ODA2LunaModel.build,
+             "oda2_luna_cls": functools.partial(ODA2LunaModel.build, cls_head=True),
+             "oda2_red_luna_reg": ODA2RedLunaRegModel.build}
 
 
 def available_models():

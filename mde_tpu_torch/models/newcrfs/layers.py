@@ -20,7 +20,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ...ops.attention import relative_position_index
+from ...ops.attention import dropout_window_attention, relative_position_index
 from ...ops.conv import ZeroPadConv
 from ...ops.drop import Dropout
 from ...ops.init import trunc_normal_
@@ -36,8 +36,9 @@ class CRFWindowAttention(nn.Module):
     """Window attention over (B*nW, N, C) windows with q and k from ``x``
     and v given (``layers.py:33-96``), rel-pos bias and the optional SW-MSA
     mask, then ``proj``. In training with ``attn_drop_prob`` > 0 the
-    probabilities go through dropout, on the plain einsum path, as JAX's
-    module does; otherwise kernel K1 computes the attention."""
+    probabilities go through dropout on JAX's einsum path
+    (``ops.attention.dropout_window_attention``, ``layers.py:76-96``), as
+    JAX's module does; otherwise kernel K1 computes the attention."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int, qkv_bias: bool = True,
                  attn_drop_prob: float = 0.0, drop_prob: float = 0.0):
@@ -71,48 +72,31 @@ class CRFWindowAttention(nn.Module):
         bias = bias.reshape(n, n, nh).permute(2, 0, 1).contiguous()  # (nh, N, N) f32
         qk = self.qk(x)
         if self.training and self.attn_drop.rate > 0:
-            out = self._dropout_attention(qk, v, bias, mask, scale, generator)
+            q, k = qk.reshape(bw, n, 2, nh, c // nh).unbind(2)
+            out = dropout_window_attention(q, k, v.reshape(bw, n, nh, c // nh), bias, mask,
+                                           scale, self.attn_drop, generator)
         else:
             out = window_attention_qk_v(qk, v, bias, mask, nh, scale)
         return self.proj_drop(self.proj(out), generator)
-
-    def _dropout_attention(self, qk, v, bias, mask, scale, generator) -> torch.Tensor:
-        """The JAX module's einsum path (``:76-96``): the logits in the
-        activation dtype, bias and mask added there, softmax in f32, cast
-        back, dropout, then P . v."""
-        bw, n, c = v.shape
-        nh, hd = self.num_heads, c // self.num_heads
-        q, k = qk.reshape(bw, n, 2, nh, hd).unbind(2)
-        attn = torch.einsum("bqhd,bkhd->bhqk", q * torch.tensor(scale, dtype=q.dtype), k)
-        attn = attn + bias[None].to(attn.dtype)
-        if mask is not None:
-            nw = mask.shape[0]
-            attn = (attn.reshape(bw // nw, nw, nh, n, n) + mask.to(attn.dtype)[None, :, None]
-                    ).reshape(bw, nh, n, n)
-        attn = self.attn_drop(attn.float().softmax(dim=-1).to(v.dtype), generator)
-        return torch.einsum("bhqk,bkhd->bqhd", attn, v.reshape(bw, n, nh, hd)).reshape(bw, n, c)
-
 
 class CRFBlock(nn.Module):
     """One CRF message-passing block (``layers.py:99-150``): LN, x and v both
     zero-padded to window multiples, shifted together and partitioned, the
     SW-MSA mask built on the padded grid, CRF window attention, residual, LN,
-    MLP, residual. Dropout inside the MLP is not ported (NewCRF builds its
-    blocks with rate 0)."""
+    MLP, residual. ``drop_prob`` drops the attention's projection and both
+    MLP outputs, as JAX's block does (NewCRF builds its blocks at rate 0)."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int = 7, shift_size: int = 0,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True, drop_prob: float = 0.0,
                  attn_drop_prob: float = 0.0):
         super().__init__()
-        if drop_prob:
-            raise NotImplementedError("dropout inside the CRF block's MLP is not ported; its "
-                                      "rate must be 0")
         self.window_size = window_size
         self.shift_size = shift_size
         self.norm1 = LayerNorm(dim)
-        self.attn = CRFWindowAttention(dim, num_heads, window_size, qkv_bias, attn_drop_prob)
+        self.attn = CRFWindowAttention(dim, num_heads, window_size, qkv_bias, attn_drop_prob,
+                                       drop_prob)
         self.norm2 = LayerNorm(dim)
-        self.mlp = SwinMLP(dim, int(dim * mlp_ratio))
+        self.mlp = SwinMLP(dim, int(dim * mlp_ratio), drop_prob)
 
     def forward(self, x: torch.Tensor, v: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -126,7 +110,7 @@ class CRFBlock(nn.Module):
         vw = window_partition(cyclic_shift(v, s), r)
         y = cyclic_unshift(window_reverse(self.attn(yw, vw, mask, generator), r, hp, wp), s)
         x = x + y[:, :h, :w]
-        return x + self.mlp(self.norm2(x))
+        return x + self.mlp(self.norm2(x), generator)
 
 
 class BasicCRFLayer(nn.Module):

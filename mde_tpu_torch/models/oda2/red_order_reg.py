@@ -82,9 +82,11 @@ class RedNeck(nn.Module):
     with ``convs=3`` the gen-1 neck, ``red_order_swin.py:80-118``): per scale
     a chain of ConvBNs, in -> in -> (2d, d, d/2, d/4 at 1/4 ... 1/32), or
     in -> in -> d/4 -> d/4 with three, upsampled to 1/4 scale,
-    concatenated fine to coarse, then bias-free Linear to d and LayerNorm.
-    A decoder subclasses it, so that the neck's modules sit at the
-    decoder's top level under the reference's names."""
+    concatenated fine to coarse, then bias-free Linear to d and LayerNorm
+    (:meth:`neck`; :meth:`neck_concat` also returns the concat before the
+    Linear, JAX's ``return_concat``). A decoder subclasses it, so that the
+    neck's modules sit at the decoder's top level under the reference's
+    names."""
 
     def __init__(self, enc_dims: Sequence[int], dec_dim: int, convs: int = 2,
                  bn_momentum: float = 0.1, bn_eps: float = 1e-5):
@@ -102,10 +104,15 @@ class RedNeck(nn.Module):
         self.dec_linear = Linear(sum(outs.values()), d, bias=False)
         self.dec_norm = LayerNorm(d)
 
-    def neck(self, features: Sequence[torch.Tensor]) -> torch.Tensor:
+    def neck_concat(self, features: Sequence[torch.Tensor]
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         ys = [upsample2d(getattr(self, f"enc_conv{s}")(f), k)
               for s, f, k in zip(("4", "8", "16", "32"), features, (1, 2, 4, 8))]
-        return self.dec_norm(self.dec_linear(torch.cat(ys, dim=-1)))
+        cat = torch.cat(ys, dim=-1)
+        return self.dec_norm(self.dec_linear(cat)), cat
+
+    def neck(self, features: Sequence[torch.Tensor]) -> torch.Tensor:
+        return self.neck_concat(features)[0]
 
 
 def _logit_to_indices(logit: torch.Tensor, num_emb: int) -> torch.Tensor:

@@ -19,7 +19,7 @@ import torch
 from torch import nn
 
 from ..ops.attention import WindowAttention
-from ..ops.drop import DropPath
+from ..ops.drop import Dropout, DropPath
 from ..ops.mlp import SwinMLP
 from ..ops.pad import pad2d, pad_to_multiple
 from ..ops.remat import checkpoint
@@ -70,22 +70,26 @@ DropMasks = Optional[Tuple[torch.Tensor, torch.Tensor]]
 class SwinBlock(nn.Module):
     """[shift ->] window attention with rel-pos bias (and the SW-MSA mask)
     -> residual -> LN -> MLP -> residual. Windows are padded by
-    ``padding_mode``. In
-    training both residual branches go through stochastic depth, each with
-    its own per-sample mask (``draw_masks``)."""
+    ``padding_mode``. In training both residual branches go through
+    stochastic depth, each with its own per-sample mask (``draw_masks``),
+    and ``attn_drop_prob`` (the attention probabilities) and ``drop_prob``
+    (the projection and both MLP outputs) drop elements, drawn from the
+    ``generator``."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int = 7, shift_size: int = 0,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True, path_drop_prob: float = 0.0,
-                 padding_mode: str = "edge"):
+                 padding_mode: str = "edge", drop_prob: float = 0.0,
+                 attn_drop_prob: float = 0.0):
         super().__init__()
         self.window_size = window_size
         self.shift_size = shift_size
         self.padding_mode = padding_mode
         self.norm1 = LayerNorm(dim)
-        self.attn = WindowAttention(dim, num_heads, window_size, qkv_bias)
+        self.attn = WindowAttention(dim, num_heads, window_size, qkv_bias, attn_drop_prob,
+                                    drop_prob)
         self.drop_path = DropPath(path_drop_prob)
         self.norm2 = LayerNorm(dim)
-        self.mlp = SwinMLP(dim, int(dim * mlp_ratio))
+        self.mlp = SwinMLP(dim, int(dim * mlp_ratio), drop_prob)
 
     def draw_masks(self, batch: int, generator: Optional[torch.Generator],
                    device: torch.device) -> DropMasks:
@@ -94,7 +98,12 @@ class SwinBlock(nn.Module):
         attn = self.drop_path.draw(batch, generator, device)
         return None if attn is None else (attn, self.drop_path.draw(batch, generator, device))
 
-    def forward(self, x: torch.Tensor, masks: DropMasks = None) -> torch.Tensor:
+    def drops(self) -> bool:
+        """Whether a call in the current mode draws element-wise dropout."""
+        return self.training and (self.attn.attn_drop.rate > 0 or self.mlp.drop.rate > 0)
+
+    def forward(self, x: torch.Tensor, masks: DropMasks = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         _, h, w, _ = x.shape
         r, s = self.window_size, self.shift_size
         keep_attn, keep_mlp = masks if masks is not None else (None, None)
@@ -102,27 +111,30 @@ class SwinBlock(nn.Module):
         hp, wp = y.shape[1], y.shape[2]
         mask = shifted_window_attn_mask(hp, wp, r, s, x.device) if s > 0 else None
         y = window_partition(cyclic_shift(y, s), r)
-        y = cyclic_unshift(window_reverse(self.attn(y, mask), r, hp, wp), s)
+        y = cyclic_unshift(window_reverse(self.attn(y, mask, generator), r, hp, wp), s)
         x = x + self.drop_path(y[:, :h, :w], keep_attn)
-        return x + self.drop_path(self.mlp(self.norm2(x)), keep_mlp)
+        return x + self.drop_path(self.mlp(self.norm2(x), generator), keep_mlp)
 
 
 class SwinStage(nn.Module):
     """``depth`` blocks with alternating shift, then an optional patch merge.
     Returns (stage output, input of the next stage). ``use_checkpoint``
     recomputes each block in the backward pass (``ops/remat.py``); its
-    drop-path masks are drawn before the block, once."""
+    drop-path masks are drawn before the block, once, and its dropout masks
+    again from the same generator state."""
 
     def __init__(self, dim: int, depth: int, num_heads: int, window_size: int = 7,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  path_drop_probs: Sequence[float] = (), downsample: bool = False,
-                 use_checkpoint: bool = False, padding_mode: str = "edge"):
+                 use_checkpoint: bool = False, padding_mode: str = "edge",
+                 drop_prob: float = 0.0, attn_drop_prob: float = 0.0):
         super().__init__()
         self.use_checkpoint = use_checkpoint
         pdp = list(path_drop_probs) + [0.0] * (depth - len(path_drop_probs))
         self.blocks = nn.ModuleList(
             SwinBlock(dim, num_heads, window_size, 0 if i % 2 == 0 else window_size // 2,
-                      mlp_ratio, qkv_bias, pdp[i], padding_mode) for i in range(depth))
+                      mlp_ratio, qkv_bias, pdp[i], padding_mode, drop_prob, attn_drop_prob)
+            for i in range(depth))
         self.downsample = PatchMerging(dim, padding_mode) if downsample else None
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
@@ -130,9 +142,10 @@ class SwinStage(nn.Module):
         for block in self.blocks:
             masks = block.draw_masks(x.shape[0], generator, x.device)
             if self.use_checkpoint and torch.is_grad_enabled():
-                x = checkpoint(block, x, masks)
+                x = checkpoint(block, x, masks,
+                               generator=generator if block.drops() else None)
             else:
-                x = block(x, masks)
+                x = block(x, masks, generator)
         return x, (x if self.downsample is None else self.downsample(x))
 
 
@@ -144,19 +157,24 @@ class SwinTransformer(nn.Module):
     ``forward`` in training. ``frozen_stages`` >= 0 detaches the patch
     embedding's output, and each stage i with i + 1 < ``frozen_stages`` its
     outputs, where JAX stops the gradient (``:309-310,339-341``): the
-    parameters before them get no gradient."""
+    parameters before them get no gradient. ``drop_prob`` drops the patch
+    embedding's output and, in every block, the attention's projection and
+    the MLP's outputs; ``attn_drop_prob`` the attention probabilities
+    (``:283``), both from the ``generator`` and 0 by default."""
 
     def __init__(self, patch_size: int = 4, embed_dim: int = 96,
                  depths: Sequence[int] = (2, 2, 6, 2), num_heads: Sequence[int] = (3, 6, 12, 24),
                  window_size: int = 7, mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  path_drop_prob: float = 0.2, out_indices: Sequence[int] = (0, 1, 2, 3),
                  use_checkpoint: bool = False, frozen_stages: int = -1,
-                 padding_mode: str = "edge"):
+                 padding_mode: str = "edge", drop_prob: float = 0.0,
+                 attn_drop_prob: float = 0.0):
         super().__init__()
         self.num_features = tuple(int(embed_dim * 2 ** i) for i in range(len(depths)))
         self.out_indices = tuple(out_indices)
         self.frozen_stages = frozen_stages
         self.patch_embed = PatchEmbed(patch_size, 3, embed_dim, padding_mode)
+        self.pos_drop = Dropout(drop_prob)
         total = sum(depths)
         pdp = [path_drop_prob * i / max(total - 1, 1) for i in range(total)]
         self.layers = nn.ModuleList()
@@ -165,7 +183,8 @@ class SwinTransformer(nn.Module):
             self.layers.append(SwinStage(
                 self.num_features[i], depth, num_heads[i], window_size, mlp_ratio, qkv_bias,
                 pdp[start:start + depth], downsample=i < len(depths) - 1,
-                use_checkpoint=use_checkpoint, padding_mode=padding_mode))
+                use_checkpoint=use_checkpoint, padding_mode=padding_mode, drop_prob=drop_prob,
+                attn_drop_prob=attn_drop_prob))
         for i in self.out_indices:
             self.add_module(f"norm{i}", LayerNorm(self.num_features[i]))
 
@@ -174,6 +193,7 @@ class SwinTransformer(nn.Module):
         x = self.patch_embed(x)
         if self.frozen_stages >= 0:
             x = x.detach()
+        x = self.pos_drop(x, generator)
         outs = []
         for i, stage in enumerate(self.layers):
             x_out, x = stage(x, generator)

@@ -14,15 +14,17 @@ from .tnn import BatchNorm, LayerNorm, Linear, bn_use_running_average, gelu
 
 
 class SwinMLP(nn.Module):
-    """fc1 -> GELU -> fc2."""
+    """fc1 -> GELU -> dropout -> fc2 -> dropout (``mde_tpu/ops/mlp.py:68-85``)."""
 
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int, drop_prob: float = 0.0):
         super().__init__()
         self.fc1 = Linear(dim, hidden)
         self.fc2 = Linear(hidden, dim)
+        self.drop = Dropout(drop_prob)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(gelu(self.fc1(x)))
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.drop(self.fc2(self.drop(gelu(self.fc1(x)), generator)), generator)
 
 
 class PreNormFF(nn.Module):

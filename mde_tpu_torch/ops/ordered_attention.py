@@ -25,8 +25,10 @@ class PreNormOrderedSwinSA(nn.Module):
     (the gen-1 head) holds no table and takes no indices.
 
     ``drop_prob`` drops ``o_proj``'s output (``mde_tpu/ops/ordered_attention.py:146``).
-    With ``attn_drop_prob`` > 0 in training JAX leaves the kernel for its
-    einsum path; the port does not have that path and raises there."""
+    With ``attn_drop_prob`` > 0 in training the attention runs JAX's einsum
+    path instead of the kernel, as JAX's module does (``:126-143``); there
+    the reference drops the scaled **logits**, before the depth bias and
+    the f32 softmax, where the other attentions drop probabilities."""
 
     def __init__(self, dim: int, num_heads: int, num_emb: int, window_size: int = 8,
                  shift_size: int = 0, bias_type: str = "depth", bias_init: str = "linear",
@@ -34,7 +36,7 @@ class PreNormOrderedSwinSA(nn.Module):
         super().__init__()
         if bias_type not in ("depth", "none"):
             raise NotImplementedError(f"bias_type {bias_type!r}")
-        self.attn_drop_prob = attn_drop_prob
+        self.attn_drop = Dropout(attn_drop_prob)
         self.drop = Dropout(drop_prob)
         self.num_heads = num_heads
         self.num_emb = num_emb
@@ -56,10 +58,6 @@ class PreNormOrderedSwinSA(nn.Module):
 
     def forward(self, x: torch.Tensor, indices: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        if self.training and self.attn_drop_prob > 0:
-            raise NotImplementedError(
-                "attention dropout in training (JAX's einsum path) is not ported; "
-                "attn_drop_prob must be 0 to train")
         b, h, w, c = x.shape
         r, s = self.window_size, self.shift_size
         identity = x
@@ -70,7 +68,27 @@ class PreNormOrderedSwinSA(nn.Module):
         if self.depth_embedding is not None:
             indices = cyclic_shift(indices[..., None], s)
             idx = window_partition(indices.to(torch.int32), r)[..., 0].contiguous()
-        out = ordered_attention(q, k, v, idx, self.depth_embedding, self.num_heads,
-                                (c // self.num_heads) ** -0.5, self.num_emb)
+        scale = (c // self.num_heads) ** -0.5
+        if self.training and self.attn_drop.rate > 0:
+            out = self._dropout_attention(q, k, v, idx, scale, generator)
+        else:
+            out = ordered_attention(q, k, v, idx, self.depth_embedding, self.num_heads, scale,
+                                    self.num_emb)
         out = window_reverse(self.drop(self.o_proj(out), generator), r, h, w)
         return cyclic_unshift(out, s) + identity
+
+    def _dropout_attention(self, q, k, v, idx, scale, generator) -> torch.Tensor:
+        """JAX's einsum path over (BW, n, C) windows: the logits q . k times
+        the scale in the activation dtype, dropped, plus the gathered depth
+        bias ``table[i_q - i_k + E - 1]`` (none without a table), softmax in
+        f32, cast back, then P . v."""
+        bw, n, c = q.shape
+        nh = self.num_heads
+        q, k, v = (t.reshape(bw, n, nh, c // nh) for t in (q, k, v))
+        attn = torch.einsum("bqhd,bkhd->bhqk", q, k) * torch.tensor(scale, dtype=q.dtype)
+        attn = self.attn_drop(attn, generator)
+        if self.depth_embedding is not None:
+            rel = (idx[:, :, None] - idx[:, None, :] + (self.num_emb - 1)).long()
+            attn = attn + self.depth_embedding[rel].permute(0, 3, 1, 2).to(attn.dtype)
+        attn = attn.float().softmax(dim=-1).to(v.dtype)
+        return torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(bw, n, c)

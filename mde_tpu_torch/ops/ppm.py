@@ -19,13 +19,14 @@ from .tnn import BatchNorm, conv2d_nhwc, gelu
 
 
 class EdgeConv3x3(nn.Conv2d):
-    """Bias-free 3x3 conv after a one-pixel replicate pad, on NHWC input."""
+    """3x3 conv (bias-free unless ``bias``) after a one-pixel replicate pad,
+    on NHWC input."""
 
-    def __init__(self, in_ch: int, out_ch: int):
-        super().__init__(in_ch, out_ch, 3, bias=False)
+    def __init__(self, in_ch: int, out_ch: int, bias: bool = False):
+        super().__init__(in_ch, out_ch, 3, bias=bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv2d_nhwc(pad2d(x, 1, 1, 1, 1, mode="edge"), self.weight)
+        return conv2d_nhwc(pad2d(x, 1, 1, 1, 1, mode="edge"), self.weight, self.bias)
 
 
 class PyramidPoolingModule(nn.Module):

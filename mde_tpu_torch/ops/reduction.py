@@ -17,7 +17,7 @@ Parameter names follow the reference torch state dict (``norm``,
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,31 +37,38 @@ def block_mean(x: torch.Tensor, r: int) -> torch.Tensor:
     return x.float().reshape(b, h // r, r, w // r, r, c).mean(dim=(2, 4)).to(x.dtype)
 
 
-def sinusoidal_depth_embedding(num_emb: int, dims: int, base: float = 2000.0) -> torch.Tensor:
+def sinusoidal_depth_embedding(num_emb: int, dims: int, base: float = 2000.0,
+                               scaled: bool = True) -> torch.Tensor:
     """The fixed (num_emb, dims) f32 table sin | cos of pos * base^(-2i/dims),
-    interleaved, scaled by sqrt(1/dims); the cls head's is base 1000."""
+    interleaved, scaled by sqrt(1/dims) unless ``scaled`` is False; the cls
+    head's is base 1000, the red-Luna aux bank base 10000 unscaled."""
     emb = np.zeros((num_emb, dims), np.float32)
     pos = np.arange(num_emb, dtype=np.float32)
     inv_freq = np.exp(np.arange(0.0, dims, 2.0, dtype=np.float32) * (-math.log(base) / dims))
     pos_dot = np.outer(pos, inv_freq)
     emb[:, 0::2] = np.sin(pos_dot)
     emb[:, 1::2] = np.cos(pos_dot)
-    emb *= math.sqrt(1.0 / dims)
+    if scaled:
+        emb *= math.sqrt(1.0 / dims)
     return torch.from_numpy(emb)
 
 
-def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
-            attn_drop: Dropout, generator: Optional[torch.Generator]) -> torch.Tensor:
-    """softmax(q k^T * scale) v over (B, Nq, C) queries and (B, Nk, C) keys
-    and values, in JAX's order: the logits in q's dtype, the softmax in
-    f32, its cast back to q's dtype, dropout."""
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
+           attn_drop: Dropout, generator: Optional[torch.Generator],
+           scale: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """softmax(q k^T * scale) v over (B, Nq, C) queries, (B, Nk, C) keys and
+    (B, Nk, Cv) values split into ``num_heads``, in JAX's order: the logits
+    in q's dtype times the scale (default (C / heads)^-0.5), the softmax in
+    f32, its cast back to q's dtype, dropout, P . v. Returns ((B, Nq, Cv),
+    the f32 softmax (B, heads, Nq, Nk))."""
     b, nq, c = q.shape
-    hd = c // num_heads
-    qh = q.reshape(b, nq, num_heads, hd)
-    kh, vh = (t.reshape(b, t.shape[1], num_heads, hd) for t in (k, v))
-    attn = torch.einsum("bqhd,bkhd->bhqk", qh, kh) * torch.tensor(hd ** -0.5, dtype=q.dtype)
-    attn = attn_drop(attn.float().softmax(dim=-1).to(q.dtype), generator)
-    return torch.einsum("bhqk,bkhd->bqhd", attn, vh).reshape(b, nq, c)
+    if scale is None:
+        scale = (c // num_heads) ** -0.5
+    qh, kh, vh = (t.reshape(b, t.shape[1], num_heads, -1) for t in (q, k, v))
+    attn = torch.einsum("bqhd,bkhd->bhqk", qh, kh) * torch.tensor(scale, dtype=q.dtype)
+    weights = attn.float().softmax(dim=-1)
+    attn = attn_drop(weights.to(q.dtype), generator)
+    return torch.einsum("bhqk,bkhd->bqhd", attn, vh).reshape(b, nq, v.shape[-1]), weights
 
 
 class PreNormReductionSA(nn.Module):
@@ -92,8 +99,8 @@ class PreNormReductionSA(nn.Module):
         b, h, w, c = x.shape
         xn = self.norm(cyclic_shift(x, self.shift_size))
         red = block_mean(xn, self.reduction_ratio).reshape(b, -1, c)
-        out = _attend(self.q_proj(xn).reshape(b, h * w, c), self.k_proj(red),
-                      self.v_proj(red), self.num_heads, self.attn_drop, generator)
+        out, _ = attend(self.q_proj(xn).reshape(b, h * w, c), self.k_proj(red),
+                        self.v_proj(red), self.num_heads, self.attn_drop, generator)
         out = self.drop(self.o_proj(out.reshape(b, h, w, c)), generator)
         return cyclic_unshift(out, self.shift_size) + x
 
@@ -119,6 +126,6 @@ class PreNormOrderedReductionSA(PreNormReductionSA):
         q = self.q_proj(self.norm(x)).reshape(b, h * w, c)
         red = block_mean(cyclic_shift(x, self.shift_size), self.reduction_ratio)
         red = self.mean_norm(self.mean_proj(red)).reshape(b, -1, c)
-        out = _attend(q, self.k_proj(red), self.v_proj(red), self.num_heads, self.attn_drop,
-                      generator)
+        out, _ = attend(q, self.k_proj(red), self.v_proj(red), self.num_heads, self.attn_drop,
+                        generator)
         return self.drop(self.o_proj(out.reshape(b, h, w, c)), generator) + x

@@ -28,13 +28,22 @@ ModelAdapter = Callable[..., Tuple[Tuple[torch.Tensor, ...], Optional[torch.Tens
 _EDGE_EMITTERS = frozenset({"adabins", "oda_bins", "depthformer_v3"})
 
 
+def _depth_maps(value) -> bool:
+    """Whether ``value`` is a non-empty tuple or list of (B, h, w, 1) maps."""
+    return (isinstance(value, (tuple, list)) and len(value) > 0
+            and all(getattr(m, "ndim", 0) == 4 and m.shape[-1] == 1 for m in value))
+
+
 def default_adapter(model_out) -> Tuple[Tuple[torch.Tensor, ...], Optional[torch.Tensor]]:
     """A model's output -> (output maps, bin centers or None), for the
     contracts ``(pred, maps[, ...])`` (the ordered heads), ``(pred, aux,
-    centers, attns)``, ``(pred, bins[, ...])`` and ``pred``."""
+    centers, attns)``, ``(pred, bins[, ...])`` and ``pred``. A second item
+    is taken as maps only where each is a (B, h, w, 1) map: the attention
+    weights that ``oda2_red_luna_reg`` returns there are 4-D too, and JAX's
+    adapter (``mde_tpu/train/step.py:38-43``) hands them to the loss as
+    maps; the port gives its loss the prediction."""
     if isinstance(model_out, tuple):
-        if (len(model_out) >= 2 and isinstance(model_out[1], (tuple, list))
-                and len(model_out[1]) > 0 and getattr(model_out[1][0], "ndim", 0) == 4):
+        if len(model_out) >= 2 and _depth_maps(model_out[1]):
             return tuple(model_out[1]), None
         if len(model_out) == 4 and getattr(model_out[2], "ndim", 0) == 2:
             return (model_out[0],), model_out[2]

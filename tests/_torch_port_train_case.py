@@ -180,27 +180,29 @@ def port_names(params, stats=None):
 
 
 
-def jax_step(model, opt, variables, data):
+def jax_step(model, opt, variables, data, adapter=None, freeze_bn=False):
     """(grads, logs, new batch_stats, new params) of one step of JAX's
-    ``make_train_step`` of ``model`` and ``opt`` from ``variables`` on the
-    numpy batch ``data``, the gradients stashed by a first link in the
-    optimizer chain: the reference side of a family's train-step test."""
+    ``make_train_step`` of ``model`` and ``opt`` (``adapter`` None for
+    JAX's default; ``freeze_bn``) from ``variables`` on the numpy batch
+    ``data``, the gradients stashed by a first link in the optimizer chain:
+    the reference side of a family's train-step test."""
     stash = optax.GradientTransformation(
         lambda params: jax.tree_util.tree_map(jnp.zeros_like, params),
         lambda updates, state, params=None: (updates, updates))
     tx = optax.chain(stash, jax_build_optimizer(opt, TOTAL_STEPS))
     state = JaxTrainState.create(variables["params"], variables["batch_stats"], tx)
-    step = jax_make_train_step(model, opt, 0.001, 80.0, tx, donate=False)
+    step = jax_make_train_step(model, opt, 0.001, 80.0, tx, adapter=adapter,
+                               freeze_bn=freeze_bn, donate=False)
     new, logs = step(state, {k: jnp.asarray(v) for k, v in data.items()},
                      jax.random.PRNGKey(0))
     return (new.opt_state[0], {k: float(v) for k, v in logs.items()}, new.batch_stats,
             new.params)
 
 
-def port_step_of(model, opt, data):
+def port_step_of(model, opt, data, freeze_bn=False):
     """One step of the port's ``make_train_step`` of ``model`` (weights
-    loaded) and ``opt`` on ``data``: (the gradients its optimizer took,
-    logs)."""
+    loaded) and ``opt`` (and ``freeze_bn``) on ``data``: (the gradients its
+    optimizer took, logs)."""
     state = TrainState.create(model, opt, TOTAL_STEPS)
     seen = {}
     real = state.optimizer.update
@@ -210,8 +212,8 @@ def port_step_of(model, opt, data):
         real(grads)
 
     state.optimizer.update = update
-    state, logs = make_train_step(opt, 0.001, 80.0)(state, data,
-                                                    torch.Generator().manual_seed(0))
+    state, logs = make_train_step(opt, 0.001, 80.0, freeze_bn=freeze_bn)(
+        state, data, torch.Generator().manual_seed(0))
     assert state.step == 1
     return seen, {k: float(v) for k, v in logs.items()}
 

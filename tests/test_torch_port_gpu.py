@@ -41,7 +41,7 @@ from mde_tpu_torch.ops.kernels.window_attention import (plain_window_attention,
 from mde_tpu_torch.ops.tnn import bn_freeze_scope
 from mde_tpu_torch.ops.window import shifted_window_attn_mask
 from mde_tpu_torch.train.state import TrainState
-from mde_tpu_torch.train.step import make_train_step
+from mde_tpu_torch.train.step import default_adapter, make_train_step
 
 TOL = 1e-5
 # bf16, relative to max(1, max |plain|): the kernels keep the logits (K1, K2)
@@ -993,14 +993,20 @@ SIBLINGS_TINY = {
     "oda2_red_order_swin": (dict(num_repeats=2, num_emb=16, window_size=4),
                             dict(window_attention=6, ordered_attention=4), red_order_reg),
     "oda2_red_reg": ({}, dict(window_attention=6), None),
-    "oda2_conv": ({}, dict(window_attention=6), None)}
+    "oda2_conv": ({}, dict(window_attention=6), None),
+    # the ODA2 Luna half: the Luna attentions are plain einsums
+    "oda2_luna_reg": (dict(num_aux=8, aux_dim=16), dict(window_attention=6), None),
+    "oda2_luna_cls": (dict(num_aux=8, aux_dim=16), dict(window_attention=6), None),
+    "oda2_red_luna_reg": (dict(num_aux=6, num_layers=2), dict(window_attention=6), None)}
 # bf16 maps, card against CPU, in metres (depth range 80 m): about three
 # times the largest gap of each sound model on an H100 (tools/sibling_bf16_gaps.py:
-# 0.3125, 0.0490, 0.4688, 0.1922, 0.0390 m). The kernels keep f32 sums where
-# the plain versions round to bf16, and a bf16 sigmoid in [0.5, 1) moves
-# in steps of 2^-8, 0.3125 m
+# 0.3125, 0.0490, 0.4688, 0.1922, 0.0390 m for the siblings; 0.0098,
+# 0.0043 (the cls bin centers included) and 0.2276 m for the Luna models).
+# The kernels keep f32 sums where the plain versions round to bf16, and a
+# bf16 sigmoid in [0.5, 1) moves in steps of 2^-8, 0.3125 m
 SIBLING_BF16_TOL = {"oda2_red_order_reg": 1.0, "oda2_red_order_cls": 0.15,
-                    "oda2_red_order_swin": 1.5, "oda2_red_reg": 0.6, "oda2_conv": 0.12}
+                    "oda2_red_order_swin": 1.5, "oda2_red_reg": 0.6, "oda2_conv": 0.12,
+                    "oda2_luna_reg": 0.03, "oda2_luna_cls": 0.013, "oda2_red_luna_reg": 0.7}
 
 
 @pytest.mark.gpu
@@ -1009,7 +1015,8 @@ SIBLING_BF16_TOL = {"oda2_red_order_reg": 1.0, "oda2_red_order_cls": 0.15,
 def test_tiny_sibling_on_card_matches_cpu(cuda, name, dtype, monkeypatch):
     """A tiny sibling's forward on the card (exact launches) against the
     CPU's, the CPU fed the card's index maps: f32 within 1e-3 m, bf16
-    within the model's SIBLING_BF16_TOL."""
+    within the model's SIBLING_BF16_TOL; the maps the loss takes
+    (``default_adapter``), and the cls Luna model's bin centers."""
     extra, launches, module = SIBLINGS_TINY[name]
     cfg = dict(extra, name=name, encoder_type="custom", dec_dim=32, num_heads=4)
     kw = dict(TINY_KW, use_checkpoint=False, dtype=dtype)
@@ -1030,8 +1037,8 @@ def test_tiny_sibling_on_card_matches_cpu(cuda, name, dtype, monkeypatch):
         if dev.type == "cuda":
             torch.cuda.synchronize()
             assert kernels.launch_counts == dict(NO_LAUNCHES, **launches)
-        maps = out[1] if isinstance(out[1], tuple) and out[1][0] is not None else (out[0],)
-        outs.append([m.cpu() for m in maps])
+        maps, centers = default_adapter(out)
+        outs.append([m.cpu() for m in maps + (() if centers is None else (centers,))])
     tol = 1e-3 if dtype == torch.float32 else SIBLING_BF16_TOL[name]
     for a, b in zip(*outs):
         assert a.shape == b.shape and torch.isfinite(a).all()
@@ -1054,7 +1061,8 @@ def test_tiny_sibling_trainer_fit_on_card(cuda, name, tmp_path):
     finite metrics, the checkpoint."""
     from mde_tpu_torch.core.config import load_config
     from mde_tpu_torch.train.driver import Trainer
-    model = dict(DRIVER_OPT["model"], name=name, reduction_ratio=4)
+    model = dict(DRIVER_OPT["model"], name=name, reduction_ratio=4, num_aux=8, aux_dim=16,
+                 num_layers=1)
     opt = load_config(dict(DRIVER_OPT, model=model, output_dir=str(tmp_path)))
     trainer = Trainer(opt, model_overrides=dict(TINY_KW, use_checkpoint=False))
     kernels.reset_launch_counts()
@@ -1066,3 +1074,46 @@ def test_tiny_sibling_trainer_fit_on_card(cuda, name, tmp_path):
     kernel, per_micro = SIBLING_DECODER_BWD.get(name, ("ordered_attention_bwd", 0))
     assert kernels.launch_counts[kernel] == 2 * 2 * per_micro
     assert os.listdir(tmp_path / "checkpoints") == ["step_2"]
+
+
+# one train step of the tiny KSA and gen-1 models at batch 2 (no recompute,
+# stochastic depth off): (config, the kernel whose module leaves it for
+# JAX's einsum path in training with attention dropout, launches of one
+# step at rate 0). The KSA decoder's 8 W-MSAs leave K1 too; the encoder's
+# 6 blocks keep it
+DROPOUT_STEPS = {
+    "oda2_ksa_reg": (KSA_TINY, dict(window_attention=14, window_attention_bwd=14,
+                                    channel_attention=6, channel_attention_bwd=6),
+                     dict(window_attention=6, window_attention_bwd=6)),
+    "oda2_red_order_swin": (dict(name="oda2_red_order_swin", encoder_type="custom", dec_dim=32,
+                                 num_heads=4, num_repeats=2, num_emb=16, window_size=4),
+                            dict(window_attention=6, window_attention_bwd=6,
+                                 ordered_attention=4, ordered_attention_bwd=4),
+                            dict(window_attention=6, window_attention_bwd=6))}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("name", list(DROPOUT_STEPS))
+def test_attention_dropout_step_leaves_the_kernels_as_jax_does(cuda, name, rate):
+    """A train step of the tiny KSA (K5 and the decoder's K1) and gen-1
+    (K2) models at ``attn_drop_prob`` 0.1 takes JAX's einsum path: those
+    kernels launch no time in it; at rate 0 exactly as usual. The logs are
+    finite."""
+    cfg, usual, dropping = DROPOUT_STEPS[name]
+    cfg = dict(cfg, attn_drop_prob=rate)
+    opt = {"model": cfg, "loss": {"alpha": 10.0, "beta": 0.15, "per_image": True},
+           "optimizer": {"lr": 1e-4, "weight_decay": 0.1, "eps": 1e-6},
+           "scheduler": {"name": "onecycle"}, "train": {"grad_norm": 0.1}}
+    rng = np.random.RandomState(14)
+    batch = {"image": rng.rand(2, 64, 96, 3).astype(np.float32),
+             "depth": rng.uniform(0.5, 60.0, (2, 64, 96, 1)).astype(np.float32)}
+    model = build_model(cfg, 0.001, 80.0, device=cuda, seed=15, path_drop_prob=0.0,
+                        use_checkpoint=False, **TINY_KW)
+    state = TrainState.create(model, opt, 100)
+    kernels.reset_launch_counts()
+    _, logs = make_train_step(opt, 0.001, 80.0)(state, batch,
+                                                torch.Generator(device=cuda).manual_seed(16))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts == dict(NO_LAUNCHES, **(dropping if rate else usual))
+    assert all(np.isfinite(float(v)) for v in logs.values())

@@ -10,7 +10,9 @@ the CPU.
 - ``adaptive_avg_pool2d``, the Pyramid Pooling Module (eval, and training
   with its new running statistics), ``KernelWindowAttention``, ``KSABlock``
   (shift 0 and shift > 0, non-square maps, one not a multiple of the window)
-  and ``PatchUnMerging`` against the JAX modules at 1e-4. Each JAX module's
+  and ``PatchUnMerging`` against the JAX modules at 1e-4; the decoder's
+  dropout rates reaching every block, and a KSA block in training at each
+  rate under flax's dropout masks. Each JAX module's
   variables are seeded numpy values and reach the port through
   ``from_jax_variables`` (placed where the KSA model holds that module).
 - A tiny ``ODA2KSARegModel`` (custom Swin encoder, decoder depths (2, 2, 2,
@@ -22,6 +24,7 @@ the CPU.
 
 import types
 
+import flax.linen as flax_nn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -37,7 +40,7 @@ from mde_tpu.ops.ppm import PyramidPoolingModule as JaxPPM
 from mde_tpu_torch.convert import from_jax_variables
 from mde_tpu_torch.models import build_model
 from mde_tpu_torch.models.oda2 import ksa
-from mde_tpu_torch.ops import kernels, resize
+from mde_tpu_torch.ops import drop, kernels, resize
 from mde_tpu_torch.ops.kernels.channel_attention import (channel_attention,
                                                          plain_channel_attention,
                                                          plain_channel_attention_bwd)
@@ -214,13 +217,45 @@ def test_kernel_window_attention(impl):
 
 
 @pytest.mark.parametrize("rates", [dict(attn_drop_prob=0.1), dict(drop_prob=0.1)])
-def test_ksa_dropout_is_not_ported(rates):
-    """Dropout inside the KSA block is not ported: a nonzero rate raises,
-    in the block and in the model's build, rather than running without it."""
-    with pytest.raises(NotImplementedError, match="dropout"):
-        ksa.KSABlock(16, 16, 2, 4, **rates)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        build_model(dict(CFG, **rates), 0.001, 80.0, device="cpu", encoder_kwargs=ENC)
+def test_ksa_dropout_is_not_ported(rates, monkeypatch):
+    """Dropout inside the KSA decoder, which the first KSA slice refused, is
+    ported: the build carries each rate to every block's kernel attention,
+    W-MSA and MLPs (the coarsest stage's Swin blocks too), and a KSA block
+    in training at that rate alone matches flax's with flax's masks handed
+    to the port's dropout in call order."""
+    model = build_model(dict(CFG, **rates), 0.001, 80.0, device="cpu", encoder_kwargs=ENC)
+    blocks = [b for stage in model.decoder.layers for b in stage.blocks]
+    attn, out = rates.get("attn_drop_prob", 0.0), rates.get("drop_prob", 0.0)
+    for b in blocks:
+        attentions = [b.attn] + ([b.kernel_attn] if isinstance(b, ksa.KSABlock) else [])
+        assert all(a.attn_drop.rate == attn and a.proj_drop.rate == out for a in attentions)
+        mlps = [b.mlp1, b.mlp2] if isinstance(b, ksa.KSABlock) else [b.mlp]
+        assert all(m.drop.rate == out for m in mlps)
+    assert len(blocks) == 8 and sum(isinstance(b, ksa.KSABlock) for b in blocks) == 6
+    x, enc = _input(18, 2, 8, 12, 16), _input(19, 2, 8, 12, 16)
+    jm = jax_ksa.KSABlock(num_heads=2, window_size=4, shift_size=2, **rates)
+    variables = _jax_vars(jm, 20, x, enc)
+    masks = []
+
+    def interceptor(next_fun, args, kwargs, context):
+        out = next_fun(*args, **kwargs)
+        if (isinstance(context.module, flax_nn.Dropout) and context.method_name == "__call__"
+                and context.module.rate > 0):
+            masks.append(torch.from_numpy(np.asarray(out) != 0))
+        return out
+
+    with flax_nn.intercept_methods(interceptor):
+        ref = jm.apply(variables, jnp.asarray(x), jnp.asarray(enc), train=True,
+                       rngs={"dropout": jax.random.PRNGKey(21)})
+    assert len(masks) == (2 if attn else 6)
+    mod = ksa.KSABlock(16, 16, 2, 4, 2, **rates).train()
+    mod.load_state_dict(_port_state(variables, ("decoder", "layers0_blocks1"),
+                                    "decoder.layers.0.blocks.1."))
+    handed = iter(masks)
+    monkeypatch.setattr(drop, "_keep_mask", lambda shape, *a: next(handed))
+    ours = mod(torch.from_numpy(x), torch.from_numpy(enc))
+    assert next(handed, None) is None
+    assert _max_abs(ours, ref) <= TOL
 
 
 @pytest.mark.parametrize("shift,hw", [(0, (8, 12)), (2, (8, 12)), (2, (7, 10))])

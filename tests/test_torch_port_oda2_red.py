@@ -8,18 +8,22 @@ the JAX package's, in f32 on the CPU.
   shift > 0: the output and the gradients of a seeded loss with respect to
   the input and every parameter, at 1e-4 of max(1, max |JAX's|).
 - ``PreNormFF`` and ``PreNormDWConvFF`` in training with ``drop_prob`` 0.2,
-  and the reduction SAs and the bias-free window SA with their dropouts:
-  the port's dropout is handed the keep masks flax drew (flax's
-  ``nn.Dropout`` calls are intercepted), so the outputs compare at 1e-4.
+  and the attentions below with their dropouts: the port's dropout is
+  handed the keep masks flax drew (flax's ``nn.Dropout`` calls are
+  intercepted), so the outputs compare at 1e-4.
 - The tiny ``oda2_red_reg`` and ``oda2_conv`` (the custom Swin of
   ``tests/test_oda2_siblings.py``, dec_dim 32, 64x64 images): the forward
   through ``from_jax_variables`` at 1e-4 of the depth range, and the port's
   decoder weights back through the JAX package's own
   ``convert_oda2_red_decoder`` / ``convert_oda2_conv_decoder`` to exactly
   the JAX decoder variables. One jitted JAX forward a model.
-- ``build_model`` of every new name runs on the card unless asked, and
-  carries ``bn_momentum`` into every BatchNorm; each tiny sibling trains
-  two steps through ``Trainer.fit`` (port only).
+- The attentions and blocks that drop in training (the reduction SAs, the
+  ordered window SA with and without its table, the W-MSA, the KSA kernel
+  attention and block, the CRF block) under flax's dropout masks.
+- ``build_model`` of every sibling and Luna name runs on the card unless
+  asked, and carries ``bn_momentum`` into every BatchNorm (``oda2_ksa_reg``'s
+  too); each tiny sibling trains two steps through ``Trainer.fit`` (port
+  only).
 """
 
 import os
@@ -35,13 +39,19 @@ import torch
 from mde_tpu.core.family_converters import convert_oda2_conv_decoder, convert_oda2_red_decoder
 from mde_tpu.models.oda2.conv import ODA2ConvModel as JaxConvModel
 from mde_tpu.models.oda2.red_reg import ODA2RedRegModel as JaxRedRegModel
+from mde_tpu.models.newcrfs import layers as jax_crf
+from mde_tpu.models.oda2 import ksa as jax_ksa
+from mde_tpu.ops import attention as jax_attention
 from mde_tpu.ops import mlp as jax_mlp
 from mde_tpu.ops import ordered_attention as jax_ordered
 from mde_tpu.ops import reduction as jax_reduction
+from mde_tpu.ops import window as jax_window
 from mde_tpu_torch.convert import from_jax_variables
 from mde_tpu_torch.core.config import load_config
 from mde_tpu_torch.models import build_model
-from mde_tpu_torch.ops import drop, mlp, ordered_attention, reduction
+from mde_tpu_torch.models.newcrfs import layers as crf
+from mde_tpu_torch.models.oda2 import ksa
+from mde_tpu_torch.ops import attention, drop, mlp, ordered_attention, reduction
 from mde_tpu_torch.train import driver
 from mde_tpu_torch.train.step import default_adapter
 from test_driver import TINY_OPT
@@ -186,43 +196,103 @@ def test_ff_dropout_matches_flax_with_shared_masks(kind, monkeypatch):
     assert _rel(out, ref) <= TOL
 
 
-SA_DROP_CASES = ("PreNormReductionSA", "PreNormOrderedReductionSA", "PreNormOrderedSwinSA")
+def _placed(where, prefix):
+    """The port names of a JAX module's variables placed at ``where`` in a
+    model's tree: ``from_jax_variables`` must name them ``prefix`` + the
+    module's own names."""
+    def names(variables):
+        def nest(tree):
+            for key in reversed(where):
+                tree = {key: tree}
+            return tree
+
+        state = from_jax_variables(dict({"params": {}}, **{k: nest(v) for k, v in
+                                                            variables.items()}))
+        assert all(name.startswith(prefix) for name in state)
+        return {name[len(prefix):]: value for name, value in state.items()}
+    return names
 
 
-@pytest.mark.parametrize("kind", SA_DROP_CASES)
+def _window_mask():
+    return np.array(jax_window.shifted_window_attn_mask(8, 8, 4, 2))
+
+
+RATES = dict(attn_drop_prob=0.1, drop_prob=0.2)
+# kind -> (the JAX module, the port module, the inputs' shapes, extra
+# arguments of both calls, the port names of the JAX variables, the number
+# of masks flax draws)
+SA_DROP_CASES = {
+    "PreNormReductionSA": (
+        lambda: jax_reduction.PreNormReductionSA(num_heads=4, reduction_ratio=4, shift_size=2,
+                                                 **RATES),
+        lambda: reduction.PreNormReductionSA(32, 4, 4, 2, **RATES), [(2, 8, 12, 32)], (),
+        _port_names, 2),
+    "PreNormOrderedReductionSA": (
+        lambda: jax_reduction.PreNormOrderedReductionSA(num_heads=4, reduction_ratio=4,
+                                                        shift_size=2, **RATES),
+        lambda: reduction.PreNormOrderedReductionSA(32, 4, 4, 2, **RATES), [(2, 8, 12, 32)],
+        (None,), _port_names, 2),
+    # the gen-1 SA: JAX's einsum path drops the scaled logits, then softmax
+    "PreNormOrderedSwinSA": (
+        lambda: jax_ordered.PreNormOrderedSwinSA(num_heads=4, num_emb=1, window_size=4,
+                                                 shift_size=2, bias_type="none", **RATES),
+        lambda: ordered_attention.PreNormOrderedSwinSA(32, 4, 1, 4, 2, bias_type="none",
+                                                       **RATES),
+        [(2, 8, 12, 32)], (np.zeros((2, 8, 12), np.int32),), _port_names, 2),
+    # with the depth table: dropped logits, then the gathered bias
+    "PreNormOrderedSwinSA-table": (
+        lambda: jax_ordered.PreNormOrderedSwinSA(num_heads=4, num_emb=16, window_size=4,
+                                                 shift_size=2, **RATES),
+        lambda: ordered_attention.PreNormOrderedSwinSA(32, 4, 16, 4, 2, **RATES),
+        [(2, 8, 12, 32)], (np.random.RandomState(3).randint(0, 16, (2, 8, 12)),),
+        _port_names, 2),
+    "WindowAttention": (
+        lambda: jax_attention.WindowAttention(num_heads=4, window_size=4, **RATES),
+        lambda: attention.WindowAttention(32, 4, 4, **RATES), [(8, 16, 32)], (_window_mask(),),
+        _placed(("encoder", "layers0", "blocks0", "attn"), "encoder.layers.0.blocks.0.attn."),
+        2),
+    "KernelWindowAttention": (
+        lambda: jax_ksa.KernelWindowAttention(num_heads=2, **RATES),
+        lambda: ksa.KernelWindowAttention(32, 64, 2, **RATES), [(4, 16, 32), (4, 16, 64)], (),
+        _placed(("decoder", "layers0_blocks0", "kernel_attn"),
+                "decoder.layers.0.blocks.0.kernel_attn."), 2),
+    # the kernel attention, MLP 1, the W-MSA and MLP 2, each with two masks
+    "KSABlock": (
+        lambda: jax_ksa.KSABlock(num_heads=2, window_size=4, shift_size=2, **RATES),
+        lambda: ksa.KSABlock(16, 16, 2, 4, 2, **RATES), [(2, 8, 12, 16), (2, 8, 12, 16)], (),
+        _placed(("decoder", "layers0_blocks1"), "decoder.layers.0.blocks.1."), 8),
+    # the attention's probabilities and projection, and both MLP outputs
+    "CRFBlock": (
+        lambda: jax_crf.CRFBlock(num_heads=2, window_size=7, shift_size=3, **RATES),
+        lambda: crf.CRFBlock(16, 2, 7, 3, **RATES), [(2, 9, 12, 16), (2, 9, 12, 16)], (),
+        _placed(("crf0", "blocks0"), "crf0.crf_layer.blocks.0."), 4),
+}
+
+
+@pytest.mark.parametrize("kind", list(SA_DROP_CASES))
 def test_sa_dropout_matches_flax_with_shared_masks(kind, monkeypatch):
-    """The SAs in training with dropout (the reduction SAs on their
-    probabilities at 0.1 and their output at 0.2; the gen-1 window SA,
-    bias-free, on its output at 0.2): flax draws the masks, the port's
-    dropout takes them in the same order. The window SA refuses attention
-    dropout in training, where JAX leaves the kernel for its einsum path."""
-    x = _input(8, 2, 8, 12, 32)
-    rates = dict(attn_drop_prob=0.1, drop_prob=0.2)
-    if kind == "PreNormOrderedSwinSA":
-        jm = jax_ordered.PreNormOrderedSwinSA(num_heads=4, num_emb=1, window_size=4,
-                                              shift_size=2, bias_type="none", drop_prob=0.2)
-        mod = ordered_attention.PreNormOrderedSwinSA(32, 4, 1, 4, 2, bias_type="none",
-                                                     drop_prob=0.2)
-        args = (jnp.zeros((2, 8, 12), jnp.int32),)
-        with pytest.raises(NotImplementedError, match="attention dropout"):
-            ordered_attention.PreNormOrderedSwinSA(32, 4, 1, 4, bias_type="none",
-                                                   attn_drop_prob=0.1).train()(
-                torch.from_numpy(x))
-    else:
-        jm = getattr(jax_reduction, kind)(num_heads=4, reduction_ratio=4, shift_size=2,
-                                          **rates)
-        mod = getattr(reduction, kind)(32, 4, 4, 2, **rates)
-        args = (None,) if kind == "PreNormOrderedReductionSA" else ()
-    variables = _module_vars(jm, 9, x, *args)
+    """The attentions and blocks in training with both dropout rates
+    (attention 0.1, output 0.2): flax draws the masks, the port's dropout
+    takes them in the same order. Where JAX leaves its kernel for the
+    einsum path in training with attention dropout (the window SAs, the
+    KSA kernel attention), so does the port."""
+    make_jax, make_port, shapes, extra, names, count = SA_DROP_CASES[kind]
+    xs = [_input(8 + i, *shape) for i, shape in enumerate(shapes)]
+    jm = make_jax()
+    variables = _module_vars(jm, 9, *xs, *extra)
     masks, interceptor = _intercept_dropout_masks()
     with flax_nn.intercept_methods(interceptor):
-        ref = jm.apply(variables, jnp.asarray(x), *args, train=True,
-                       rngs={"dropout": jax.random.PRNGKey(10)})[0]
-    assert len(masks) == (1 if kind == "PreNormOrderedSwinSA" else 2)
-    mod.load_state_dict(_port_names(variables))
+        ref = jm.apply(variables, *(None if a is None else jnp.asarray(a)
+                                    for a in xs + list(extra)),
+                       train=True, rngs={"dropout": jax.random.PRNGKey(10)})
+    ref = ref[0] if isinstance(ref, tuple) else ref
+    assert len(masks) == count
+    mod = make_port()
+    mod.load_state_dict(names(variables))
     handed = iter(masks)
     monkeypatch.setattr(drop, "_keep_mask", lambda shape, *a: next(handed))
-    out = mod.train()(torch.from_numpy(x))
+    out = mod.train()(*(None if a is None else torch.from_numpy(np.asarray(a))
+                        for a in xs + list(extra)))
     assert next(handed, None) is None
     assert _rel(out, ref) <= TOL
 
@@ -282,7 +352,8 @@ def test_sibling_model_matches_jax_both_ways(name):
 
 
 @pytest.mark.parametrize("name", ["oda2_red_order_reg", "oda2_red_order_cls",
-                                  "oda2_red_order_swin", "oda2_red_reg", "oda2_conv"])
+                                  "oda2_red_order_swin", "oda2_red_reg", "oda2_conv",
+                                  "oda2_luna_reg", "oda2_luna_cls", "oda2_red_luna_reg"])
 def test_sibling_build_runs_on_the_card_unless_asked(name):
     if torch.cuda.is_available():
         pytest.skip("checks the refusal without a card")
@@ -293,13 +364,15 @@ def test_sibling_build_runs_on_the_card_unless_asked(name):
 
 
 @pytest.mark.parametrize("name", ["oda2_red_order_reg", "oda2_red_order_swin", "oda2_red_reg",
-                                  "oda2_conv"])
+                                  "oda2_conv", "oda2_ksa_reg", "oda2_luna_reg", "oda2_luna_cls",
+                                  "oda2_red_luna_reg"])
 def test_sibling_bn_momentum_reaches_every_batchnorm(name):
     """A config's ``bn_momentum`` (torch's convention) reaches every
     BatchNorm of the model, as the JAX builds read it."""
     from mde_tpu_torch.ops.tnn import BatchNorm
     cfg = {"name": name, "encoder_type": "custom", "dec_dim": 32, "num_heads": 4,
            "num_repeats": 1, "num_emb": 16, "reduction_ratio": 4, "window_size": 4,
+           "dec_num_heads": (1, 2, 4, 8), "num_aux": 8, "aux_dim": 16, "num_layers": 1,
            "bn_momentum": 0.05}
     model = build_model(cfg, 0.001, MAX_DEPTH, device="cpu", **MODEL_KW)
     norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
@@ -307,7 +380,8 @@ def test_sibling_bn_momentum_reaches_every_batchnorm(name):
 
 
 SIBLING_NAMES = ["oda2_red_order_reg", "oda2_red_order_cls", "oda2_red_order_swin",
-                 "oda2_red_reg", "oda2_conv"]
+                 "oda2_red_reg", "oda2_conv", "oda2_luna_reg", "oda2_luna_cls",
+                 "oda2_red_luna_reg"]
 
 
 @pytest.mark.parametrize("name", SIBLING_NAMES)
@@ -322,7 +396,8 @@ def test_sibling_trains_through_trainer_fit(name, tmp_path, monkeypatch):
     torch.set_num_threads(1)
     try:
         opt = load_config(dict(TINY_OPT, output_dir=str(tmp_path),
-                               model=dict(TINY_OPT["model"], name=name, reduction_ratio=4),
+                               model=dict(TINY_OPT["model"], name=name, reduction_ratio=4,
+                                          num_aux=8, aux_dim=16, num_layers=1),
                                train=dict(TINY_OPT["train"], valid_freq=2)))
         trainer = driver.Trainer(opt, model_overrides=MODEL_KW, device="cpu")
         metrics = trainer.fit(max_steps=2)

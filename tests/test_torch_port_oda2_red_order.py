@@ -26,6 +26,7 @@ import torch
 import mde_tpu_torch.models.oda2.red_order_reg as port_reg
 from mde_tpu.core.family_converters import (convert_oda2_red_order_decoder,
                                             convert_oda2_red_order_swin_decoder)
+from mde_tpu.models.oda2 import red_luna as jax_red_luna
 from mde_tpu.models.oda2 import red_order_reg as jax_reg
 from mde_tpu.models.oda2 import red_order_swin as jax_swin
 from mde_tpu.ops import reduction as jax_reduction
@@ -148,7 +149,8 @@ def test_port_init_matches_jax_init_rules():
     """The port starts what JAX's initialisers fix: the blocks' de_norm
     scale 0.1 (reg, cls), the cls head's bins (JAX's own ``_bins_init``)
     and base-1000 table, the gen-1 head's unscaled base-2000 table
-    (``red_order_swin.py:153-156``)."""
+    (``red_order_swin.py:153-156``); the Luna decoders' Dense, zero
+    ``o_cross2`` and aux banks."""
     e, d = 16, 32
     tables = {"oda2_red_order_cls": {
         "depth_bins": np.asarray(jax_reg.OrderedReductionClsHead._bins_init(e)(None, (e,))),
@@ -167,3 +169,27 @@ def test_port_init_matches_jax_init_rules():
         for key, want in tables.get(name, {}).items():
             np.testing.assert_array_equal(state[reducer + key].numpy(),
                                           want.reshape(state[reducer + key].shape), err_msg=key)
+
+    # the Luna decoders: every Dense truncated normal 0.02 with zero bias,
+    # each gate's o_cross2 zero, the learned aux bank truncated normal
+    # sqrt(1/aux_dims) (luna.py:53-58,161-163); red-Luna's fixed aux bank is
+    # JAX's unscaled base-10000 table (red_luna.py:31-40)
+    luna = build_model(dict(name="oda2_luna_cls", encoder_type="custom", dec_dim=32,
+                            num_heads=4, num_aux=64, aux_dim=128), 0.001, MAX_DEPTH,
+                       device="cpu", seed=2, **MODEL_KW)
+    dense = {n: m for n, m in luna.decoder.named_modules() if isinstance(m, torch.nn.Linear)}
+    assert len(dense) == 3 * 12 + 3 * 2 + 2
+    for name, m in dense.items():
+        assert m.bias is None or torch.all(m.bias == 0), name
+        if name.endswith("o_cross2"):
+            assert torch.all(m.weight == 0), name
+        else:
+            assert m.weight.abs().max() <= 0.04 and 0.015 < m.weight.std() < 0.025, name
+    aux, std = luna.decoder.aux, math.sqrt(1.0 / 128)
+    assert aux.shape == (1, 64, 128) and aux.abs().max() <= 2 * std
+    assert 0.8 * std < aux.std() < std
+    red = build_model(dict(name="oda2_red_luna_reg", encoder_type="custom", dec_dim=32,
+                           num_heads=4, num_aux=12), 0.001, MAX_DEPTH, device="cpu", **MODEL_KW)
+    assert "decoder.aux" not in red.state_dict()
+    np.testing.assert_array_equal(red.decoder.aux.numpy(),
+                                  np.asarray(jax_red_luna._sin_aux(12, 32)))

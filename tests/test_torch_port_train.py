@@ -159,11 +159,11 @@ def test_eval_step_matches_jax(ref):
                                    err_msg=key)
 
 
-def _drop_path_step(use_checkpoint, seed, path_drop_prob=0.5):
+def _drop_path_step(use_checkpoint, seed, path_drop_prob=0.5, **encoder_rates):
     opt = case.make_opt()
     model = build_model(case.CFG, 0.001, 80.0, device="cpu", seed=1, resize_to_multiple=False,
-                        encoder_kwargs=case.ENC, path_drop_prob=path_drop_prob,
-                        use_checkpoint=use_checkpoint)
+                        encoder_kwargs=dict(case.ENC, **encoder_rates),
+                        path_drop_prob=path_drop_prob, use_checkpoint=use_checkpoint)
     state = TrainState.create(model, opt, case.TOTAL_STEPS)
     seen = {}
     real = state.optimizer.update
@@ -184,6 +184,21 @@ def test_drop_path_recompute_keeps_the_masks():
         assert torch.equal(stats[name], stats2[name]), name
     # the masks are drawn from the generator: another seed, other gradients
     other, _, _ = _drop_path_step(False, seed=8)
+    assert any(not torch.allclose(plain[n], other[n]) for n in plain)
+
+
+def test_dropout_recompute_keeps_the_masks():
+    """The encoder's element-wise dropout (``drop_prob`` and
+    ``attn_drop_prob`` through ``encoder_kwargs``) in a recomputed block
+    draws the same masks again from the saved generator state: the
+    recomputing step's loss and gradients are the plain step's."""
+    rates = dict(drop_prob=0.2, attn_drop_prob=0.1)
+    plain, loss, _ = _drop_path_step(False, seed=9, **rates)
+    again, loss2, _ = _drop_path_step(True, seed=9, **rates)
+    assert loss == loss2
+    for name in plain:
+        assert torch.allclose(plain[name], again[name], rtol=1e-6, atol=1e-9), name
+    other, _, _ = _drop_path_step(False, seed=9, path_drop_prob=0.5)
     assert any(not torch.allclose(plain[n], other[n]) for n in plain)
 
 

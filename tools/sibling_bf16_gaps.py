@@ -1,13 +1,16 @@
-"""Measure how far the tiny ODA2 siblings' maps on the card sit from the
-CPU's, and what a planted kernel fault reads on the same scale.
+"""Measure how far the tiny ODA2 siblings' and Luna models' maps on the card
+sit from the CPU's, and what a planted kernel fault reads on the same
+scale.
 
     python3 tools/sibling_bf16_gaps.py
 
-Builds each of the five tiny siblings of ``tests/test_torch_port_gpu.py``
-(``SIBLINGS_TINY``, the custom Swin of ``TINY_KW``, 2 images of 64x96) on
-the card (TF32 off, as in those tests) and on the CPU from one seed, the
-CPU fed the card's index maps, and prints the largest and the mean gap over all maps (m, depth range
-80 m) in f32 and bf16. Then it runs the card forward again in each dtype
+Builds each of the eight tiny models of ``tests/test_torch_port_gpu.py``
+(``SIBLINGS_TINY``: five siblings and three Luna models, the custom Swin of
+``TINY_KW``, 2 images of 64x96) on the card (TF32 off, as in those tests)
+and on the CPU from one seed, the CPU fed the card's index maps, and
+prints the largest and the mean gap over all maps that the loss takes
+(and the cls Luna model's bin centers; m, depth range 80 m) in f32 and
+bf16. Then it runs the card forward again in each dtype
 with one planted fault in a kernel's output (the CPU side unchanged) and
 prints those gaps too:
 
@@ -37,6 +40,7 @@ import mde_tpu_torch.ops.depthwise as depthwise  # noqa: E402
 import mde_tpu_torch.ops.ordered_attention as ordered  # noqa: E402
 from mde_tpu_torch.models import build_model  # noqa: E402
 from mde_tpu_torch.ops import kernels  # noqa: E402
+from mde_tpu_torch.train.step import default_adapter  # noqa: E402
 
 MAX_DEPTH = 80.0
 TINY_KW = dict(resize_to_multiple=False, use_checkpoint=False, encoder_kwargs=dict(
@@ -50,7 +54,11 @@ SIBLINGS_TINY = {
     "oda2_red_order_swin": (dict(num_repeats=2, num_emb=16, window_size=4),
                             ("K1 head 0 dropped", "K1 scale x1.1", "K2 head 0 dropped")),
     "oda2_red_reg": ({}, ("K1 head 0 dropped", "K1 scale x1.1")),
-    "oda2_conv": ({}, ("K1 head 0 dropped", "K1 scale x1.1"))}
+    "oda2_conv": ({}, ("K1 head 0 dropped", "K1 scale x1.1")),
+    "oda2_luna_reg": (dict(num_aux=8, aux_dim=16), ("K1 head 0 dropped", "K1 scale x1.1")),
+    "oda2_luna_cls": (dict(num_aux=8, aux_dim=16), ("K1 head 0 dropped", "K1 scale x1.1")),
+    "oda2_red_luna_reg": (dict(num_aux=6, num_layers=2), ("K1 head 0 dropped",
+                                                          "K1 scale x1.1"))}
 
 
 def _drop_first(out: torch.Tensor, parts: int) -> torch.Tensor:
@@ -84,7 +92,9 @@ def _faulted(fault: str):
 
 
 def _maps(out) -> tuple:
-    return tuple(out[1]) if isinstance(out[1], tuple) and out[1][0] is not None else (out[0],)
+    """The maps the loss takes, and the cls bin centers."""
+    maps, centers = default_adapter(out)
+    return maps + (() if centers is None else (centers,))
 
 
 def gap(name: str, dtype: torch.dtype, fault: str = "") -> list:
