@@ -26,7 +26,8 @@
    its calls following a synchronisation, so that any host gaps between
    them count (``host_ms``).
 3. Flagship serving at full width: ``oda2_red_order_swin2`` (Swin-B, red33
-   neck, ordered head) with seeded random weights. In f32 at batch 1, with
+   neck, ordered head) with seeded random weights. In f32 at batch 1 on
+   224x448 (not resized), with
    seeded statistics in the FFs' BatchNorms so that K4's folded affine is
    not the identity, the card's forward is held against the same forward
    with its six FFs fused (K4) and against the same model on the CPU
@@ -89,8 +90,9 @@
    and ``_cls`` (reduction SAs, DWConv-GLU FFs on K3), ``oda2_red_order_swin``
    (gen-1: bias-free window SAs on K2), ``oda2_red_reg`` (incremental
    reduction SAs, PreNormFFs) and ``oda2_conv`` (PPM and conv pyramid).
-   For each: the f32 forward at batch 1 on 352x704 card against CPU (the
-   reg and gen-1 CPU runs fed the card's index maps); bf16 serving at batch
+   For each: the f32 forward at batch 1 on 352x704 (reg and cls on
+   224x448) card against CPU (the reg and gen-1 CPU runs fed the card's
+   index maps); bf16 serving at batch
    8 through ``Predictor`` with exact launches (K1 24, and K3 6 for reg and
    cls, K2 6 bias-free for gen-1), timed and profiled, reg also with its
    FFs fused (K1 24, K4 6); the bf16 train step at batch 4 with
@@ -113,6 +115,21 @@
    (chamfer 0.1, ``freeze_bn``) and ``oda2_red_luna_reg``, each checking
    that the loss took the depth map (and the cls centers), not red-Luna's
    attention weights.
+
+11. AdaBins and Depthformer v1-v5 at full width (EfficientNet-B5;
+   ``ADABINS``: 256 bins on NYU's 416x544, depth to 10 m, trained with the
+   chamfer loss at 0.1 and the encoder at a tenth of the learning rate;
+   ``DEPTHFORMERS``: hidden width 512, 8 heads, KITTI 352x704, dropout 0.1,
+   v3 100 bins with the chamfer loss at 0.1, v5 key-query width 512). For
+   each: the f32 forward at batch 1 card against CPU (the depth, and the
+   bin edges and attention weights each returns); bf16 serving at batch 8
+   through ``Predictor`` and the bf16 train step at batch 4, each timed and
+   profiled with its peak memory, every kernel's launch count exactly 0
+   (no kernel of the port lies on these paths). The f32 train step card
+   against CPU at batch 2 for ``adabins`` at 288x480 and ``depthformer_v3``
+   built for 224x448, each at chamfer 0.1, the CPU fed the sides of the
+   card's ReLU and LeakyReLU kinks (``KinkReplay``), checking the maps and
+   bin centers the loss took.
 
 Any failure exits non-zero before the result lines. The last three lines
 are the card, the ``kernels`` JSON line and the ``ok`` JSON line. The
@@ -264,12 +281,15 @@ SIBLING_TRAIN_LAUNCHES = {
     "oda2_red_order_swin": dict(ENCODER_TRAIN_LAUNCHES, ordered_attention=6,
                                 ordered_attention_bwd=6),
     "oda2_red_reg": ENCODER_TRAIN_LAUNCHES, "oda2_conv": ENCODER_TRAIN_LAUNCHES}
-# the map shapes of one 352x704 image (resized to 448x896): the ordered heads'
-# 4 maps at 1/4 scale, red_reg's at 1/4 less 2 px, conv's at 1/2
-SIBLING_MAPS = {"oda2_red_order_reg": (4, (1, 112, 224, 1)),
-                "oda2_red_order_cls": (4, (1, 112, 224, 1)),
-                "oda2_red_order_swin": (4, (1, 112, 224, 1)),
-                "oda2_red_reg": (1, (1, 110, 222, 1)), "oda2_conv": (1, (1, 224, 448, 1))}
+# the f32 forward's image and maps: one 352x704 image (resized to 448x896), or
+# for reg and cls one 224x448 image (not resized; their CPU forwards took 15 s
+# a model at 352x704); the ordered heads' 4 maps at 1/4 scale, red_reg's at
+# 1/4 less 2 px, conv's at 1/2
+SIBLING_MAPS = {"oda2_red_order_reg": ((224, 448), 4, (1, 56, 112, 1)),
+                "oda2_red_order_cls": ((224, 448), 4, (1, 56, 112, 1)),
+                "oda2_red_order_swin": ((352, 704), 4, (1, 112, 224, 1)),
+                "oda2_red_reg": ((352, 704), 1, (1, 110, 222, 1)),
+                "oda2_conv": ((352, 704), 1, (1, 224, 448, 1))}
 # the ODA2 Luna half at bench.py's decoder widths with the name swapped and the
 # JAX builds' defaults otherwise (luna.py:277-292, red_luna.py:221-234):
 # Swin-B, dec_dim 512 (the gated decoders' decoder_channels), 8 heads, 256 aux
@@ -287,9 +307,38 @@ LUNAS = {
                       {"window_attention": 24}, ENCODER_TRAIN_LAUNCHES, (1, 112, 224, 1)),
     "oda2_red_luna_reg": (dict(LUNA_DECODER, name="oda2_red_luna_reg", num_layers=4),
                           {"window_attention": 24}, ENCODER_TRAIN_LAUNCHES, (1, 110, 222, 1))}
-# red-Luna's attention weights (probabilities), card against CPU: the maps'
-# tolerance in units of the depth range (80 m)
-LUNA_WEIGHTS_TOL = MODEL_F32_TOL / 80.0
+# attention weights (probabilities; red-Luna's, Depthformer's), card against
+# CPU: the maps' tolerance in units of the depth range (80 m)
+WEIGHTS_TOL = MODEL_F32_TOL / 80.0
+# AdaBins as the reference's json/nyu/adabins/adabins_cham_per_batch.json
+# (tools/bench_families.py:93-97): EfficientNet-B5, 256 bins, NYU's train crop
+# 416x544, depth 1e-3 to 10 m; it trains with the chamfer loss at 0.1 and the
+# encoder at a tenth of the learning rate (same_lr false)
+ADABINS = {"name": "adabins", "num_bins": 256, "bn_momentum": 0.1}
+ADABINS_HW, ADABINS_MAX_DEPTH = (416, 544), 10.0
+ADABINS_TRAIN_OPT = dict(TRAIN_OPT, model=ADABINS,
+                         loss=dict(TRAIN_OPT["loss"], chamfer_weight=0.1),
+                         optimizer=dict(TRAIN_OPT["optimizer"], same_lr=False))
+# Depthformer v1-v5 at the v2 decoder's hidden width 512 and 8 heads (SURVEY.md
+# section 2.4), KITTI 352x704, depth 1e-3 to 80 m, the builds' dropout of 0.1
+# and 0.1; v3 100 bins and the chamfer loss at 0.1, v5 key-query width 512.
+# name -> (config, the depth map of one 352x704 image and the shapes of the
+# other outputs: v1 four (B, 8, 242, 242) weights at the 1/32 grid of 11x22; v2,
+# v3, v5 the 1/8, 1/16 and 1/32 grids' (B, heads, N, N), heads 2, 4, 8; v3's
+# edges first; v4 the cls token's (B, 8, N) at each scale from 1/32 to 1/2).
+# No kernel of the port lies on these paths: every launch count stays 0
+DEPTHFORMER = {"hidden_dim": 512, "num_heads": 8, "img_size": (352, 704)}
+DF_GRIDS = [(2, 3872), (4, 968), (8, 242)]
+DEPTHFORMERS = {
+    "depthformer": (dict(DEPTHFORMER, name="depthformer"), [(1, 8, 242, 242)] * 4),
+    "depthformer_v2": (dict(DEPTHFORMER, name="depthformer_v2"),
+                       [(1, h, n, n) for h, n in DF_GRIDS]),
+    "depthformer_v3": (dict(DEPTHFORMER, name="depthformer_v3", num_bins=100),
+                       [(1, 101)] + [(1, h, n, n) for h, n in DF_GRIDS]),
+    "depthformer_v4": (dict(DEPTHFORMER, name="depthformer_v4"),
+                       [(1, 8, n) for n in (242, 968, 3872, 15488, 61952)]),
+    "depthformer_v5": (dict(DEPTHFORMER, name="depthformer_v5", key_query_dim=512),
+                       [(1, h, n, n) for h, n in DF_GRIDS])}
 # one eval forward of the flagship (no gradient, so nothing recomputes)
 EVAL_LAUNCHES = {"window_attention": 24, "ordered_attention": 6, "depthwise_conv2d": 6}
 # KITTI's test images after the KB-crop; the flagship resizes them to 448x1536
@@ -832,12 +881,13 @@ def perturb_ff_bns(model, seed: int) -> None:
 
 
 def model_f32_check(dev) -> None:
-    """Full-width f32 forward at batch 1, the FFs' BatchNorms given seeded
+    """Full-width f32 forward at batch 1 on 224x448 (not resized; the CPU
+    forward took 25 s at 352x704), the FFs' BatchNorms given seeded
     statistics: the card's default forward against the card's forward with
     the six FFs fused (K4), and against the CPU."""
     from mde_tpu_torch.models import build_model
     from mde_tpu_torch.ops import kernels
-    x = torch.from_numpy(np.random.RandomState(0).rand(1, 352, 704, 3).astype(np.float32))
+    x = torch.from_numpy(np.random.RandomState(0).rand(1, 224, 448, 3).astype(np.float32))
     replay = IndexReplay()
     try:
         replay.record()
@@ -859,10 +909,10 @@ def model_f32_check(dev) -> None:
             raise RuntimeError(f"fused forward: expected {fused} launches, got "
                                f"{kernels.launch_counts}")
         fused_errs = [(a.cpu() - b).abs().max().item() for a, b in zip(fused_outs, gpu_outs)]
-        log(f"flagship f32 batch 1 on the card, seeded FF BatchNorms, fused FFs (K4) vs "
-            f"default: max_abs_err per map {fused_errs} m (tolerance {MODEL_F32_TOL}); index "
-            f"flips per repeat {replay.flips} (the fused run was fed the default run's "
-            f"indices)")
+        log(f"flagship f32 batch 1 at 224x448 on the card, seeded FF BatchNorms, fused FFs "
+            f"(K4) vs default: max_abs_err per map {fused_errs} m (tolerance "
+            f"{MODEL_F32_TOL}); index flips per repeat {replay.flips} (the fused run was fed "
+            f"the default run's indices)")
         if len(fused_errs) != FLAGSHIP["num_repeats"] + 1 or max(fused_errs) > MODEL_F32_TOL:
             raise RuntimeError("flagship f32 forward with fused FFs disagrees with the default")
         del model, out, outs, fused_outs
@@ -878,7 +928,7 @@ def model_f32_check(dev) -> None:
     finally:
         replay.restore()
     errs = [(a - b).abs().max().item() for a, b in zip(gpu_outs, ref_outs)]
-    log(f"flagship f32 batch 1, card vs CPU: max_abs_err per map {errs} m "
+    log(f"flagship f32 batch 1 at 224x448, card vs CPU: max_abs_err per map {errs} m "
         f"(tolerance {MODEL_F32_TOL}); index flips per repeat {replay.flips} of "
         f"{replay.card[0].numel()} (the CPU run was fed the card's indices)")
     if len(errs) != FLAGSHIP["num_repeats"] + 1 or max(errs) > MODEL_F32_TOL:
@@ -946,19 +996,24 @@ def model_bf16_run(dev) -> dict:
     return counts
 
 
-def train_batch(size: int, seed: int, hw=(352, 704)) -> dict:
+def train_batch(size: int, seed: int, hw=(352, 704), max_depth: float = 80.0) -> dict:
+    """Images and depths in [0.5, 0.75 max_depth) m, drawn from ``seed``."""
     rng = np.random.RandomState(seed)
     return {"image": rng.rand(size, *hw, 3).astype(np.float32),
-            "depth": rng.uniform(0.5, 60.0, (size, *hw, 1)).astype(np.float32)}
+            "depth": rng.uniform(0.5, 0.75 * max_depth, (size, *hw, 1)).astype(np.float32)}
 
 
-def one_train_step(dev, batch: dict, opt=TRAIN_OPT, freeze_bn: bool = False, **overrides):
-    """One train step of a fresh model of ``opt`` (seed 0): (logs,
-    gradients, state dict), all on the CPU."""
+def one_train_step(dev, batch: dict, opt=TRAIN_OPT, freeze_bn: bool = False,
+                   max_depth: float = 80.0, prepare=None, **overrides):
+    """One train step of a fresh model of ``opt`` (seed 0), ``prepare``d
+    (a callable given the model) where given: (logs, gradients, state
+    dict), all on the CPU."""
     from mde_tpu_torch.models import build_model
     from mde_tpu_torch.train.state import TrainState
     from mde_tpu_torch.train.step import make_train_step
-    model = build_model(opt["model"], 0.001, 80.0, device=dev, seed=0, **overrides)
+    model = build_model(opt["model"], 0.001, max_depth, device=dev, seed=0, **overrides)
+    if prepare is not None:
+        prepare(model)
     state = TrainState.create(model, opt, TRAIN_TOTAL_STEPS)
     grads = {}
     update = state.optimizer.update
@@ -968,7 +1023,7 @@ def one_train_step(dev, batch: dict, opt=TRAIN_OPT, freeze_bn: bool = False, **o
         update(g)
 
     state.optimizer.update = keep
-    _, logs = make_train_step(opt, 0.001, 80.0, freeze_bn=freeze_bn)(state, batch)
+    _, logs = make_train_step(opt, 0.001, max_depth, freeze_bn=freeze_bn)(state, batch)
     return ({k: float(v) for k, v in logs.items()}, grads,
             {k: v.detach().cpu() for k, v in model.state_dict().items()})
 
@@ -1024,8 +1079,8 @@ def compare_steps(tag, card, cpu) -> None:
         raise RuntimeError(f"{tag} on the card disagrees with the CPU (logs {bad})")
 
 
-def train_run(tag, opt, dev, expect, warmup, timed, profile, entries=None,
-              **overrides) -> tuple:
+def train_run(tag, opt, dev, expect, warmup, timed, profile, entries=None, hw=(352, 704),
+              max_depth: float = 80.0, **overrides) -> tuple:
     """Full-width bf16 train steps at batch 4 of a fresh model of ``opt``:
     one counted step (every launch count from 0, then exactly ``expect``,
     every other kernel 0, and ``entries`` of them through second entries,
@@ -1036,11 +1091,12 @@ def train_run(tag, opt, dev, expect, warmup, timed, profile, entries=None,
     from mde_tpu_torch.ops import kernels
     from mde_tpu_torch.train.state import TrainState
     from mde_tpu_torch.train.step import make_train_step
-    batch = {k: torch.from_numpy(v).to(dev) for k, v in train_batch(TRAIN_BATCH, 3).items()}
-    step = make_train_step(opt, 0.001, 80.0)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in train_batch(TRAIN_BATCH, 3, hw, max_depth).items()}
+    step = make_train_step(opt, 0.001, max_depth)
     generator = torch.Generator(device=dev).manual_seed(0)
-    model = build_model(opt["model"], 0.001, 80.0, device=dev, seed=0, dtype=torch.bfloat16,
-                        **overrides)
+    model = build_model(opt["model"], 0.001, max_depth, device=dev, seed=0,
+                        dtype=torch.bfloat16, **overrides)
     state = TrainState.create(model, opt, TRAIN_TOTAL_STEPS)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     torch.cuda.synchronize()
@@ -1071,7 +1127,7 @@ def train_run(tag, opt, dev, expect, warmup, timed, profile, entries=None,
     times = times[warmup - 1:]
     peak = torch.cuda.max_memory_allocated()
     rate = TRAIN_BATCH / float(np.median(times))
-    log(f"{tag} at 352x704: {rate:.2f} img/s (median of "
+    log(f"{tag} at {hw[0]}x{hw[1]}: {rate:.2f} img/s (median of "
         f"{len(times)} steps after {warmup} warm-up, {[round(t * 1e3, 2) for t in times]} ms), "
         f"peak memory {peak / 2 ** 30:.2f} GiB, loss {float(logs['loss']):.4f}")
     if profile:
@@ -1338,11 +1394,13 @@ def sibling_maps(out) -> tuple:
 
 
 def sibling_f32_check(dev, name: str, seed: int) -> None:
-    """A sibling's full-width f32 forward at batch 1 on 352x704: the card
-    against the CPU, the CPU fed the card's index maps (reg and gen-1)."""
+    """A sibling's full-width f32 forward at batch 1 on the image of
+    ``SIBLING_MAPS``: the card against the CPU, the CPU fed the card's index
+    maps (reg and gen-1)."""
     from mde_tpu_torch.models import build_model
     cfg = SIBLINGS[name]
-    x = torch.from_numpy(np.random.RandomState(seed).rand(1, 352, 704, 3).astype(np.float32))
+    hw, count, shape = SIBLING_MAPS[name]
+    x = torch.from_numpy(np.random.RandomState(seed).rand(1, *hw, 3).astype(np.float32))
     replay = sibling_replay()
     try:
         replay.record()
@@ -1360,9 +1418,8 @@ def sibling_f32_check(dev, name: str, seed: int) -> None:
         log(f"{name} f32 CPU forward (plain versions): {time.perf_counter() - t0:.1f} s")
     finally:
         replay.restore()
-    count, shape = SIBLING_MAPS[name]
     errs = [(a - b).abs().max().item() for a, b in zip(card, ref)]
-    log(f"{name} f32 batch 1 at 352x704 (resized to 448x896), card vs CPU: {count} maps of "
+    log(f"{name} f32 batch 1 at {hw[0]}x{hw[1]}, card vs CPU: {count} maps of "
         f"{shape}, max_abs_err per map {errs} m (tolerance {MODEL_F32_TOL}); index flips per "
         f"repeat {replay.flips} (the CPU run was fed the card's indices)")
     if (len(card) != count or any(tuple(m.shape) != shape or not torch.isfinite(m).all()
@@ -1486,7 +1543,7 @@ def luna_f32_check(dev, name: str, seed: int) -> None:
     (out, second), (ref, ref_second) = outs
     err = (out - ref).abs().max().item()
     errs = [(a - b).abs().max().item() for a, b in zip(second, ref_second)]
-    tol = MODEL_F32_TOL if name == "oda2_luna_cls" else LUNA_WEIGHTS_TOL
+    tol = MODEL_F32_TOL if name == "oda2_luna_cls" else WEIGHTS_TOL
     log(f"{name} f32 batch 1 at 352x704 (resized to 448x896), {gates} gates' o_cross2 seeded, "
         f"card vs CPU: map {tuple(out.shape)} max_abs_err {err:.3e} m (tolerance "
         f"{MODEL_F32_TOL}); second output {[tuple(t.shape) for t in second]} max_abs_err "
@@ -1562,6 +1619,170 @@ def luna_runs(dev) -> dict:
         luna_train_f32_check(dev, name, 70 + i)
         free_garbage()
     return runs
+
+
+def split_outputs(out) -> tuple:
+    """A model's output as (the depth map, [every other tensor in order])."""
+    rest = []
+    for item in out[1:]:
+        rest += [item] if torch.is_tensor(item) else list(item)
+    return out[0], rest
+
+
+def efficientnet_models() -> dict:
+    """name -> (config, train config, image size, max depth, the shapes of
+    one image's outputs after the depth map) of phase 11."""
+    models = {"adabins": (ADABINS, ADABINS_TRAIN_OPT, ADABINS_HW, ADABINS_MAX_DEPTH,
+                          [(1, ADABINS["num_bins"] + 1)])}
+    for name, (cfg, shapes) in DEPTHFORMERS.items():
+        opt = dict(TRAIN_OPT, model=cfg)
+        if name == "depthformer_v3":
+            opt["loss"] = dict(opt["loss"], chamfer_weight=0.1)
+        models[name] = (cfg, opt, cfg["img_size"], 80.0, shapes)
+    return models
+
+
+def efficientnet_f32_check(dev, name: str, seed: int) -> None:
+    """An AdaBins or Depthformer model's full-width f32 forward at batch 1:
+    the card against the CPU, the depth map and bin edges in metres, the
+    attention weights as probabilities."""
+    from mde_tpu_torch.models import build_model
+    cfg, _, hw, max_depth, shapes = efficientnet_models()[name]
+    x = torch.from_numpy(np.random.RandomState(seed).rand(1, *hw, 3).astype(np.float32))
+    outs = []
+    for device in (dev, torch.device("cpu")):
+        model = build_model(cfg, 0.001, max_depth, device=device, seed=0)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            depth, rest = split_outputs(model(x.to(device)))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        else:
+            log(f"{name} f32 CPU forward: {time.perf_counter() - t0:.1f} s")
+        outs.append((depth.cpu(), [t.cpu() for t in rest]))
+        del model, depth, rest
+        free_garbage()
+    (depth, rest), (ref, ref_rest) = outs
+    err = (depth - ref).abs().max().item()
+    errs = [(a - b).abs().max().item() for a, b in zip(rest, ref_rest)]
+    tols = [MODEL_F32_TOL if t.dim() == 2 else WEIGHTS_TOL for t in rest]
+    log(f"{name} f32 batch 1 at {hw[0]}x{hw[1]}, card vs CPU: depth {tuple(depth.shape)} in "
+        f"[{ref.min().item():.3f}, {ref.max().item():.3f}] m, max_abs_err {err:.3e} m "
+        f"(tolerance {MODEL_F32_TOL}); then {[tuple(t.shape) for t in rest]} max_abs_err "
+        f"{errs} (tolerances {sorted(set(tols))}: edges in m, weights)")
+    if (tuple(depth.shape) != (1, hw[0] // 2, hw[1] // 2, 1) or err > MODEL_F32_TOL
+            or [tuple(t.shape) for t in rest] != shapes
+            or not all(torch.isfinite(t).all() for t in [depth] + rest)
+            or any(e > tol for e, tol in zip(errs, tols))):
+        raise RuntimeError(f"{name} f32 forward on the card disagrees with the CPU")
+
+
+class KinkReplay:
+    """The sides of AdaBins' kinks (its transformer FFs' ReLU, the
+    decoder's and regressor's LeakyReLUs): recorded where the card's train
+    step takes them (``record``) and handed to the CPU's step (``replay``),
+    which counts the elements whose own sign differs (``flips``). A
+    pre-activation within f32 rounding of 0 falls on either side on the two
+    devices, and a weight gradient summed over N pixels of random-signed
+    terms then moves by about 1/sqrt(N): ~1.5% of a decoder conv's at 1/8
+    scale. A full-width step held as is missed by 2%, its card and CPU each
+    2% from an f64 step, the gradients equal to 1.5e-5 up to the first
+    LeakyReLU on the way back and 17% apart (of their largest) after it
+    (PERF.md)."""
+
+    def __init__(self):
+        self.masks, self.flips = [], []
+
+    @staticmethod
+    def _kinks(model):
+        from mde_tpu_torch.models.adabins.model import TransformerEncoderLayer
+        for m in model.modules():
+            if isinstance(m, TransformerEncoderLayer):
+                yield m, "activation", 0.0
+            elif isinstance(m, torch.nn.LeakyReLU):
+                yield m, "forward", m.negative_slope
+
+    def record(self, model) -> None:
+        for m, attr, _ in list(self._kinks(model)):
+            def kink(x, real=getattr(m, attr)):
+                self.masks.append((x > 0).cpu())
+                return real(x)
+
+            setattr(m, attr, kink)
+
+    def replay(self, model) -> None:
+        masks = iter(self.masks)
+        for m, attr, slope in list(self._kinks(model)):
+            def kink(x, slope=slope):
+                mask = next(masks)
+                self.flips.append(int(((x > 0) != mask).sum()))
+                return torch.where(mask, x, x * slope)
+
+            setattr(m, attr, kink)
+
+
+def efficientnet_train_f32_check(dev, name: str, hw: tuple, seed: int) -> None:
+    """A full-width f32 train step at batch 2 on ``hw``, dropout off, the
+    card against the CPU: ``adabins`` (chamfer 0.1, ``same_lr`` false) and
+    ``depthformer_v3`` (chamfer 0.1, built for ``hw``). The loss must take
+    the depth map and the bin centers: the maps and centers that the train
+    step hands ``DepthLoss`` are recorded and checked."""
+    import mde_tpu_torch.train.step as step_module
+    cfg, opt, _, max_depth, _ = efficientnet_models()[name]
+    if name != "adabins":
+        opt = dict(opt, model=dict(cfg, img_size=hw))
+    batch = train_batch(2, seed, hw, max_depth)
+    tag = f"{name} f32 train step batch 2 at {hw[0]}x{hw[1]} (chamfer 0.1)"
+    seen, real = [], step_module.DepthLoss
+
+    class Record(real):
+        def __call__(self, outputs, gt, bin_centers=None):
+            seen.append(([tuple(m.shape) for m in outputs], None if bin_centers is None
+                         else tuple(bin_centers.shape)))
+            return super().__call__(outputs, gt, bin_centers)
+
+    step_module.DepthLoss = Record
+    kw = dict(drop_prob=0.0) if name == "adabins" else dict(drop_prob=0.0, attn_drop_prob=0.0)
+    kinks = KinkReplay()
+    try:
+        card = one_train_step(dev, batch, opt, max_depth=max_depth, prepare=kinks.record, **kw)
+        torch.cuda.synchronize()
+        free_garbage()
+        t0 = time.perf_counter()
+        cpu = one_train_step("cpu", batch, opt, max_depth=max_depth, prepare=kinks.replay, **kw)
+        log(f"{tag}: CPU step {time.perf_counter() - t0:.1f} s; the loss took maps "
+            f"{seen[0][0]} and bin centers {seen[0][1]}; flips per kink {kinks.flips} of "
+            f"{sum(m.numel() for m in kinks.masks)} elements (the CPU run was fed the card's "
+            f"sides)")
+    finally:
+        step_module.DepthLoss = real
+    bins = ADABINS["num_bins"] if name == "adabins" else cfg["num_bins"]
+    want = ([(2, hw[0] // 2, hw[1] // 2, 1)], (2, bins))
+    if seen != [want, want] or not card[0]["loss_chamfer"] > 0:
+        raise RuntimeError(f"{tag}: the loss took {seen}, expected {want} on both devices")
+    compare_steps(tag, card, cpu)
+
+
+def efficientnet_runs(dev) -> None:
+    """Every phase of AdaBins and Depthformer v1-v5 (phase 11): no launch of
+    any port kernel on any of their paths."""
+    from mde_tpu_torch.models import build_model
+    from mde_tpu_torch.serve import Predictor
+    for i, (name, (cfg, opt, hw, max_depth, _)) in enumerate(efficientnet_models().items()):
+        efficientnet_f32_check(dev, name, 80 + i)
+        model = build_model(cfg, 0.001, max_depth, device=dev, seed=0, dtype=torch.bfloat16)
+        images = torch.from_numpy(
+            np.random.RandomState(90 + i).rand(BATCH, *hw, 3).astype(np.float32)).to(dev)
+        serve_run(f"{name} bf16 batch {BATCH}", Predictor(model), images, {})
+        del model, images
+        free_garbage()
+        train_run(f"{name} bf16 train step batch {TRAIN_BATCH}", opt, dev, {}, warmup=2,
+                  timed=3, profile=True, hw=hw, max_depth=max_depth)
+        free_garbage()
+    efficientnet_train_f32_check(dev, "adabins", (288, 480), 100)
+    free_garbage()
+    efficientnet_train_f32_check(dev, "depthformer_v3", (224, 448), 101)
+    free_garbage()
 
 
 def kernel_inputs(model) -> tuple:
@@ -2164,6 +2385,7 @@ def main() -> int:
     free_garbage()
     siblings = sibling_runs(dev)
     siblings.update(luna_runs(dev))
+    efficientnet_runs(dev)
 
     # the line reports each kernel at its main-path shape in bf16 (K1 at
     # stage 1 with the shift mask, K2 with the table) and its launches in

@@ -7,12 +7,16 @@ JAX model the port has (arrays of any kind numpy can read) into the port's
 ``convert_newcrfs_model``, ``convert_oda2_red_order_decoder``,
 ``convert_oda2_red_order_swin_decoder``, ``convert_oda2_red_decoder``,
 ``convert_oda2_conv_decoder``, ``convert_oda2_luna_decoder``,
-``convert_oda2_red_luna_decoder``), written without importing the JAX
-package.
+``convert_oda2_red_luna_decoder``, ``convert_adabins_model`` with
+``convert_efficientnet_b5``, ``convert_depthformer_v2_decoder``,
+``convert_depthformer_v4_decoder``; Depthformer v1 and v3, which have none,
+on their pattern), written without importing the JAX package.
 
 Layouts: dense (in, out) -> (out, in); conv HWIO -> OIHW; depthwise
 (kh, kw, C) -> (C, 1, kh, kw); flax BN scale/bias/mean/var ->
-weight/bias/running_mean/running_var; LN and GroupNorm scale -> weight. Swin stages of
+weight/bias/running_mean/running_var; LN and GroupNorm scale -> weight;
+flax's multi-head attention (per-head q, k, v and out kernels) -> torch's
+packed ``in_proj_weight``, ``in_proj_bias`` and ``out_proj``. Swin stages of
 even depth are stored ``nn.scan``-stacked under ``blocks/blk0|blk1`` with a
 leading pair axis: pair p becomes blocks 2p and 2p+1.
 """
@@ -193,7 +197,90 @@ def _is_sibling(paths) -> bool:
                for p in paths)
 
 
+def _is_efficientnet(paths) -> bool:
+    """Whether a tree is AdaBins' or a Depthformer's: an EfficientNet
+    encoder (``encoder/conv_stem``)."""
+    return any(p[:2] == ("encoder", "conv_stem") for p in paths)
+
+
+# Depthformer decoder segments {name}{i} -> the reference's list {list}.{i}
+_DF_LISTS = {"post_conv": "post_conv_layers", "vit": "vit_layers", "vit_bn": "vit_bn_layers",
+             "patchify": "patchify_layers", "position_embeddings": "position_embeddings",
+             "q_proj": "q_projections", "k_proj": "k_projections", "v_proj": "v_projections",
+             "post_cls": "post_cls_layers", "post_cls_ln": "post_cls_ln",
+             "post_weight": "post_weight_layers"}
+
+
+def _merge_mha(flat: Dict[Path, np.ndarray]) -> Dict[Path, np.ndarray]:
+    """flax ``MultiHeadDotProductAttention`` leaves (``self_attn/{query,
+    key,value}`` kernels (E, heads, hd) and biases (heads, hd), ``out``
+    (heads, hd, E)) -> torch's packed ``in_proj_weight`` (3E, E) and
+    ``in_proj_bias``, and ``out_proj`` as a (in, out) dense."""
+    out: Dict[Path, np.ndarray] = {}
+    for path, arr in flat.items():
+        if len(path) < 3 or path[-3] != "self_attn" or path[-2] not in (
+                "query", "key", "value", "out"):
+            out[path] = arr
+        elif path[-2] == "out":
+            out[path[:-2] + ("out_proj", path[-1])] = (
+                arr.reshape(-1, arr.shape[-1]) if path[-1] == "kernel" else arr)
+        elif path[-2] == "query":
+            base = path[:-2]
+            parts = [flat[base + (n, path[-1])] for n in ("query", "key", "value")]
+            if path[-1] == "kernel":
+                out[base + ("in_proj_weight",)] = np.concatenate(
+                    [w.reshape(w.shape[0], -1).T for w in parts])
+            else:
+                out[base + ("in_proj_bias",)] = np.concatenate([b.reshape(-1) for b in parts])
+    return out
+
+
+def _efficientnet_path(path: Path, final_last: bool) -> Path:
+    """A path of AdaBins' or a Depthformer's tree in the port's segments:
+    the encoder under ``encoder.original_model`` with ``blocks{s}_{b}`` as
+    ``blocks.{s}.{b}``, its ``_BN`` wrappers' ``bn`` dropped and the raw
+    ``conv_dw`` weight as a kernel; AdaBins' ``up{u}/{conv,bn}{i}`` as
+    ``_net.{0,1,3,4}``, ``layer{i}`` as ``transformer_encoder.layers.{i}``;
+    ``regressor{i}`` as ``regressor.{2i}``; the Depthformer decoders'
+    ``{name}{i}`` as their lists' ``{list}.{i}``, ``layers{j}`` as
+    ``layers.{j}``, ``cls_to_weight{i}_{j}`` as
+    ``cls_to_weight_layers.{i}.{0,3}``, and their heads as ``final_block``:
+    ``final{i}`` (v1), ``final_res`` (v4) at 1, ``final_out`` at 2 where
+    ``final_last``, else at 0."""
+    if path[0] == "encoder":
+        out = ["encoder", "original_model"]
+        for parent, seg in zip(path, path[1:]):
+            if m := re.fullmatch(r"blocks(\d+)_(\d+)", seg):
+                out += ["blocks", m.group(1), m.group(2)]
+            elif not (seg == "bn" and re.fullmatch(r"bn\d", parent)):
+                out.append(seg)
+        return tuple(out + ["kernel"] if out[-1] == "conv_dw" else out)
+    out = [path[0]]
+    for parent, seg in zip(path, path[1:]):
+        if (m := re.fullmatch(r"(conv|bn)(\d)", seg)) and re.fullmatch(r"up\d", parent):
+            out += ["_net", str(3 * int(m.group(2)) + (m.group(1) == "bn"))]
+        elif m := re.fullmatch(r"layer(\d+)", seg):
+            out += ["transformer_encoder", "layers", m.group(1)]
+        elif m := re.fullmatch(r"regressor(\d)", seg):
+            out += ["regressor", str(2 * int(m.group(1)))]
+        elif m := re.fullmatch(r"cls_to_weight(\d)_(\d)", seg):
+            out += ["cls_to_weight_layers", m.group(1), str(3 * int(m.group(2)))]
+        elif (m := re.fullmatch(r"([a-z_]+?)(\d+)", seg)) and m.group(1) in _DF_LISTS:
+            out += [_DF_LISTS[m.group(1)], m.group(2)]
+        elif m := re.fullmatch(r"layers(\d+)", seg):
+            out += ["layers", m.group(1)]
+        elif m := re.fullmatch(r"final(\d)", seg):
+            out += ["final_block", m.group(1)]
+        elif seg in ("final_res", "final_out"):
+            out += ["final_block", "1" if seg == "final_res" else "2" if final_last else "0"]
+        else:
+            out.append(seg)
+    return tuple(out)
+
+
 def _family(paths) -> str:
+    if _is_efficientnet(paths):
+        return "efficientnet"
     if _is_newcrfs(paths):
         return "newcrfs"
     if _is_ksa(paths):
@@ -205,15 +292,16 @@ def from_jax_variables(variables: Mapping, output_scale: int = 4) -> Dict[str, t
     """JAX model variables -> the port's state dict (load it with
     ``model.load_state_dict``, which checks every name and shape).
 
-    The tree's layout is told from its segments: the KSA decoder's, the CRF
-    stages', the siblings' ``neck`` or ``ppm``, else the flagship's. ``output_scale``
+    The tree's layout is told from its segments: an EfficientNet encoder's
+    stem (AdaBins, Depthformer), the KSA decoder's, the CRF stages', the
+    siblings' ``neck`` or ``ppm``, else the flagship's. ``output_scale``
     must be the flagship's: at 2 its last conv head starts with a
     parameter-free upsample that shifts its indices."""
     params = _flatten(variables["params"])
     stats = _flatten(variables.get("batch_stats", {}))
     paths = list(params) + list(stats)
     family = _family(paths)
-    if family == "newcrfs":
+    if family in ("newcrfs", "efficientnet"):
         def segment(seg, parent):
             return seg
     elif family == "ksa":
@@ -231,7 +319,13 @@ def from_jax_variables(variables: Mapping, output_scale: int = 4) -> Dict[str, t
 
         def segment(seg, parent):
             return _flagship_segment(seg, num_repeats, output_scale)
-    params, stats = _unstack_blocks(params), _unstack_blocks(stats)
+    if family == "efficientnet":
+        final_last = any(len(p) > 1 and p[0] == "decoder"
+                         and re.fullmatch(r"final\d|final_res", p[1]) for p in paths)
+        params = {_efficientnet_path(p, final_last): a for p, a in _merge_mha(params).items()}
+        stats = {_efficientnet_path(p, final_last): a for p, a in stats.items()}
+    else:
+        params, stats = _unstack_blocks(params), _unstack_blocks(stats)
     if family == "newcrfs":
         params = {_newcrfs_path(p): a for p, a in params.items()}
         stats = {_newcrfs_path(p): a for p, a in stats.items()}

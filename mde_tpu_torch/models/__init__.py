@@ -4,8 +4,9 @@
 config's ``model.name`` names, with weights drawn from ``seed``, in eval
 mode (the train step switches it to training), on the card unless
 ``device`` asks for another. Keyword overrides go to the model's
-constructor: ``dtype``, ``use_checkpoint`` (recompute blocks in the
-backward pass), ``path_drop_prob`` (the encoder's stochastic depth).
+constructor: ``dtype``, and for the Swin models ``use_checkpoint``
+(recompute blocks in the backward pass) and ``path_drop_prob`` (the
+encoder's stochastic depth).
 """
 
 from __future__ import annotations
@@ -16,6 +17,9 @@ from typing import Optional, Union
 import torch
 
 from ..ops.init import init_weights
+from .adabins.model import UnetAdaptiveBins
+from .depthformer.model import Depthformer
+from .depthformer.versions import DepthformerV2, DepthformerV3, DepthformerV4
 from .newcrfs.model import NewCRFDepth
 from .oda2.conv import ODA2ConvModel
 from .oda2.ksa import ODA2KSARegModel
@@ -35,7 +39,11 @@ _REGISTRY = {"oda2_red_order_swin2": ODA2OrderedSwin2RegModel.build,
              "oda2_red_reg": ODA2RedRegModel.build, "oda2_conv": ODA2ConvModel.build,
              "oda2_luna_reg": ODA2LunaModel.build,
              "oda2_luna_cls": functools.partial(ODA2LunaModel.build, cls_head=True),
-             "oda2_red_luna_reg": ODA2RedLunaRegModel.build}
+             "oda2_red_luna_reg": ODA2RedLunaRegModel.build,
+             "adabins": UnetAdaptiveBins.build, "depthformer": Depthformer.build,
+             "depthformer_v2": functools.partial(DepthformerV2.build, 2),
+             "depthformer_v3": DepthformerV3.build, "depthformer_v4": DepthformerV4.build,
+             "depthformer_v5": functools.partial(DepthformerV2.build, 5)}
 
 
 def available_models():

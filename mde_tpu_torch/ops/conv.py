@@ -33,10 +33,11 @@ class ConvBN(nn.Module):
 
 
 class ValidConv(nn.Conv2d):
-    """k x k VALID conv on NHWC input, in the input's dtype."""
+    """k x k VALID conv (at ``stride``, default 1) on NHWC input, in the
+    input's dtype."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv2d_nhwc(x, self.weight, self.bias)
+        return conv2d_nhwc(x, self.weight, self.bias, stride=self.stride[0])
 
 
 class Conv1x1(ValidConv):

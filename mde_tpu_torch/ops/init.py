@@ -24,6 +24,13 @@ def lecun_normal_(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     return trunc_normal_(t, math.sqrt(1.0 / fan_in) / 0.87962566103423978, generator)
 
 
+def xavier_normal_(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """flax's ``xavier_normal`` of a (fan_in, fan_out) table: truncated
+    normal, variance 2 / (fan_in + fan_out)."""
+    std = math.sqrt(2.0 / (t.shape[0] + t.shape[1])) / 0.87962566103423978
+    return trunc_normal_(t, std, generator)
+
+
 def conv_kernel_normal_(t: torch.Tensor, kernel_h: int, kernel_w: int,
                         generator: torch.Generator) -> torch.Tensor:
     """N(0, 2/(kh*kw)): the depthwise-conv FF init."""

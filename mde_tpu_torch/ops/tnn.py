@@ -143,9 +143,10 @@ def bn_freeze_scope(model: nn.Module,
 
 
 def conv2d_nhwc(x: torch.Tensor, weight: torch.Tensor, bias=None,
-                stride: int = 1, padding: int = 0) -> torch.Tensor:
+                stride: int = 1, padding: int = 0, groups: int = 1) -> torch.Tensor:
     """Convolution of NHWC ``x`` with an OIHW weight, in x's dtype: VALID,
-    or after ``padding`` zeros on every side."""
+    or after ``padding`` zeros on every side; ``groups`` as ``F.conv2d``'s."""
     y = F.conv2d(x.permute(0, 3, 1, 2), weight.to(x.dtype),
-                 None if bias is None else bias.to(x.dtype), stride=stride, padding=padding)
+                 None if bias is None else bias.to(x.dtype), stride=stride, padding=padding,
+                 groups=groups)
     return y.permute(0, 2, 3, 1)

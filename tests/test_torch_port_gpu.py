@@ -1117,3 +1117,105 @@ def test_attention_dropout_step_leaves_the_kernels_as_jax_does(cuda, name, rate)
     torch.cuda.synchronize()
     assert kernels.launch_counts == dict(NO_LAUNCHES, **(dropping if rate else usual))
     assert all(np.isfinite(float(v)) for v in logs.values())
+
+
+# the tiny AdaBins and Depthformer v1-v5 of tests/test_torch_port_adabins.py and
+# tests/test_torch_port_depthformer.py: name -> (config, image size). No kernel
+# of the port lies on their paths
+EFFNET_KW = dict(encoder_kwargs=dict(width=0.1, depth=0.25, stem_ch=32, head_ch=256))
+EFFNET_TINY = {
+    "adabins": (dict(num_bins=16), (288, 480)),
+    "depthformer": (dict(hidden_dim=16, num_heads=4, img_size=(64, 96)), (64, 96)),
+    "depthformer_v2": (dict(hidden_dim=32, num_heads=4, img_size=(64, 96)), (64, 96)),
+    "depthformer_v3": (dict(hidden_dim=32, num_heads=4, img_size=(64, 96), num_bins=10),
+                       (64, 96)),
+    "depthformer_v4": (dict(hidden_dim=16, num_heads=4), (64, 96)),
+    "depthformer_v5": (dict(hidden_dim=32, num_heads=4, img_size=(64, 96), key_query_dim=64),
+                       (64, 96))}
+
+
+def _flat_outputs(out):
+    """Every tensor of a model's output, in order."""
+    return [t for item in out for t in ([item] if torch.is_tensor(item) else item)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(EFFNET_TINY))
+def test_tiny_efficientnet_model_on_card_matches_cpu(cuda, name):
+    """A tiny AdaBins or Depthformer's f32 forward on the card, no kernel
+    launched, against the CPU's: the depth, bin edges and attention weights
+    within 1e-3 (m, or probability)."""
+    extra, hw = EFFNET_TINY[name]
+    x = torch.from_numpy(np.random.RandomState(17).rand(2, *hw, 3).astype(np.float32))
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        model = build_model(dict(extra, name=name), 0.001, 80.0, device=dev, seed=18,
+                            **EFFNET_KW)
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            outs.append([t.cpu() for t in _flat_outputs(model(x.to(dev)))])
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert kernels.launch_counts == NO_LAUNCHES
+    for a, b in zip(*outs):
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        assert (a - b).abs().max().item() <= 1e-3, (name, (a - b).abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(EFFNET_TINY))
+def test_tiny_efficientnet_train_step_on_card_matches_cpu(cuda, name):
+    """One f32 train step of a tiny AdaBins or Depthformer (dropout off; the
+    bin models with the chamfer loss at 0.1, AdaBins with ``same_lr``
+    false) on the card, no kernel launched, against the same step on the
+    CPU: the logs within 1e-4 of their size, each gradient within 1e-3 of
+    its tensor's max |g| (or of 1% of the largest one), BatchNorm
+    statistics within 1e-4, the new parameters within lr0. The CPU is fed
+    the sides of the card's ReLU and LeakyReLU kinks (``chip_smoke.KinkReplay``):
+    after AdaBins' batch-statistics BatchNorms a weight gradient sums
+    random-signed terms, and one element on the other side of a kink moves
+    it by about 1/sqrt(pixels)."""
+    from chip_smoke import KinkReplay
+    extra, hw = EFFNET_TINY[name]
+    chamfer = 0.1 if name in ("adabins", "depthformer_v3") else 0.0
+    opt = {"model": dict(extra, name=name),
+           "loss": {"alpha": 10.0, "beta": 0.15, "per_image": True, "chamfer_weight": chamfer},
+           "optimizer": {"lr": 1e-4, "weight_decay": 0.1, "eps": 1e-6,
+                         "same_lr": name != "adabins"},
+           "scheduler": {"name": "onecycle"}, "train": {"grad_norm": 0.1}}
+    rng = np.random.RandomState(19)
+    batch = {"image": rng.rand(2, *hw, 3).astype(np.float32),
+             "depth": rng.uniform(0.5, 60.0, (2, *hw, 1)).astype(np.float32)}
+    drop = dict(drop_prob=0.0) if name == "adabins" else dict(drop_prob=0.0,
+                                                              attn_drop_prob=0.0)
+    if name == "depthformer_v4":
+        drop.pop("attn_drop_prob")
+    results = []
+    kinks = KinkReplay()
+    for dev in (cuda, torch.device("cpu")):
+        model = build_model(opt["model"], 0.001, 80.0, device=dev, seed=20, **EFFNET_KW,
+                            **drop)
+        (kinks.record if dev is cuda else kinks.replay)(model)
+        state = TrainState.create(model, opt, 100)
+        grads = {}
+        update = state.optimizer.update
+        state.optimizer.update = lambda g, update=update: (grads.update(
+            {n: t.detach().cpu().clone() for n, t in g.items()}), update(g))
+        kernels.reset_launch_counts()
+        _, logs = make_train_step(opt, 0.001, 80.0)(state, batch)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert kernels.launch_counts == NO_LAUNCHES
+        results.append(({k: float(v) for k, v in logs.items()}, grads,
+                        {k: v.detach().cpu() for k, v in model.state_dict().items()}))
+    (logs, grads, weights), (ref_logs, ref_grads, ref_weights) = results
+    assert (ref_logs.get("loss_chamfer", 0.0) > 0) == (chamfer > 0)
+    for key in ref_logs:
+        assert abs(logs[key] - ref_logs[key]) <= 1e-4 * max(1.0, abs(ref_logs[key])), key
+    floor = 1e-2 * max(g.abs().max().item() for g in ref_grads.values())
+    for n, g in ref_grads.items():
+        assert (grads[n] - g).abs().max().item() <= 1e-3 * max(g.abs().max().item(), floor), n
+    for n, value in ref_weights.items():
+        tol = 1e-4 * max(1.0, value.abs().max().item()) if "running" in n else 1e-4 / 25
+        if value.is_floating_point():
+            assert (weights[n] - value).abs().max().item() <= tol, n

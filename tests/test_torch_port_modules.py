@@ -251,7 +251,9 @@ def test_port_imports_no_jax():
             "mde_tpu_torch.models.newcrfs, mde_tpu_torch.ops.reduction, "
             "mde_tpu_torch.models.oda2.red_order_reg, mde_tpu_torch.models.oda2.red_order_swin, "
             "mde_tpu_torch.models.oda2.red_reg, mde_tpu_torch.models.oda2.conv, "
-            "mde_tpu_torch.models.oda2.base\n"
+            "mde_tpu_torch.models.oda2.base, mde_tpu_torch.models.efficientnet, "
+            "mde_tpu_torch.models.adabins.model, mde_tpu_torch.models.depthformer.layers, "
+            "mde_tpu_torch.models.depthformer.model, mde_tpu_torch.models.depthformer.versions\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
             "'optax', 'orbax', 'mde_tpu')]\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -291,4 +293,4 @@ def test_build_model_defaults_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_model({"name": "oda2_red_order_swin2"}, 0.001, 80.0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model({"name": "adabins"}, 0.001, 80.0, device="cpu")
+        build_model({"name": "depthformer_v6"}, 0.001, 80.0, device="cpu")
