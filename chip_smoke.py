@@ -20,7 +20,12 @@
    bf16) a second time on windows whose depth indices are all equal. K1 is
    also timed at the KSA decoder's head dim 16 and its backward at the
    train step's stage 3, where 18 of the flagship's 24 backward launches
-   run; K3 also at the train step's batch 4; K5 and its backward also at
+   run; K1 also at the ODA encoder's 144-token windows (12x12, head dim
+   32: forward at stage 1, (1024, 144, 192)/6 masked and unmasked, and at
+   stage 4, (16, 144, 1536)/48 unmasked; backward at stage 1, batch 4,
+   masked, through the fused and the q|k + v entries), each against SDPA
+   (and its backward) with bias + mask as one float mask; K3 also at the
+   train step's batch 4; K5 and its backward also at
    the KSA decoder's stages 1 and 2 (128 and 256 channels). Which body K3
    dw took (tiled or gather) is logged. Each kernel is also timed with
    its calls following a synchronisation, so that any host gaps between
@@ -38,7 +43,8 @@
    K1, 6 K2 and 6 K3 forward launches after; then with the six FFs fused
    (24 K1, 6 K2, 6 K4, no K3); each is timed and profiled.
 4. Flagship training at full width: one f32 train step at batch 1 on
-   224x448, card against CPU (fed the card's index maps), comparing the loss, the
+   224x448 (encoder depths ``SHALLOW``), card against CPU (fed the card's
+   index maps), comparing the loss, the
    gradient norm, every gradient, the BatchNorm statistics and the
    parameters after AdamW. Then the bf16 train step at batch 4 on 352x704
    images (``make_train_step``, AdamW + OneCycle + clip 0.1, stochastic
@@ -48,7 +54,8 @@
 5. The flagship at KITTI's test shape: the f32 forward of one 352x1216
    image (resized to 448x1536, where every Swin stage pads its token grid
    to whole windows) on the card against the CPU, fed the card's index
-   maps, with the windows each kernel sees logged and checked.
+   maps, with the windows each kernel sees logged and checked, the encoder
+   at depths (2, 2, 2, 2) (``SHALLOW``) to keep the CPU side short.
 6. The driver: a synthetic KITTI tree (16 train and 4 test samples of
    375x1242, written with the port's PNG codec) in a temporary directory,
    then ``train.driver.Trainer`` on the flagship as ``bench.py`` pins it
@@ -65,8 +72,9 @@
 7. ``oda2_ksa_reg`` at full width (Swin-L, KSA decoder at dec_dim 512, the
    build's defaults, ``use_checkpoint`` on): the f32 batch-1 forward card
    against CPU; bf16 serving at batch 8 (32 K1 and 6 K5 launches), timed
-   and profiled; the f32 train step card against CPU at 224x448, at batch 2
-   with ``freeze_bn`` and at batch 4 with batch statistics (see
+   and profiled; the f32 train step card against CPU at 224x448 (encoder
+   depths ``SHALLOW``), at batch 2 with ``freeze_bn`` and at batch 4 with
+   batch statistics (see
    ``ksa_train_f32_check``); the bf16 train step at batch 4 on 352x704
    (56 K1 forward and 32 backward, 6 K5 forward and 6 backward), timed and
    profiled.
@@ -91,8 +99,8 @@
    (gen-1: bias-free window SAs on K2), ``oda2_red_reg`` (incremental
    reduction SAs, PreNormFFs) and ``oda2_conv`` (PPM and conv pyramid).
    For each: the f32 forward at batch 1 on 352x704 (reg and cls on
-   224x448) card against CPU (the reg and gen-1 CPU runs fed the card's
-   index maps); bf16 serving at batch
+   224x448) card against CPU, the encoder at depths ``SHALLOW`` (the reg
+   and gen-1 CPU runs fed the card's index maps); bf16 serving at batch
    8 through ``Predictor`` with exact launches (K1 24, and K3 6 for reg and
    cls, K2 6 bias-free for gen-1), timed and profiled, reg also with its
    FFs fused (K1 24, K4 6); the bf16 train step at batch 4 with
@@ -105,7 +113,8 @@
    tokens; ``LUNAS``): ``oda2_luna_reg`` and ``_cls`` (Luna-gated pyramid,
    PPM) and ``oda2_red_luna_reg`` (stacked split-Luna over the reduction
    neck, 4 layers). For each: the f32 forward at batch 1 on 352x704 card
-   against CPU, every gate's zero-initialised ``o_cross2`` seeded on both
+   against CPU (encoder depths ``SHALLOW``, as the f32 train steps of 9 and
+   10), every gate's zero-initialised ``o_cross2`` seeded on both
    sides (the map, the cls bin centers, red-Luna's eight attention
    weights); bf16 serving at batch 8 through ``Predictor`` (K1 24 only: the
    Luna attentions are plain einsums), timed and profiled; the bf16 train
@@ -130,13 +139,29 @@
    built for 224x448, each at chamfer 0.1, the CPU fed the sides of the
    card's ReLU and LeakyReLU kinks (``KinkReplay``), checking the maps and
    bin centers the loss took.
+12. The ODA family and Depthformer v6-v8 at full width (``LUNA_FAMILY``):
+   ``oda_conv``, ``oda_luna``, ``oda_luna_cls`` and ``oda_bins`` on the
+   Swin-L/384 window-12 encoder behind the 384-multiple resize (352x704 ->
+   384x768; decoder_channels 1024, 256 aux tokens of 256, 8 heads, 256
+   bins), and v6, v7 and v8 (hidden 512, 8 heads, 256 aux tokens, v7 the
+   1/32 grid's 242, 256 bins). For each: the f32 forward at batch 1 card
+   against CPU (ODA at 384x384, v6-v8 at 352x704: the depth, the bins, the
+   aux tokens and every Luna weight); bf16 serving at batch 8 on 352x704
+   through ``Predictor`` and the bf16 train step at batch 4, timed and
+   profiled with peak memory, with exact launches: ODA K1 24 serving and
+   24 + 24 backward a step (no recompute), v6-v8 none; the bin models
+   train with the chamfer loss at 0.1. Then ``oda_luna_cls``'s f32 train
+   step card against CPU at batch 2 on 384x384 (chamfer 0.1, batch
+   statistics), whose encoder runs K1's f32 forward and backward at 144
+   tokens.
 
 Any failure exits non-zero before the result lines. The last three lines
 are the card, the ``kernels`` JSON line and the ``ok`` JSON line. The
 ``kernels`` line takes the launches of K1, K2 and K3 and their backward
 kernels from the driver's ``fit``; K1's and K1 bwd's entries also carry
-NewCRFs' launches (``newcrfs_launches``), the siblings' and the Luna
-models' by model and path (``sibling_launches``).
+NewCRFs' launches (``newcrfs_launches``), every other model's that
+launches it by model and path (``sibling_launches``: the siblings, the
+ODA2 Luna half and the ODA family).
 """
 
 from __future__ import annotations
@@ -144,6 +169,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -339,14 +365,49 @@ DEPTHFORMERS = {
                        [(1, 8, n) for n in (242, 968, 3872, 15488, 61952)]),
     "depthformer_v5": (dict(DEPTHFORMER, name="depthformer_v5", key_query_dim=512),
                        [(1, h, n, n) for h, n in DF_GRIDS])}
+# the ODA family as the JAX builds make it (mde_tpu/models/oda/models.py;
+# no reference config is in the repo): the Swin-L/384 window-12 encoder behind
+# the 384-multiple resize (352x704 -> 384x768), decoder_channels 1024, 256 aux
+# tokens of 256, 8 heads, 256 bins, KITTI depth to 80 m; Depthformer v6-v8 at
+# DEPTHFORMER's widths with 256 aux tokens (v7: the 1/32 grid's 242) and 256
+# bins, the builds' dropout of 0.1 and 0.1.
+# name -> (config, f32 check image size, serving launches, train-step launches,
+# the number of tensors after the depth map): the 24 Swin-L blocks run K1 (the
+# encoder does not recompute, as JAX's), the Luna attentions are plain einsums;
+# v6-v8 launch no kernel
+ODA_LUNA = {"decoder_channels": 1024, "num_aux": 256, "aux_dim": 256, "num_heads": 8}
+ODA_SERVE_LAUNCHES = {"window_attention": 24}
+ODA_TRAIN_LAUNCHES = {"window_attention": 24, "window_attention_bwd": 24}
+LUNA_FAMILY = {
+    "oda_conv": (dict(name="oda_conv", decoder_channels=1024), (384, 384), ODA_SERVE_LAUNCHES,
+                 ODA_TRAIN_LAUNCHES, 0),
+    "oda_luna": (dict(ODA_LUNA, name="oda_luna"), (384, 384), ODA_SERVE_LAUNCHES,
+                 ODA_TRAIN_LAUNCHES, 9),
+    "oda_luna_cls": (dict(ODA_LUNA, name="oda_luna_cls", num_bins=256), (384, 384),
+                     ODA_SERVE_LAUNCHES, ODA_TRAIN_LAUNCHES, 10),
+    "oda_bins": (dict(name="oda_bins", decoder_channels=1024, num_bins=256), (384, 384),
+                 ODA_SERVE_LAUNCHES, ODA_TRAIN_LAUNCHES, 1),
+    "depthformer_v6": (dict(DEPTHFORMER, name="depthformer_v6", num_aux=256, num_bins=256),
+                       (352, 704), {}, {}, 9),
+    "depthformer_v7": (dict(DEPTHFORMER, name="depthformer_v7", num_aux=256, num_bins=256),
+                       (352, 704), {}, {}, 9),
+    "depthformer_v8": (dict(DEPTHFORMER, name="depthformer_v8", num_aux=256, num_bins=256),
+                       (352, 704), {}, {}, 9)}
+# the chamfer loss at 0.1 where a model returns bins (centers or edges)
+LUNA_CHAMFER = ("oda_luna_cls", "oda_bins", "depthformer_v7", "depthformer_v8")
+# the earlier paths' f32 CPU references (the flagship at 352x1216, the siblings'
+# and the ODA2 Luna models' forwards and train steps) run a Swin-B of depths
+# (2, 2, 2, 2) on both devices: full width, cut depth, to keep the CPU side short
+SHALLOW = {"depths": (2, 2, 2, 2)}
 # one eval forward of the flagship (no gradient, so nothing recomputes)
 EVAL_LAUNCHES = {"window_attention": 24, "ordered_attention": 6, "depthwise_conv2d": 6}
 # KITTI's test images after the KB-crop; the flagship resizes them to 448x1536
 EVAL_HW = (352, 1216)
 # 7x7 windows an image at each Swin stage of 448x1536: token grids 112x384,
 # 56x192, 28x96 and 14x48, each padded to whole windows (stage depths 2, 2,
-# 18, 2); K2 sees 14x48 windows of 8x8 at 1/4 scale, K3 (B, 112, 384, 2048)
-EVAL_WINDOWS = [880] * 2 + [224] * 2 + [56] * 18 + [14] * 2
+# 2, 2 in the f32 check, SHALLOW); K2 sees 14x48 windows of 8x8 at 1/4 scale,
+# K3 (B, 112, 384, 2048)
+EVAL_WINDOWS = [880] * 2 + [224] * 2 + [56] * 2 + [14] * 2
 # the driver phase's synthetic KITTI tree: raw images and depth maps of the
 # camera's shape, and the focal column of the split lists
 KITTI_RAW_HW = (375, 1242)
@@ -935,6 +996,132 @@ def model_f32_check(dev) -> None:
         raise RuntimeError("flagship f32 forward on the card disagrees with the CPU")
 
 
+def luna_family_opt(name: str) -> dict:
+    """The train config of an ODA or Depthformer v6-v8 model: the flagship's,
+    and the chamfer loss at 0.1 where the model returns bins."""
+    opt = dict(TRAIN_OPT, model=LUNA_FAMILY[name][0])
+    if name in LUNA_CHAMFER:
+        opt["loss"] = dict(opt["loss"], chamfer_weight=0.1)
+    return opt
+
+
+def luna_family_f32_check(dev, name: str, seed: int) -> dict:
+    """An ODA or Depthformer v6-v8 model's full-width f32 forward at batch 1
+    (the ODA models at 384x384, v6-v8 at 352x704): the card against the
+    CPU, the depth map and the bin centers or edges in metres, the aux
+    tokens at WEIGHTS_TOL of their size, the attention weights as
+    probabilities. Returns the card's launches."""
+    from mde_tpu_torch.models import build_model
+    from mde_tpu_torch.ops import kernels
+    cfg, hw, serving, _, rest_count = LUNA_FAMILY[name]
+    x = torch.from_numpy(np.random.RandomState(seed).rand(1, *hw, 3).astype(np.float32))
+    outs = []
+    for device in (dev, torch.device("cpu")):
+        model = build_model(cfg, 0.001, 80.0, device=device, seed=0)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            depth, rest = split_outputs(model(x.to(device)))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            counts = dict(kernels.launch_counts)
+        else:
+            log(f"{name} f32 CPU forward (plain versions): {time.perf_counter() - t0:.1f} s")
+        outs.append((depth.cpu(), [t.cpu() for t in rest]))
+        del model, depth, rest
+        free_garbage()
+    (depth, rest), (ref, ref_rest) = outs
+    err = (depth - ref).abs().max().item()
+    errs, tols = [], []
+    for a, b in zip(rest, ref_rest):
+        errs.append((a - b).abs().max().item())
+        tols.append(MODEL_F32_TOL if b.dim() == 2 else WEIGHTS_TOL if b.dim() == 4
+                    else WEIGHTS_TOL * max(1.0, b.abs().max().item()))
+    log(f"{name} f32 batch 1 at {hw[0]}x{hw[1]}, card vs CPU: launches {counts}; depth "
+        f"{tuple(depth.shape)} in [{ref.min().item():.3f}, {ref.max().item():.3f}] m, "
+        f"max_abs_err {err:.3e} m (tolerance {MODEL_F32_TOL}); then "
+        f"{[tuple(t.shape) for t in rest]} max_abs_err {[f'{e:.2e}' for e in errs]} "
+        f"(tolerances: bins in m {MODEL_F32_TOL}, aux tokens {WEIGHTS_TOL} of their size, "
+        f"weights {WEIGHTS_TOL})")
+    if (tuple(depth.shape) != (1, hw[0] // 2, hw[1] // 2, 1) or err > MODEL_F32_TOL
+            or counts != dict(dict.fromkeys(kernels.KERNELS, 0), **serving)
+            or len(rest) != rest_count
+            or [t.shape for t in rest] != [t.shape for t in ref_rest]
+            or not all(torch.isfinite(t).all() for t in [depth] + rest)
+            or any(e > tol for e, tol in zip(errs, tols))):
+        raise RuntimeError(f"{name} f32 forward on the card disagrees with the CPU")
+    return counts
+
+
+def oda_train_f32_check(dev, seed: int) -> None:
+    """``oda_luna_cls``'s full-width f32 train step at batch 2 on 384x384
+    (chamfer 0.1, batch statistics, dropout and stochastic depth off): the
+    card, whose encoder runs K1's f32 forward and backward at 144 tokens,
+    against the CPU. The loss must take the depth map and the bin centers."""
+    import mde_tpu_torch.train.step as step_module
+    from mde_tpu_torch.ops import kernels
+    name = "oda_luna_cls"
+    batch = train_batch(2, seed, hw=(384, 384))
+    tag = f"{name} f32 train step batch 2 at 384x384 (chamfer 0.1)"
+    seen, real = [], step_module.DepthLoss
+
+    class Record(real):
+        def __call__(self, outputs, gt, bin_centers=None):
+            seen.append(([tuple(m.shape) for m in outputs], None if bin_centers is None
+                         else tuple(bin_centers.shape)))
+            return super().__call__(outputs, gt, bin_centers)
+
+    step_module.DepthLoss = Record
+    kw = dict(drop_prob=0.0, encoder_kwargs={"drop_prob": 0.0, "path_drop_prob": 0.0})
+    try:
+        kernels.reset_launch_counts()
+        card = one_train_step(dev, batch, luna_family_opt(name), **kw)
+        torch.cuda.synchronize()
+        counts = dict(kernels.launch_counts)
+        free_garbage()
+        t0 = time.perf_counter()
+        cpu = one_train_step("cpu", batch, luna_family_opt(name), **kw)
+        log(f"{tag}: card launches {counts}; CPU step (plain versions) "
+            f"{time.perf_counter() - t0:.1f} s; the loss took maps {seen[0][0]} and bin "
+            f"centers {seen[0][1]}")
+    finally:
+        step_module.DepthLoss = real
+    want = ([(2, 192, 192, 1)], (2, 256))
+    if (seen != [want, want] or not card[0]["loss_chamfer"] > 0
+            or counts != dict(dict.fromkeys(kernels.KERNELS, 0), **ODA_TRAIN_LAUNCHES)):
+        raise RuntimeError(f"{tag}: the loss took {seen}, expected {want} on both devices; "
+                           f"launches {counts}")
+    compare_steps(tag, card, cpu)
+
+
+def luna_family_runs(dev) -> dict:
+    """Every phase of the ODA models and Depthformer v6-v8: the f32 forward
+    card vs CPU, bf16 serving at batch 8 and the bf16 train step at batch 4
+    at 352x704 (each counted, timed, with peak memory and a profile), and
+    ``oda_luna_cls``'s f32 train step card vs CPU. Returns {name: {path:
+    launches}}."""
+    from mde_tpu_torch.models import build_model
+    from mde_tpu_torch.serve import Predictor
+    runs = {}
+    for i, (name, (cfg, _, serving, training, _)) in enumerate(LUNA_FAMILY.items()):
+        runs[name] = {"f32_forward": luna_family_f32_check(dev, name, 110 + i)}
+        model = build_model(cfg, 0.001, 80.0, device=dev, seed=0, dtype=torch.bfloat16)
+        images = torch.from_numpy(
+            np.random.RandomState(120 + i).rand(BATCH, 352, 704, 3).astype(np.float32)).to(dev)
+        resized = " (resized to 384x768)" if name.startswith("oda") else ""
+        _, runs[name]["serving"] = serve_run(f"{name} bf16 batch {BATCH}{resized}",
+                                             Predictor(model), images, serving)
+        del model, images
+        free_garbage()
+        runs[name]["train_step"], _ = train_run(
+            f"{name} bf16 train step batch {TRAIN_BATCH}{resized}", luna_family_opt(name), dev,
+            training, warmup=2, timed=3, profile=True)
+        free_garbage()
+    oda_train_f32_check(dev, 130)
+    free_garbage()
+    return runs
+
+
 def serve_run(tag, predictor, images, expect, entries=None) -> tuple:
     """One counted ``predict`` (every launch count from 0, then exactly
     ``expect``, every other kernel 0, and exactly ``entries`` of them
@@ -1030,17 +1217,19 @@ def one_train_step(dev, batch: dict, opt=TRAIN_OPT, freeze_bn: bool = False,
 
 def train_f32_check(dev) -> None:
     """Full-width f32 train step at batch 1 on 224x448 (a quarter of the
-    pixels of 448x896 keeps the CPU step short): the card against the CPU."""
+    pixels of 448x896 and the encoder depth SHALLOW keep the CPU step
+    short): the card against the CPU."""
     batch = train_batch(1, 2, hw=(224, 448))
     replay = IndexReplay()
     try:
         replay.record()
-        card = one_train_step(dev, batch, path_drop_prob=0.0, use_checkpoint=False)
+        kw = dict(path_drop_prob=0.0, use_checkpoint=False, encoder_kwargs=SHALLOW)
+        card = one_train_step(dev, batch, **kw)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         replay.replay()
         t0 = time.perf_counter()
-        cpu = one_train_step("cpu", batch, path_drop_prob=0.0, use_checkpoint=False)
+        cpu = one_train_step("cpu", batch, **kw)
         log(f"flagship f32 CPU train step (plain versions): {time.perf_counter() - t0:.1f} s")
     finally:
         replay.restore()
@@ -1204,8 +1393,9 @@ def ppm_spread(dev, images) -> float:
 
 def ksa_train_f32_check(dev, size: int, freeze_bn: bool) -> None:
     """``oda2_ksa_reg``'s f32 train step, card against CPU, at full width on
-    ``size`` images of 224x448 (a quarter of the pixels keeps the CPU step
-    short), with batch statistics or with ``freeze_bn``.
+    ``size`` images of 224x448 (a quarter of the pixels and the encoder
+    depth SHALLOW keep the CPU step short), with batch statistics or with
+    ``freeze_bn``.
 
     The PPM's 1x1 pooled BatchNorm normalises one value per image. At two
     images its output is +-1 whatever their spread. Random images of one
@@ -1223,11 +1413,12 @@ def ksa_train_f32_check(dev, size: int, freeze_bn: bool) -> None:
            f"({'freeze_bn' if freeze_bn else 'batch statistics, colour casts'})")
     log(f"{tag}: the 1x1 pooled BatchNorm's input, std across the batch over rms "
         f"(median over channels): {ppm_spread(dev, batch['image']):.4f}")
-    card = one_train_step(dev, batch, KSA_TRAIN_OPT, freeze_bn=freeze_bn, path_drop_prob=0.0)
+    kw = dict(freeze_bn=freeze_bn, path_drop_prob=0.0, encoder_kwargs=SHALLOW)
+    card = one_train_step(dev, batch, KSA_TRAIN_OPT, **kw)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    cpu = one_train_step("cpu", batch, KSA_TRAIN_OPT, freeze_bn=freeze_bn, path_drop_prob=0.0)
+    cpu = one_train_step("cpu", batch, KSA_TRAIN_OPT, **kw)
     log(f"{tag}: CPU step (plain versions, use_checkpoint=True) {time.perf_counter() - t0:.1f} s")
     compare_steps(tag, card, cpu)
 
@@ -1298,6 +1489,83 @@ def window_qk_v_bwd_phase(tag: str, bw: int, c: int, heads: int, windows: int, d
     return kernel_phase("window_attention_bwd",
                         f"K1 bwd q|k+v {tag} ({bw},{n},{c})/{heads} masked",
                         window_attention_qk_v_bwd, plain, make, library, cost, relative=True)
+
+
+# 12x12 windows (144 tokens) an image of each stage of the ODA encoder at
+# 384x768 (the 384-multiple resize of KITTI's 352x704): token grids 96x192,
+# 48x96, 24x48 and 12x24; stage 4 is one window high, so its blocks run
+# unshifted (shift_collapse)
+ODA_WINDOWS = {1: 128, 2: 32, 3: 8, 4: 2}
+
+
+def oda_window_phase(stage: int, batch: int, c: int, heads: int, masked: bool, dev,
+                     backward: bool = False, qk_v: bool = False):
+    """K1 (``backward``: K1 bwd) at an ODA encoder stage: 144-token windows
+    at head dim 32, through the fused qkv entry or (``qk_v``) the q|k +
+    separate-v entry, with the SW-MSA mask where ``masked``; SDPA with bias
+    + mask as one float mask (and its backward) is the yardstick."""
+    from mde_tpu_torch.ops.kernels import window_attention as wa
+    from mde_tpu_torch.ops.window import shifted_window_attn_mask
+    g = torch.Generator(device=dev).manual_seed(13 + stage + 2 * backward + 4 * qk_v)
+    r, windows = 12, ODA_WINDOWS[stage]
+    n, bw, hd = r * r, windows * batch, c // heads
+    k = math.isqrt(windows // 2)
+    mask = shifted_window_attn_mask(r * k, 2 * r * k, r, r // 2, dev) if masked else None
+    bias = torch.randn(heads, n, n, generator=g, device=dev)
+    nin = 2 if qk_v else 1  # tensors that hold q, k, v
+
+    def make(dtype):
+        fused = torch.randn(bw, n, (2 if qk_v else 3) * c, generator=g, device=dev).to(dtype)
+        ins = (fused, torch.randn(bw, n, c, generator=g, device=dev).to(dtype))[:nin]
+        dout = (torch.randn(bw, n, c, generator=g, device=dev).to(dtype),) if backward else ()
+        return (*ins, *dout, bias, mask, heads, hd ** -0.5)
+
+    def split(args):
+        return (*args[0].split(c, dim=-1), *args[1:nin])
+
+    def plain(*args):
+        q, k_, v = split(args)
+        if not backward:
+            return wa.plain_window_attention(q, k_, v, *args[nin:])
+        dq, dk, dv, dbias = wa.plain_window_attention_bwd(q, k_, v, *args[nin:])
+        return ((torch.cat([dq, dk], dim=-1), dv, dbias) if qk_v
+                else (torch.cat([dq, dk, dv], dim=-1), dbias))
+
+    def library(args):
+        q, k_, v = (t.reshape(bw, n, heads, hd).transpose(1, 2).detach().requires_grad_(backward)
+                    for t in split(args))
+        add = window_mask(bias, mask, bw, q.dtype)
+        if not backward:
+            return lambda: F.scaled_dot_product_attention(q, k_, v, attn_mask=add,
+                                                          scale=args[-1])
+        out = F.scaled_dot_product_attention(q, k_, v, attn_mask=add, scale=args[-1])
+        grad = args[nin].reshape(bw, n, heads, hd).transpose(1, 2)
+        return lambda: torch.autograd.grad(out, (q, k_, v), grad, retain_graph=True)
+
+    def cost(args, outs):
+        return (nbytes(*args[:nin + backward], *outs),
+                (10 if backward else 4) * bw * n * n * c)
+
+    fn = {(False, False): wa.window_attention, (False, True): wa.window_attention_qk_v,
+          (True, False): wa.window_attention_bwd, (True, True): wa.window_attention_qk_v_bwd}
+    name = (f"K1{' bwd' if backward else ''}{' q|k+v' if qk_v else ''} ODA stage {stage} "
+            f"({bw},{n},{c})/{heads}{' masked' if masked else ''}")
+    return kernel_phase("window_attention_bwd" if backward else "window_attention", name,
+                        fn[backward, qk_v], plain, make, library, cost, relative=backward)
+
+
+def oda_window_phases(dev) -> dict:
+    """K1's phases at the ODA encoder's 144-token windows: forward at stage
+    1 (serving batch 8) masked and unmasked and at stage 4 (48 heads,
+    collapsed: unmasked), backward at stage 1 (train batch 4) masked
+    through both entries."""
+    return {"window_attention": [oda_window_phase(1, BATCH, 192, 6, True, dev),
+                                 oda_window_phase(1, BATCH, 192, 6, False, dev),
+                                 oda_window_phase(4, BATCH, 1536, 48, False, dev)],
+            "window_attention_bwd": [oda_window_phase(1, TRAIN_BATCH, 192, 6, True, dev,
+                                                      backward=True),
+                                     oda_window_phase(1, TRAIN_BATCH, 192, 6, True, dev,
+                                                      backward=True, qk_v=True)]}
 
 
 def crf_windows(h: int, w: int) -> tuple:
@@ -1394,9 +1662,9 @@ def sibling_maps(out) -> tuple:
 
 
 def sibling_f32_check(dev, name: str, seed: int) -> None:
-    """A sibling's full-width f32 forward at batch 1 on the image of
-    ``SIBLING_MAPS``: the card against the CPU, the CPU fed the card's index
-    maps (reg and gen-1)."""
+    """A sibling's full-width f32 forward (encoder depth SHALLOW) at batch
+    1 on the image of ``SIBLING_MAPS``: the card against the CPU, the CPU
+    fed the card's index maps (reg and gen-1)."""
     from mde_tpu_torch.models import build_model
     cfg = SIBLINGS[name]
     hw, count, shape = SIBLING_MAPS[name]
@@ -1404,13 +1672,15 @@ def sibling_f32_check(dev, name: str, seed: int) -> None:
     replay = sibling_replay()
     try:
         replay.record()
-        model = build_model(cfg, 0.001, 80.0, device=dev, seed=0, use_checkpoint=False)
+        model = build_model(cfg, 0.001, 80.0, device=dev, seed=0, use_checkpoint=False,
+                            encoder_kwargs=SHALLOW)
         with torch.no_grad():
             card = [m.cpu() for m in sibling_maps(model(x.to(dev)))]
         torch.cuda.synchronize()
         del model
         free_garbage()
-        cpu_model = build_model(cfg, 0.001, 80.0, device="cpu", seed=0, use_checkpoint=False)
+        cpu_model = build_model(cfg, 0.001, 80.0, device="cpu", seed=0, use_checkpoint=False,
+                                encoder_kwargs=SHALLOW)
         replay.replay()
         t0 = time.perf_counter()
         with torch.no_grad():
@@ -1453,21 +1723,22 @@ def sibling_serve_run(dev, name: str, seed: int) -> dict:
 
 
 def sibling_train_f32_check(dev, name: str, seed: int) -> None:
-    """A sibling's full-width f32 train step at batch 2 on 224x448, the
-    card against the CPU (fed the card's index maps), stochastic depth and
-    recompute off."""
+    """A sibling's full-width f32 train step (encoder depth SHALLOW) at
+    batch 2 on 224x448, the card against the CPU (fed the card's index
+    maps), stochastic depth and recompute off."""
     batch = train_batch(2, seed, hw=(224, 448))
     opt = dict(TRAIN_OPT, model=SIBLINGS[name])
     tag = f"{name} f32 train step batch 2 at 224x448"
     replay = sibling_replay()
     try:
         replay.record()
-        card = one_train_step(dev, batch, opt, path_drop_prob=0.0, use_checkpoint=False)
+        kw = dict(path_drop_prob=0.0, use_checkpoint=False, encoder_kwargs=SHALLOW)
+        card = one_train_step(dev, batch, opt, **kw)
         torch.cuda.synchronize()
         free_garbage()
         replay.replay()
         t0 = time.perf_counter()
-        cpu = one_train_step("cpu", batch, opt, path_drop_prob=0.0, use_checkpoint=False)
+        cpu = one_train_step("cpu", batch, opt, **kw)
         log(f"{tag}: CPU step (plain versions) {time.perf_counter() - t0:.1f} s; index flips "
             f"per repeat {replay.flips} (the CPU run was fed the card's indices)")
     finally:
@@ -1518,15 +1789,17 @@ def perturb_o_cross2(model, seed: int) -> int:
 
 
 def luna_f32_check(dev, name: str, seed: int) -> None:
-    """A Luna model's full-width f32 forward at batch 1 on 352x704, the
-    gates' ``o_cross2`` seeded on both sides: the card against the CPU, the
-    map, the cls bin centers, red-Luna's eight attention weights."""
+    """A Luna model's full-width f32 forward (encoder depth SHALLOW) at
+    batch 1 on 352x704, the gates' ``o_cross2`` seeded on both sides: the
+    card against the CPU, the map, the cls bin centers, red-Luna's eight
+    attention weights."""
     from mde_tpu_torch.models import build_model
     cfg, _, _, shape = LUNAS[name]
     x = torch.from_numpy(np.random.RandomState(seed).rand(1, 352, 704, 3).astype(np.float32))
     outs = []
     for device in (dev, torch.device("cpu")):
-        model = build_model(cfg, 0.001, 80.0, device=device, seed=0, use_checkpoint=False)
+        model = build_model(cfg, 0.001, 80.0, device=device, seed=0, use_checkpoint=False,
+                            encoder_kwargs=SHALLOW)
         gates = perturb_o_cross2(model, 9)
         t0 = time.perf_counter()
         with torch.no_grad():
@@ -1556,8 +1829,9 @@ def luna_f32_check(dev, name: str, seed: int) -> None:
 
 
 def luna_train_f32_check(dev, name: str, seed: int) -> None:
-    """A Luna model's full-width f32 train step at batch 2 on 224x448, the
-    card against the CPU, dropout, stochastic depth and recompute off.
+    """A Luna model's full-width f32 train step (encoder depth SHALLOW) at
+    batch 2 on 224x448, the card against the CPU, dropout, stochastic depth
+    and recompute off.
     ``oda2_luna_cls`` takes the chamfer loss at 0.1 and ``freeze_bn``: its
     PPM's 1x1 pooled BatchNorm normalises two values, whose gradient is
     rounding noise with batch statistics (``ksa_train_f32_check``).
@@ -1578,7 +1852,8 @@ def luna_train_f32_check(dev, name: str, seed: int) -> None:
 
     step_module.default_adapter = record
     try:
-        kw = dict(freeze_bn=freeze_bn, path_drop_prob=0.0, use_checkpoint=False, drop_prob=0.0)
+        kw = dict(freeze_bn=freeze_bn, path_drop_prob=0.0, use_checkpoint=False, drop_prob=0.0,
+                  encoder_kwargs=SHALLOW)
         card = one_train_step(dev, batch, luna_opt(name), **kw)
         torch.cuda.synchronize()
         free_garbage()
@@ -1622,10 +1897,11 @@ def luna_runs(dev) -> dict:
 
 
 def split_outputs(out) -> tuple:
-    """A model's output as (the depth map, [every other tensor in order])."""
+    """A model's output as (the depth map, [every other tensor in order]; a
+    None, ``oda_conv``'s second, left out)."""
     rest = []
     for item in out[1:]:
-        rest += [item] if torch.is_tensor(item) else list(item)
+        rest += [] if item is None else [item] if torch.is_tensor(item) else list(item)
     return out[0], rest
 
 
@@ -1802,15 +2078,17 @@ def kernel_inputs(model) -> tuple:
 
 def eval_shape_f32_check(dev) -> None:
     """The flagship's f32 forward of one 352x1216 image (KITTI's test shape,
-    resized to 448x1536): the card against the CPU, fed the card's index
-    maps, with the windows K1, K2 and K3 see at this shape checked."""
+    resized to 448x1536) at the encoder depth SHALLOW: the card against the
+    CPU, fed the card's index maps, with the windows K1, K2 and K3 see at
+    this shape checked."""
     from mde_tpu_torch.models import build_model
     from mde_tpu_torch.ops import kernels
     x = torch.from_numpy(np.random.RandomState(9).rand(1, *EVAL_HW, 3).astype(np.float32))
     replay = IndexReplay()
     try:
         replay.record()
-        model = build_model(FLAGSHIP, 0.001, 80.0, device=dev, seed=0, use_checkpoint=False)
+        model = build_model(FLAGSHIP, 0.001, 80.0, device=dev, seed=0, use_checkpoint=False,
+                            encoder_kwargs=SHALLOW)
         seen, handles = kernel_inputs(model)
         kernels.reset_launch_counts()
         with torch.no_grad():
@@ -1828,13 +2106,14 @@ def eval_shape_f32_check(dev) -> None:
             f"{sorted({s[1] for s in seen['K1']})}); K2 inputs {sorted(set(seen['K2']))} "
             f"({seen['K2'][0][1] * seen['K2'][0][2] // 64} windows of 8x8); K3 inputs "
             f"{sorted(set(seen['K3']))}")
-        if (counts != dict(dict.fromkeys(kernels.KERNELS, 0), **EVAL_LAUNCHES)
+        if (counts != dict(dict.fromkeys(kernels.KERNELS, 0),
+                           **dict(EVAL_LAUNCHES, window_attention=len(EVAL_WINDOWS)))
                 or windows != EVAL_WINDOWS or set(seen["K2"]) != {(1, 112, 384, 512)}
                 or set(seen["K3"]) != {(1, 112, 384, 2048)}):
             raise RuntimeError("the flagship at 352x1216 did not run the kernels at the "
                                "expected shapes")
         cpu_model = build_model(FLAGSHIP, 0.001, 80.0, device="cpu", seed=0,
-                                use_checkpoint=False)
+                                use_checkpoint=False, encoder_kwargs=SHALLOW)
         replay.replay()
         t0 = time.perf_counter()
         with torch.no_grad():
@@ -2231,16 +2510,18 @@ def kernel_name(mangled: str) -> str:
 def build_report(kernels) -> dict:
     """Registers and spills (ptxas) of every kernel in the sources of K1,
     K1 bwd, K3, K3 dxdw, K3 dw, K4, K5 and K5 bwd, and the shared memory a
-    block takes as the kernels' sources count it (K1 at N 49 with the bias;
+    block takes as the kernels' sources count it (K1 at N 49 and 144 with the
+    bias;
     K3's and K4's tiled bodies by kernel size; K5 and K5 bwd at the KSA
     decoder's three stages, bf16 on the tensor cores and f32 on the CUDA
     cores), by kernel, for the ``kernels`` line; logs the shared memory."""
     lib, rows = kernels.library(), ptxas_entries(kernels.ptxas_report())
     dtypes = (("bf16", 1), ("f32", 0))
-    smem = {"window_attention": {f"N 49 hd {hd} {tag}": lib.mde_window_attention_smem(
-                49, 4 * hd, 4, code) for hd in (16, 32) for tag, code in dtypes},
-            "window_attention_bwd": {f"N 49 hd {hd} {tag}": lib.mde_window_attention_bwd_smem(
-                49, 4 * hd, 4, 1, code) for hd in (16, 32) for tag, code in dtypes},
+    k1_shapes = ((49, 16), (49, 32), (144, 32))
+    smem = {"window_attention": {f"N {n} hd {hd} {tag}": lib.mde_window_attention_smem(
+                n, 4 * hd, 4, code) for n, hd in k1_shapes for tag, code in dtypes},
+            "window_attention_bwd": {f"N {n} hd {hd} {tag}": lib.mde_window_attention_bwd_smem(
+                n, 4 * hd, 4, 1, code) for n, hd in k1_shapes for tag, code in dtypes},
             "depthwise_conv2d": {f"{k}x{k} {tag}": lib.mde_depthwise_conv2d_smem(k, code)
                                  for k in (3, 5, 7) for tag, code in dtypes},
             "depthwise_conv2d_dxdw": {f"{k}x{k} {tag}": lib.mde_depthwise_conv2d_dxdw_smem(k, code)
@@ -2321,6 +2602,8 @@ def main() -> int:
     phases[7]["one_bucket_ms"] = one["ms"]
     log(f"K2 bwd by index pattern: uniform {phases[7]['ms']:.4f} ms, one index a window "
         f"{one['ms']:.4f} ms ({one['ms'] / phases[7]['ms']:.2f}x)")
+    # K1 at the ODA encoder's 144-token windows (the wide tensor-core bodies)
+    oda = oda_window_phases(dev)
     # K1 at the other shapes of its paths: the KSA decoder's head dim 16
     # (stage 0, serving) and the train step's stage 3, where 18 of the
     # flagship's 24 backward launches run; K3 at the train step's batch
@@ -2330,12 +2613,14 @@ def main() -> int:
                                  window_phase("KSA decoder stage 0", 512 * BATCH, 64, 4,
                                               512, True, dev),
                                  window_qk_v_phase("NewCRFs crf0", 572 * NEWCRFS_BATCH, 128,
-                                                   4, 572, dev)],
+                                                   4, 572, dev),
+                                 *oda["window_attention"]],
             "window_attention_bwd": [window_bwd_phase("stage 3", 32 * TRAIN_BATCH, 512, 16,
                                                       32, dev),
                                      window_qk_v_bwd_phase("NewCRFs crf0",
                                                            338 * TRAIN_BATCH, 128, 4, 338,
-                                                           dev)],
+                                                           dev),
+                                     *oda["window_attention_bwd"]],
             "ordered_attention_bwd": [ordered_bwd_phase(dev, with_table=False)],
             "depthwise_conv2d": [depthwise_phase(dev, TRAIN_BATCH)],
             "channel_attention": [channel_phase(dev, False, c) for c in (128, 256)],
@@ -2386,6 +2671,7 @@ def main() -> int:
     siblings = sibling_runs(dev)
     siblings.update(luna_runs(dev))
     efficientnet_runs(dev)
+    siblings.update(luna_family_runs(dev))
 
     # the line reports each kernel at its main-path shape in bf16 (K1 at
     # stage 1 with the shift mask, K2 with the table) and its launches in

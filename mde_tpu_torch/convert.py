@@ -9,8 +9,11 @@ JAX model the port has (arrays of any kind numpy can read) into the port's
 ``convert_oda2_conv_decoder``, ``convert_oda2_luna_decoder``,
 ``convert_oda2_red_luna_decoder``, ``convert_adabins_model`` with
 ``convert_efficientnet_b5``, ``convert_depthformer_v2_decoder``,
-``convert_depthformer_v4_decoder``; Depthformer v1 and v3, which have none,
-on their pattern), written without importing the JAX package.
+``convert_depthformer_v4_decoder``, ``convert_depthformer_luna_decoder``,
+``convert_oda_conv_decoder``, ``convert_oda_luna_decoder``; Depthformer v1
+and v3, which have none, on their pattern; the ODA encoder as the Swin
+backbones, without output norms; the ODA heads as AdaBins'), written
+without importing the JAX package.
 
 Layouts: dense (in, out) -> (out, in); conv HWIO -> OIHW; depthwise
 (kh, kw, C) -> (C, 1, kh, kw); flax BN scale/bias/mean/var ->
@@ -167,6 +170,8 @@ def _rename(path: Path, segment: Callable[[str, str], str], convbn: bool) -> str
 def _leaf(path: Path, arr: np.ndarray) -> np.ndarray:
     if path[-1] == "depth_bins":  # the reference's NCHW broadcast shape
         return arr.reshape(1, -1, 1, 1)
+    if path[-1] == "position_embedding" and arr.ndim == 4:  # Depthformer v7's, NCHW
+        return arr.transpose(0, 3, 1, 2)
     if path[-1] != "kernel":
         return arr
     if arr.ndim == 2:
@@ -208,7 +213,8 @@ _DF_LISTS = {"post_conv": "post_conv_layers", "vit": "vit_layers", "vit_bn": "vi
              "patchify": "patchify_layers", "position_embeddings": "position_embeddings",
              "q_proj": "q_projections", "k_proj": "k_projections", "v_proj": "v_projections",
              "post_cls": "post_cls_layers", "post_cls_ln": "post_cls_ln",
-             "post_weight": "post_weight_layers"}
+             "post_weight": "post_weight_layers", "luna": "luna_layers",
+             "shoot": "shoot_layers", "aux_vit": "aux_layers"}
 
 
 def _merge_mha(flat: Dict[Path, np.ndarray]) -> Dict[Path, np.ndarray]:
@@ -235,7 +241,7 @@ def _merge_mha(flat: Dict[Path, np.ndarray]) -> Dict[Path, np.ndarray]:
     return out
 
 
-def _efficientnet_path(path: Path, final_last: bool) -> Path:
+def _efficientnet_path(path: Path, final_last: bool, luna: int = 0) -> Path:
     """A path of AdaBins' or a Depthformer's tree in the port's segments:
     the encoder under ``encoder.original_model`` with ``blocks{s}_{b}`` as
     ``blocks.{s}.{b}``, its ``_BN`` wrappers' ``bn`` dropped and the raw
@@ -246,7 +252,12 @@ def _efficientnet_path(path: Path, final_last: bool) -> Path:
     ``layers.{j}``, ``cls_to_weight{i}_{j}`` as
     ``cls_to_weight_layers.{i}.{0,3}``, and their heads as ``final_block``:
     ``final{i}`` (v1), ``final_res`` (v4) at 1, ``final_out`` at 2 where
-    ``final_last``, else at 0."""
+    ``final_last``, else at 0. The Luna decoders (``luna``: the version,
+    6-8, else 0): ``luna{i}``, ``shoot{i}`` and ``aux_vit{i}`` as
+    ``{luna,shoot,aux}_layers.{i}``, ``post_conv{i}_{j}`` as
+    ``post_conv_layers.{i}`` (v6: ``.{j}``), ``bin_regressor{0,1,_out}`` as
+    ``bin_regressor.{0,2,4}`` (v8: ``{0,3,6}``) and ``bin_pred{0,1,_out}``
+    as ``bin_predictor.{0,1}``, the out conv last."""
     if path[0] == "encoder":
         out = ["encoder", "original_model"]
         for parent, seg in zip(path, path[1:]):
@@ -259,6 +270,14 @@ def _efficientnet_path(path: Path, final_last: bool) -> Path:
     for parent, seg in zip(path, path[1:]):
         if (m := re.fullmatch(r"(conv|bn)(\d)", seg)) and re.fullmatch(r"up\d", parent):
             out += ["_net", str(3 * int(m.group(2)) + (m.group(1) == "bn"))]
+        elif m := re.fullmatch(r"post_conv(\d+)_(\d+)", seg):
+            out += ["post_conv_layers", m.group(1)] + ([m.group(2)] if luna == 6 else [])
+        elif m := re.fullmatch(r"bin_regressor(\d|_out)", seg):
+            k = 2 if m.group(1) == "_out" else int(m.group(1))
+            out += ["bin_regressor", str(k * (3 if luna == 8 else 2))]
+        elif m := re.fullmatch(r"bin_pred(\d|_out)", seg):
+            out += ["bin_predictor", str((2 if luna == 8 else 1) if m.group(1) == "_out"
+                                         else int(m.group(1)))]
         elif m := re.fullmatch(r"layer(\d+)", seg):
             out += ["transformer_encoder", "layers", m.group(1)]
         elif m := re.fullmatch(r"regressor(\d)", seg):
@@ -278,9 +297,56 @@ def _efficientnet_path(path: Path, final_last: bool) -> Path:
     return tuple(out)
 
 
+def _is_oda(paths) -> bool:
+    """Whether a tree is an ODA model's: its encoder wraps the Swin as
+    ``encoder/backbone``."""
+    return any(p[:2] == ("encoder", "backbone") for p in paths)
+
+
+def _oda_path(path: Path) -> Path:
+    """A path of an ODA model's tree (blocks unstacked) in the port's
+    segments: the decoders' ``block{L}_{0,1,2}`` as ``block{L}.{0,1,3}``
+    (slot 2 the upsample), ``block2_out`` as ``block2.1``,
+    ``block{L}_post`` as ``block{L}_post.1`` (slot 0 the upsample), the
+    gen-1 PPM's ``reduce{i}_conv``, ``out_conv``, ``out_bn`` as
+    ``conv_reduce_layers.{i}``, ``conv``, ``bn``; the cls head's
+    ``bin_regressor{i}`` as ``bin_regressor.{2i}``; mViT as AdaBins'
+    (``_efficientnet_path``)."""
+    if path[0] == "encoder":
+        return path
+    if m := re.fullmatch(r"bin_regressor(\d)", path[0]):  # the cls head's
+        return ("bin_regressor", str(2 * int(m.group(1)))) + path[1:]
+    if path[0] != "decoder":
+        return _efficientnet_path(path, False)
+    out = ["decoder"]
+    for parent, seg in zip(path, path[1:]):
+        if parent == "ppm" and (m := re.fullmatch(r"reduce(\d+)_conv", seg)):
+            out += ["conv_reduce_layers", m.group(1)]
+        elif parent == "ppm" and seg in ("out_conv", "out_bn"):
+            out.append(seg[len("out_"):])
+        elif m := re.fullmatch(r"block(\d+)_(\d|out)", seg):
+            j = 1 if m.group(2) == "out" else int(m.group(2))
+            out += [f"block{m.group(1)}", str(3 if j == 2 else j)]
+        elif re.fullmatch(r"block\d+_post", seg):
+            out += [seg, "1"]
+        else:
+            out.append(seg)
+    return tuple(out)
+
+
+def _luna_version(paths) -> int:
+    """The Depthformer Luna decoder's version told by its segments (6:
+    ``luna_final``, 7: ``aux_lst_ln``, 8: ``aux_layer``), else 0."""
+    segs = {p[1] for p in paths if len(p) > 1 and p[0] == "decoder"}
+    return next((v for v, seg in ((6, "luna_final"), (7, "aux_lst_ln"), (8, "aux_layer"))
+                 if seg in segs), 0)
+
+
 def _family(paths) -> str:
     if _is_efficientnet(paths):
         return "efficientnet"
+    if _is_oda(paths):
+        return "oda"
     if _is_newcrfs(paths):
         return "newcrfs"
     if _is_ksa(paths):
@@ -293,15 +359,16 @@ def from_jax_variables(variables: Mapping, output_scale: int = 4) -> Dict[str, t
     ``model.load_state_dict``, which checks every name and shape).
 
     The tree's layout is told from its segments: an EfficientNet encoder's
-    stem (AdaBins, Depthformer), the KSA decoder's, the CRF stages', the
-    siblings' ``neck`` or ``ppm``, else the flagship's. ``output_scale``
+    stem (AdaBins, Depthformer), the ODA encoder's ``backbone``, the KSA
+    decoder's, the CRF stages', the siblings' ``neck`` or ``ppm``, else the
+    flagship's. ``output_scale``
     must be the flagship's: at 2 its last conv head starts with a
     parameter-free upsample that shifts its indices."""
     params = _flatten(variables["params"])
     stats = _flatten(variables.get("batch_stats", {}))
     paths = list(params) + list(stats)
     family = _family(paths)
-    if family in ("newcrfs", "efficientnet"):
+    if family in ("newcrfs", "efficientnet", "oda"):
         def segment(seg, parent):
             return seg
     elif family == "ksa":
@@ -322,8 +389,13 @@ def from_jax_variables(variables: Mapping, output_scale: int = 4) -> Dict[str, t
     if family == "efficientnet":
         final_last = any(len(p) > 1 and p[0] == "decoder"
                          and re.fullmatch(r"final\d|final_res", p[1]) for p in paths)
-        params = {_efficientnet_path(p, final_last): a for p, a in _merge_mha(params).items()}
-        stats = {_efficientnet_path(p, final_last): a for p, a in stats.items()}
+        luna = _luna_version(paths)
+        params = {_efficientnet_path(p, final_last, luna): a
+                  for p, a in _merge_mha(params).items()}
+        stats = {_efficientnet_path(p, final_last, luna): a for p, a in stats.items()}
+    elif family == "oda":
+        params = {_oda_path(p): a for p, a in _unstack_blocks(_merge_mha(params)).items()}
+        stats = {_oda_path(p): a for p, a in _unstack_blocks(stats).items()}
     else:
         params, stats = _unstack_blocks(params), _unstack_blocks(stats)
     if family == "newcrfs":

@@ -6,7 +6,7 @@ mode (the train step switches it to training), on the card unless
 ``device`` asks for another. Keyword overrides go to the model's
 constructor: ``dtype``, and for the Swin models ``use_checkpoint``
 (recompute blocks in the backward pass) and ``path_drop_prob`` (the
-encoder's stochastic depth).
+encoder's stochastic depth; the ODA models' is fixed at 0.1, as JAX's).
 """
 
 from __future__ import annotations
@@ -16,11 +16,13 @@ from typing import Optional, Union
 
 import torch
 
-from ..ops.init import init_weights
+from ..ops.init import init_weights, no_default_init
 from .adabins.model import UnetAdaptiveBins
 from .depthformer.model import Depthformer
+from .depthformer.luna_versions import DepthformerLuna
 from .depthformer.versions import DepthformerV2, DepthformerV3, DepthformerV4
 from .newcrfs.model import NewCRFDepth
+from .oda.models import ODABinsModel, ODAConvModel, ODALunaModel
 from .oda2.conv import ODA2ConvModel
 from .oda2.ksa import ODA2KSARegModel
 from .oda2.luna import ODA2LunaModel
@@ -43,7 +45,12 @@ _REGISTRY = {"oda2_red_order_swin2": ODA2OrderedSwin2RegModel.build,
              "adabins": UnetAdaptiveBins.build, "depthformer": Depthformer.build,
              "depthformer_v2": functools.partial(DepthformerV2.build, 2),
              "depthformer_v3": DepthformerV3.build, "depthformer_v4": DepthformerV4.build,
-             "depthformer_v5": functools.partial(DepthformerV2.build, 5)}
+             "depthformer_v5": functools.partial(DepthformerV2.build, 5),
+             **{f"depthformer_v{v}": functools.partial(DepthformerLuna.build, v)
+                for v in (6, 7, 8)},
+             "oda_conv": ODAConvModel.build, "oda_luna": ODALunaModel.build,
+             "oda_luna_cls": functools.partial(ODALunaModel.build, cls_head=True),
+             "oda_bins": ODABinsModel.build}
 
 
 def available_models():
@@ -70,6 +77,7 @@ def build_model(opt, min_depth: float, max_depth: float,
         raise NotImplementedError(
             f"Model {name!r} is not ported yet (ported: {available_models()}); "
             f"see ROADMAP.md Queue 1 for the order of the rest")
-    model = _REGISTRY[name](model_opt, min_depth, max_depth, **overrides)
+    with no_default_init():
+        model = _REGISTRY[name](model_opt, min_depth, max_depth, **overrides)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval()

@@ -149,14 +149,21 @@ class MiniViT(nn.Module):
     layers in the activation dtype, then ReLU + 0.1 and the normalisation
     in f32) and the (B, h, w, 128) range-attention maps. Tokens 1..128 are
     the queries, so the map needs at least 129 patches: JAX would size
-    ``conv_out`` from fewer queries there and no released weight fits."""
+    ``conv_out`` from fewer queries there and no released weight fits.
+    ``embedding_dim`` and ``num_heads`` are AdaBins' 128 and 4 unless given
+    (``oda_bins`` takes its decoder's width)."""
 
-    def __init__(self, in_ch: int, n_bins: int, drop_prob: float = 0.1):
+    n_queries = N_QUERIES
+
+    def __init__(self, in_ch: int, n_bins: int, drop_prob: float = 0.1,
+                 embedding_dim: int = EMBEDDING_DIM, num_heads: int = 4):
         super().__init__()
-        self.patch_transformer = PatchTransformerEncoder(in_ch, drop_prob=drop_prob)
-        self.embedding_conv = ZeroPadConv(in_ch, EMBEDDING_DIM, 3)
+        self.patch_transformer = PatchTransformerEncoder(in_ch, embedding_dim,
+                                                         num_heads=num_heads,
+                                                         drop_prob=drop_prob)
+        self.embedding_conv = ZeroPadConv(in_ch, embedding_dim, 3)
         self.regressor = nn.Sequential(
-            LecunLinear(EMBEDDING_DIM, 256), nn.LeakyReLU(0.01), LecunLinear(256, 256),
+            LecunLinear(embedding_dim, 256), nn.LeakyReLU(0.01), LecunLinear(256, 256),
             nn.LeakyReLU(0.01), LecunLinear(256, n_bins))
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None

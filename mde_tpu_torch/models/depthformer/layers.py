@@ -47,27 +47,30 @@ class ConvBN(conv.ConvBN):
 
 
 class ConvBNBlock(nn.Module):
-    """``num_layers`` ConvBNs with GELU and residuals (``layers.py:63-79``)."""
+    """``num_layers`` ConvBNs with ``act`` (GELU) and residuals
+    (``layers.py:63-79``)."""
 
-    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3, num_layers: int = 2):
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3, num_layers: int = 2,
+                 act: Act = gelu):
         super().__init__()
         self.layers = nn.Sequential(*(ConvBN(in_ch if i == 0 else out_ch, out_ch, kernel_size,
-                                             act=gelu) for i in range(num_layers)))
+                                             act=act) for i in range(num_layers)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.layers(x)
 
 
 class ResConvBNBlock(nn.Module):
-    """ConvBNs without residuals, GELU after all but the last, plus the
-    input or, where the widths differ, a 1x1 ConvBN ``shortcut`` of it
-    (``layers.py:82-104``)."""
+    """ConvBNs without residuals, ``act`` (GELU) after all but the last,
+    plus the input or, where the widths differ, a 1x1 ConvBN ``shortcut``
+    of it (``layers.py:82-104``)."""
 
-    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3, num_layers: int = 2):
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3, num_layers: int = 2,
+                 act: Act = gelu):
         super().__init__()
         self.layers = nn.Sequential(*(
             ConvBN(in_ch if i == 0 else out_ch, out_ch, kernel_size,
-                   act=gelu if i != num_layers - 1 else None, use_residual=False)
+                   act=act if i != num_layers - 1 else None, use_residual=False)
             for i in range(num_layers)))
         self.shortcut = (ConvBN(in_ch, out_ch, 1, use_residual=False) if in_ch != out_ch
                          else None)
@@ -117,12 +120,16 @@ class SelfAttentionBlock(nn.Module):
 
 
 class FeedForwardBlock(nn.Module):
-    """Pre-norm residual FF: ``fc1`` to ``feedforward_dim`` (default 4 x
-    dim), GELU, dropout, ``fc2``, dropout (``layers.py:164-192``)."""
+    """Residual FF: ``fc1`` to ``feedforward_dim`` (default 4 x dim),
+    ``act`` (GELU), dropout, ``fc2``, dropout; ``norm`` before ``fc1``, or
+    after the residual where ``post_norm`` (``layers.py:164-192``)."""
 
-    def __init__(self, dim: int, feedforward_dim: Optional[int] = None, drop_prob: float = 0.1):
+    def __init__(self, dim: int, feedforward_dim: Optional[int] = None, drop_prob: float = 0.1,
+                 act: Callable[[torch.Tensor], torch.Tensor] = gelu, post_norm: bool = False):
         super().__init__()
         hidden = feedforward_dim or 4 * dim
+        self.act = act
+        self.post_norm = post_norm
         self.norm = LayerNorm(dim)
         self.fc1 = Linear(dim, hidden)
         self.fc2 = Linear(hidden, dim)
@@ -130,23 +137,25 @@ class FeedForwardBlock(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        y = self.drop(gelu(self.fc1(self.norm(x))), generator)
-        return x + self.drop(self.fc2(y), generator)
+        y = self.drop(self.act(self.fc1(x if self.post_norm else self.norm(x))), generator)
+        out = x + self.drop(self.fc2(y), generator)
+        return self.norm(out) if self.post_norm else out
 
 
 class ViTLayer(nn.Module):
     """``num_repeat`` times the same self-attention and FF (one set of
-    weights); returns (tokens, the last repeat's attention weights)
-    (``layers.py:195-221``)."""
+    weights, the FF's activation ``act``); returns (tokens, the last
+    repeat's attention weights) (``layers.py:195-221``)."""
 
     def __init__(self, dim: int, key_query_dim: Optional[int] = None, num_heads: int = 4,
                  num_repeat: int = 1, feedforward_dim: Optional[int] = None,
-                 attn_drop_prob: float = 0.0, drop_prob: float = 0.1):
+                 attn_drop_prob: float = 0.0, drop_prob: float = 0.1,
+                 act: Callable[[torch.Tensor], torch.Tensor] = gelu):
         super().__init__()
         self.num_repeat = num_repeat
         self.self_attn = SelfAttentionBlock(dim, key_query_dim, num_heads, attn_drop_prob,
                                             drop_prob)
-        self.feed_forward = FeedForwardBlock(dim, feedforward_dim, drop_prob)
+        self.feed_forward = FeedForwardBlock(dim, feedforward_dim, drop_prob, act)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:

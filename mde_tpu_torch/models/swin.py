@@ -9,6 +9,14 @@ Parameter names follow the reference torch state dict
 merge and token maps to window multiples: ``"edge"`` repeats the border (the
 ODA and ODA2 variants, the default), ``"zeros"`` pads with zeros (the
 NewCRFs variant, torch ``F.pad``'s default).
+
+``shift_collapse`` is timm's min-window rule (the ODA variant,
+``mde_tpu/models/swin.py:113-121``): where a call's token grid is no larger
+than the window on its shorter side, SW-MSA runs as W-MSA and the window
+shrinks to that side. JAX sizes a block's rel-pos table from the window a
+call gives it; here each stage's window, and so its table, is fixed at
+build from ``input_size`` (the window where it is None), and a call whose
+grid would need another window raises.
 """
 
 from __future__ import annotations
@@ -79,11 +87,15 @@ class SwinBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, window_size: int = 7, shift_size: int = 0,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True, path_drop_prob: float = 0.0,
                  padding_mode: str = "edge", drop_prob: float = 0.0,
-                 attn_drop_prob: float = 0.0):
+                 attn_drop_prob: float = 0.0, shift_collapse: bool = False,
+                 nominal_window: Optional[int] = None):
         super().__init__()
         self.window_size = window_size
         self.shift_size = shift_size
         self.padding_mode = padding_mode
+        # with shift_collapse, the stage's window before the min-window rule
+        self.shift_collapse = shift_collapse
+        self.nominal_window = nominal_window or window_size
         self.norm1 = LayerNorm(dim)
         self.attn = WindowAttention(dim, num_heads, window_size, qkv_bias, attn_drop_prob,
                                     drop_prob)
@@ -102,10 +114,22 @@ class SwinBlock(nn.Module):
         """Whether a call in the current mode draws element-wise dropout."""
         return self.training and (self.attn.attn_drop.rate > 0 or self.mlp.drop.rate > 0)
 
+    def window(self, h: int, w: int) -> Tuple[int, int]:
+        """(window, shift) of a call on an h x w token grid; raises where
+        the rule gives a window the block's table was not built for."""
+        r, s = self.nominal_window, self.shift_size
+        if self.shift_collapse and min(h, w) <= r:
+            r, s = min(h, w), 0
+        if r != self.window_size:
+            raise ValueError(f"a {h}x{w} token grid takes window {r}; the block was built for "
+                             f"window {self.window_size}: build the encoder for this input "
+                             f"size")
+        return r, s
+
     def forward(self, x: torch.Tensor, masks: DropMasks = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         _, h, w, _ = x.shape
-        r, s = self.window_size, self.shift_size
+        r, s = self.window(h, w)
         keep_attn, keep_mlp = masks if masks is not None else (None, None)
         y = pad_to_multiple(self.norm1(x), r, self.padding_mode)
         hp, wp = y.shape[1], y.shape[2]
@@ -118,7 +142,9 @@ class SwinBlock(nn.Module):
 
 class SwinStage(nn.Module):
     """``depth`` blocks with alternating shift, then an optional patch merge.
-    Returns (stage output, input of the next stage). ``use_checkpoint``
+    ``built_window`` (default ``window_size``) sizes the blocks' rel-pos
+    tables, where ``shift_collapse`` shrinks the window at the built input
+    size. Returns (stage output, input of the next stage). ``use_checkpoint``
     recomputes each block in the backward pass (``ops/remat.py``); its
     drop-path masks are drawn before the block, once, and its dropout masks
     again from the same generator state."""
@@ -127,13 +153,15 @@ class SwinStage(nn.Module):
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  path_drop_probs: Sequence[float] = (), downsample: bool = False,
                  use_checkpoint: bool = False, padding_mode: str = "edge",
-                 drop_prob: float = 0.0, attn_drop_prob: float = 0.0):
+                 drop_prob: float = 0.0, attn_drop_prob: float = 0.0,
+                 shift_collapse: bool = False, built_window: Optional[int] = None):
         super().__init__()
         self.use_checkpoint = use_checkpoint
         pdp = list(path_drop_probs) + [0.0] * (depth - len(path_drop_probs))
         self.blocks = nn.ModuleList(
-            SwinBlock(dim, num_heads, window_size, 0 if i % 2 == 0 else window_size // 2,
-                      mlp_ratio, qkv_bias, pdp[i], padding_mode, drop_prob, attn_drop_prob)
+            SwinBlock(dim, num_heads, built_window or window_size,
+                      0 if i % 2 == 0 else window_size // 2, mlp_ratio, qkv_bias, pdp[i],
+                      padding_mode, drop_prob, attn_drop_prob, shift_collapse, window_size)
             for i in range(depth))
         self.downsample = PatchMerging(dim, padding_mode) if downsample else None
 
@@ -151,7 +179,9 @@ class SwinStage(nn.Module):
 
 class SwinTransformer(nn.Module):
     """4-stage backbone returning NHWC features at strides 4/8/16/32, each
-    through its output LayerNorm ``norm{i}``. Stochastic depth rises
+    through its output LayerNorm ``norm{i}`` (none where ``out_norms`` is
+    False: the ODA encoder). ``shift_collapse`` and ``input_size``: see the
+    module docstring. Stochastic depth rises
     linearly over the blocks, ``path_drop_prob * i / (total - 1)``
     (``mde_tpu/models/swin.py:315``), drawn from the ``generator`` given to
     ``forward`` in training. ``frozen_stages`` >= 0 detaches the patch
@@ -168,11 +198,19 @@ class SwinTransformer(nn.Module):
                  path_drop_prob: float = 0.2, out_indices: Sequence[int] = (0, 1, 2, 3),
                  use_checkpoint: bool = False, frozen_stages: int = -1,
                  padding_mode: str = "edge", drop_prob: float = 0.0,
-                 attn_drop_prob: float = 0.0):
+                 attn_drop_prob: float = 0.0, shift_collapse: bool = False,
+                 input_size: Optional[Tuple[int, int]] = None, out_norms: bool = True):
         super().__init__()
         self.num_features = tuple(int(embed_dim * 2 ** i) for i in range(len(depths)))
         self.out_indices = tuple(out_indices)
         self.frozen_stages = frozen_stages
+        self.out_norms = out_norms
+        windows = [window_size] * len(depths)
+        if shift_collapse and input_size is not None:
+            h, w = -(-input_size[0] // patch_size), -(-input_size[1] // patch_size)
+            for i in range(len(depths)):
+                windows[i] = min(window_size, h, w)
+                h, w = -(-h // 2), -(-w // 2)
         self.patch_embed = PatchEmbed(patch_size, 3, embed_dim, padding_mode)
         self.pos_drop = Dropout(drop_prob)
         total = sum(depths)
@@ -184,9 +222,11 @@ class SwinTransformer(nn.Module):
                 self.num_features[i], depth, num_heads[i], window_size, mlp_ratio, qkv_bias,
                 pdp[start:start + depth], downsample=i < len(depths) - 1,
                 use_checkpoint=use_checkpoint, padding_mode=padding_mode, drop_prob=drop_prob,
-                attn_drop_prob=attn_drop_prob))
-        for i in self.out_indices:
-            self.add_module(f"norm{i}", LayerNorm(self.num_features[i]))
+                attn_drop_prob=attn_drop_prob, shift_collapse=shift_collapse,
+                built_window=windows[i]))
+        if out_norms:
+            for i in self.out_indices:
+                self.add_module(f"norm{i}", LayerNorm(self.num_features[i]))
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, ...]:
@@ -200,7 +240,7 @@ class SwinTransformer(nn.Module):
             if i + 1 < self.frozen_stages:
                 x, x_out = x.detach(), x_out.detach()
             if i in self.out_indices:
-                outs.append(getattr(self, f"norm{i}")(x_out))
+                outs.append(getattr(self, f"norm{i}")(x_out) if self.out_norms else x_out)
         return tuple(outs)
 
 

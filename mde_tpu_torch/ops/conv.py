@@ -8,23 +8,25 @@ import torch
 from torch import nn
 
 from .pad import pad2d
-from .tnn import BatchNorm, conv2d_nhwc, gelu
+from .tnn import BatchNorm, GroupNorm, conv2d_nhwc, gelu
 
 
 class ConvBN(nn.Module):
     """Replicate pad -> bias-free k x k conv -> BatchNorm (batch statistics
-    in training, running ones in eval) -> ``act`` (GELU, or none). Names
-    match the reference's ``{conv, bn}``; ``bn_momentum`` is torch's."""
+    in training, running ones in eval), or GroupNorm of ``gn_groups`` where
+    ``use_gn`` -> ``act`` (GELU, or none). Names match the reference's
+    ``{conv, bn}``; ``bn_momentum`` is torch's."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3, bn_eps: float = 1e-5,
                  act: Optional[Callable[[torch.Tensor], torch.Tensor]] = gelu,
-                 bn_momentum: float = 0.1):
+                 bn_momentum: float = 0.1, use_gn: bool = False, gn_groups: int = 1):
         super().__init__()
         if kernel_size % 2 != 1:
             raise ValueError("ConvBN takes odd kernels only")
         self.act = act
         self.conv = nn.Conv2d(in_ch, out_ch, kernel_size, bias=False)
-        self.bn = BatchNorm(out_ch, eps=bn_eps, momentum=bn_momentum)
+        self.bn = (GroupNorm(gn_groups, out_ch, eps=bn_eps) if use_gn
+                   else BatchNorm(out_ch, eps=bn_eps, momentum=bn_momentum))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         p = self.conv.kernel_size[0] // 2

@@ -4,6 +4,7 @@ from a ``torch.Generator`` so that a seed fixes the weights."""
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
@@ -59,6 +60,19 @@ def depth_bins_init(num_emb: int) -> torch.Tensor:
     exp(linspace(-10, 0, num_emb - 1)) without its last value, then 0.999."""
     bins = np.exp(np.linspace(-10.0, 0.0, num_emb - 1)[:-1]).tolist()
     return torch.tensor([0.001] + bins + [0.999], dtype=torch.float32)
+
+
+@contextlib.contextmanager
+def no_default_init():
+    """While active, ``nn.Linear`` and ``nn.Conv2d`` skip torch's own
+    parameter init when built: :func:`init_weights` draws every one of
+    them again, and torch's init took half of a Swin-L model's build."""
+    real = nn.Linear.reset_parameters, nn.Conv2d.reset_parameters
+    nn.Linear.reset_parameters = nn.Conv2d.reset_parameters = lambda self: None
+    try:
+        yield
+    finally:
+        nn.Linear.reset_parameters, nn.Conv2d.reset_parameters = real
 
 
 @torch.no_grad()

@@ -40,6 +40,17 @@ inline bool mma_shape(int n, int hd) {
   return n > 0 && n <= MMA_MAX_N && hd > 0 && hd % 8 == 0 && hd <= MMA_MAX_HD;
 }
 
+// K1 also takes wider windows, up to MMA_WIDE_N tokens (the ODA encoder's
+// 12 x 12 windows, 144 tokens, nine 16-row tiles) at head dims that are
+// multiples of 8 up to MMA_WIDE_HD, with bias and mask read through L2
+// (GlobalBias) instead of a FragBias tile (window_attention*.cu).
+#define MMA_WIDE_N 144
+#define MMA_WIDE_HD 32
+inline bool window_mma_wide(int n, int hd) {
+  return n > MMA_MAX_N && n <= MMA_WIDE_N && hd > 0 && hd % 8 == 0 && hd <= MMA_WIDE_HD;
+}
+inline bool window_mma_shape(int n, int hd) { return mma_shape(n, hd) || window_mma_wide(n, hd); }
+
 // Row stride, in elements, of a staged (rows, hd) operand.
 __host__ __device__ inline int mma_ld(int hd) { return mma_pad16(hd) + 8; }
 
@@ -356,12 +367,45 @@ __device__ __forceinline__ void add_bias(float (&s)[2 * NT][4], int r0, int nk, 
   }
 }
 
+// The (n, n) f32 bias of one head and mask of one window slot (either may
+// be null) in device memory, row-major, read as each logit needs them:
+// every warp-wide read of one C fragment's (row, col) pairs covers 8 rows
+// of 32 contiguous bytes, whole sectors, so the reads cost L2 bandwidth
+// and no shared memory. Padded rows read 0, as in a FragBias tile.
+struct GlobalBias {
+  const float* bias;
+  const float* mask;
+};
+
+// add_bias from GlobalBias: bias + mask summed first, then added to the
+// logit, as from a FragBias tile; -inf at the padded keys.
+template <int NT>
+__device__ __forceinline__ void add_bias(float (&s)[2 * NT][4], int r0, int nk, int n,
+                                         float scale, GlobalBias b) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < 2 * NT; ++j) {
+    if (j >= 2 * nk) break;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = r0 + g + ((e >> 1) << 3), col = 8 * j + 2 * t + (e & 1);
+      float add = 0.f;
+      if (row < n && col < n) {
+        const int off = row * n + col;
+        if (b.bias) add += __ldg(b.bias + off);
+        if (b.mask) add += __ldg(b.mask + off);
+      }
+      s[j][e] = col < n ? __fmul_rn(s[j][e], scale) + add : -INFINITY;
+    }
+  }
+}
+
 // softmax(q . k^T * scale + bias(row, col)) . v for one (window, head), in
 // bf16 with f32 logits, softmax and sums; P is rounded to bf16 before P.v.
 // sq, sk, sv: staged by mma_stage, pad16(n) rows `ld` apart; each warp
 // reuses its own rows of sq to stage its output, which it writes to `out`
-// (rows `ldo` apart) in 16-byte stores. bias: a FragBias, or a callable
-// bias(row, col) (add_bias). All threads of the block call it.
+// (rows `ldo` apart) in 16-byte stores. bias: a FragBias, a GlobalBias, or a
+// callable bias(row, col) (add_bias). All threads of the block call it.
 template <int NT, int DT, bool FAST_EXP = false, typename BiasFn>
 __device__ void mma_head_attention(bf16* sq, const bf16* sk, const bf16* sv, int ld,
                                    bf16* __restrict__ out, int ldo, int n, int hd, float scale,
@@ -525,16 +569,18 @@ __device__ void mma_bwd_keys(const bf16* sq, const bf16* sdo, int ld, const bf16
 }
 
 // Windows a block walks, for a grid of (bw / wpb) x heads blocks of
-// `kernel` at `smem` bytes: runs of about `target` windows, sized so that
+// `kernel` (`threads` a block) at `smem` bytes: runs of about `target`
+// windows, sized so that
 // the grid fills whole waves of the blocks the card holds at once (a
 // block's windows run one after another, so a last wave part full leaves
 // SMs idle for a whole run). 0 on an error.
 template <typename K>
-static int balanced_windows_per_block(K kernel, size_t smem, int bw, int heads, int target) {
+static int balanced_windows_per_block(K kernel, size_t smem, int bw, int heads, int target,
+                                      int threads = MMA_THREADS) {
   int device = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&device) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, MMA_THREADS, smem) !=
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem) !=
           cudaSuccess)
     return 0;
   const long long work = (long long)bw * heads, slots = (long long)sms * max(per_sm, 1);

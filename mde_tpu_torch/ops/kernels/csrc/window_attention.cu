@@ -42,12 +42,21 @@
 // hide one another's copies; a double-buffered variant holds 4 and was
 // slower at stage 1, faster at stage 3 (PERF.md).
 //
-// Shapes: bf16 at n <= 128 and head dims that are multiples of 8 up to 128
+// Wide windows (the ODA encoder's window 12: n = 144 at hd 32, nine 16-row
+// tiles): staged as above, a FragBias tile alone would be 83 KB, and with
+// q, k, v one block an SM. There the logits read bias and mask through L2
+// as they need them (GlobalBias: 166 KB of L2 reads a (window, head) with
+// both, in whole sectors, against 28 KB of q, k and v from device memory),
+// and a block holds q, k and v only, 35 KB, with a warp for each of the
+// nine 16-row tiles (fwd_threads).
+//
+// Shapes: bf16 at n <= 128 and head dims that are multiples of 8 up to 128,
+// and at 128 < n <= 144 with head dims that are multiples of 8 up to 32,
 // take the tensor cores (hd 16, the KSA decoder, and hd 32, every Swin
-// stage); f32 inputs (the card's f32 checks against the CPU, held at 1e-5,
-// which TF32 would break) and bf16 beyond those shapes (the window-12
-// NewCRFs, n = 144) take the CUDA-core body window_head_attention
-// (common.cuh). The rule is mma_shape below, on (dtype, n, hd) alone. The
+// stage, the ODA and NewCRFs window 12 included); f32 inputs (the card's
+// f32 checks against the CPU, held at 1e-5, which TF32 would break) and
+// bf16 beyond those shapes take the CUDA-core body window_head_attention
+// (common.cuh). The rule is window_mma_shape, on (dtype, n, hd) alone. The
 // TPU kernel takes q, k and v as separate arrays (fused_window_attention,
 // :352), as the NewCRFs blocks hand them over; the Swin blocks' fused qkv
 // is the case q = qkv, k = qkv + C, v = qkv + 2C, all at row stride 3C,
@@ -56,7 +65,7 @@
 
 #include "attention_mma.cuh"
 
-// f32, and bf16 outside mma_shape: one block of 128 threads per (window,
+// f32, and bf16 outside window_mma_shape: one block of 128 threads per (window,
 // head), q, k, v and the scores staged as f32, products on the CUDA cores.
 template <typename T>
 __global__ void window_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -82,7 +91,7 @@ __global__ void window_attention_kernel(const T* __restrict__ q, const T* __rest
                                  ldv, c, scale, smem, add);
 }
 
-// bf16 on the tensor cores: one block of MMA_THREADS per (run of wpb
+// bf16 on the tensor cores: one block of fwd_threads(NT) per (run of wpb
 // windows, head), blocks ordered head-fastest so that neighbouring blocks
 // read neighbouring pieces of the same rows. Window u of a head's sequence
 // is w = s + i * slots with s = u / (bw / slots), i = u mod (bw / slots):
@@ -90,11 +99,18 @@ __global__ void window_attention_kernel(const T* __restrict__ q, const T* __rest
 // pad16(n) / 16 and pad16(hd) / 16.
 // Resident blocks an SM the bf16 kernel is compiled for: 7 at the main
 // path's n <= 64, hd <= 32 (at most 72 registers a thread, 31 KB of shared
-// memory at hd 32).
-constexpr int fwd_min_blocks(int nt, int dt) { return nt <= 4 && dt <= 2 ? 7 : 1; }
+// memory at hd 32); 2 for wide windows (35 KB each, 9 warps).
+constexpr int fwd_min_blocks(int nt, int dt) {
+  return nt <= 4 && dt <= 2 ? 7 : nt > MMA_MAX_N / 16 ? 2 : 1;
+}
 
-template <int NT, int DT>
-__global__ void __launch_bounds__(MMA_THREADS, fwd_min_blocks(NT, DT))
+// Threads a block of the bf16 kernel: MMA_THREADS, and for wide windows a
+// warp for each of the nine 16-row tiles, so that no warp takes a second.
+constexpr int fwd_threads(int nt) { return nt > MMA_MAX_N / 16 ? 32 * nt : MMA_THREADS; }
+
+// L2_BIAS: bias and mask through L2 (GlobalBias), no FragBias tile.
+template <int NT, int DT, bool L2_BIAS>
+__global__ void __launch_bounds__(fwd_threads(NT), fwd_min_blocks(NT, DT))
     window_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                 const bf16* __restrict__ v, const float* __restrict__ bias,
                                 const float* __restrict__ mask, bf16* __restrict__ out, int bw,
@@ -106,7 +122,7 @@ __global__ void __launch_bounds__(MMA_THREADS, fwd_min_blocks(NT, DT))
   const int hd = c / heads, np = mma_pad16(n), ld = mma_ld(hd);
   const int images = bw / slots;
   float* sb = reinterpret_cast<float*>(smem_raw);  // bias + mask, FragBias order
-  bf16* sq = reinterpret_cast<bf16*>(sb + np * np);
+  bf16* sq = reinterpret_cast<bf16*>(sb + (L2_BIAS ? 0 : np * np));
   bf16* sk = sq + np * ld;
   bf16* sv = sk + np * ld;
   const float* bh = bias ? bias + (size_t)h * n * n : nullptr;
@@ -120,42 +136,48 @@ __global__ void __launch_bounds__(MMA_THREADS, fwd_min_blocks(NT, DT))
     mma_stage(sk, k + base, n, np, hd, ldg, ld);
     mma_stage(sv, v + vbase, n, np, hd, ldv, ld);
     cp_async_commit();
-    if (s != slot) {  // the last window's readers of sb passed the barrier below
+    const float* ms = mask ? mask + (size_t)s * n * n : nullptr;
+    if (!L2_BIAS && s != slot) {  // the last window's readers of sb passed the barrier below
       slot = s;
-      mma_bias_tile(sb, bh, mask ? mask + (size_t)s * n * n : nullptr, n);
+      mma_bias_tile(sb, bh, ms, n);
     }
     cp_async_wait<0>();
     mma_scale_staged(sq, np, hd, ld, scale_t);
     __syncthreads();
-    mma_head_attention<NT, DT, true>(sq, sk, sv, ld, out + (size_t)w * n * c + (size_t)h * hd,
-                                     c, n, hd, 1.f,
-                                     FragBias{reinterpret_cast<const float4*>(sb)});
+    bf16* o = out + (size_t)w * n * c + (size_t)h * hd;
+    if constexpr (L2_BIAS)
+      mma_head_attention<NT, DT, true>(sq, sk, sv, ld, o, c, n, hd, 1.f, GlobalBias{bh, ms});
+    else
+      mma_head_attention<NT, DT, true>(sq, sk, sv, ld, o, c, n, hd, 1.f,
+                                       FragBias{reinterpret_cast<const float4*>(sb)});
     __syncthreads();  // before the next window's copies overwrite sq, sk, sv
   }
 }
 
-// Shared memory of the bf16 tensor-core kernel: the FragBias tile and q, k,
-// v in pad16(n) rows of mma_ld(hd) elements.
+// Shared memory of the bf16 tensor-core kernel: the FragBias tile (none for
+// wide windows) and q, k, v in pad16(n) rows of mma_ld(hd) elements.
 static size_t mma_smem(int n, int hd) {
   const size_t np = mma_pad16(n);
-  return np * np * sizeof(float) + 3 * np * mma_ld(hd) * sizeof(bf16);
+  return (window_mma_wide(n, hd) ? 0 : np * np * sizeof(float)) +
+         3 * np * mma_ld(hd) * sizeof(bf16);
 }
 
-template <int NT, int DT>
+template <int NT, int DT, bool L2_BIAS>
 static int launch_mma(const void* q, const void* k, const void* v, const float* bias,
                       const float* mask, void* out, int bw, int n, int c, int heads, int ld,
                       int ldv, int nw, float scale, cudaStream_t stream) {
-  auto kernel = window_attention_mma_kernel<NT, DT>;
+  auto kernel = window_attention_mma_kernel<NT, DT, L2_BIAS>;
   const size_t smem = mma_smem(n, c / heads);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   // runs of about 8 windows: the tile is summed about once a run
-  const int wpb = balanced_windows_per_block(kernel, smem, bw, heads, 8);
+  const int threads = fwd_threads(NT);
+  const int wpb = balanced_windows_per_block(kernel, smem, bw, heads, 8, threads);
   if (wpb <= 0) return (int)cudaGetLastError();
   const unsigned blocks = (unsigned)((bw + wpb - 1) / wpb) * heads;
-  kernel<<<blocks, MMA_THREADS, smem, stream>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
-                                                bias, mask, (bf16*)out, bw, n, c, heads, ld,
-                                                ldv, mask ? nw : 1, wpb, scale);
+  kernel<<<blocks, threads, smem, stream>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
+                                            bias, mask, (bf16*)out, bw, n, c, heads, ld, ldv,
+                                            mask ? nw : 1, wpb, scale);
   return (int)cudaGetLastError();
 }
 
@@ -178,7 +200,7 @@ static int launch_cuda_cores(const void* q, const void* k, const void* v, const 
 // and 3c for the views of one fused qkv projection; 2c and c for a fused
 // qk and a separate v); bias: (heads, n, n) f32 or null; mask: (nw, n, n)
 // f32 or null, nw dividing bw; out: contiguous (bw, n, c). bf16 at
-// mma_shape: 16-byte aligned, ld and ldv multiples of 8. Returns the CUDA
+// window_mma_shape: 16-byte aligned, ld and ldv multiples of 8. Returns the CUDA
 // error code of the launch (0 on success).
 extern "C" int mde_window_attention(const void* q, const void* k, const void* v,
                                     const float* bias, const float* mask, void* out, int bw,
@@ -193,7 +215,7 @@ extern "C" int mde_window_attention(const void* q, const void* k, const void* v,
     return launch_cuda_cores<float>(q, k, v, bias, mask, out, bw, n, c, heads, ld, ldv, nw,
                                     scale, s);
   if (dtype != MDE_BF16) return (int)cudaErrorInvalidValue;
-  if (!mma_shape(n, hd))
+  if (!window_mma_shape(n, hd))
     return launch_cuda_cores<bf16>(q, k, v, bias, mask, out, bw, n, c, heads, ld, ldv, nw,
                                    scale, s);
   // the tensor-core body copies and stores 16-byte pieces
@@ -201,8 +223,13 @@ extern "C" int mde_window_attention(const void* q, const void* k, const void* v,
       ldv % 8)
     return (int)cudaErrorMisalignedAddress;
   if (n <= 64 && hd <= 32)
-    return launch_mma<4, 2>(q, k, v, bias, mask, out, bw, n, c, heads, ld, ldv, nw, scale, s);
-  return launch_mma<8, 8>(q, k, v, bias, mask, out, bw, n, c, heads, ld, ldv, nw, scale, s);
+    return launch_mma<4, 2, false>(q, k, v, bias, mask, out, bw, n, c, heads, ld, ldv, nw,
+                                   scale, s);
+  if (n <= MMA_MAX_N)
+    return launch_mma<8, 8, false>(q, k, v, bias, mask, out, bw, n, c, heads, ld, ldv, nw,
+                                   scale, s);
+  return launch_mma<MMA_WIDE_N / 16, MMA_WIDE_HD / 16, true>(q, k, v, bias, mask, out, bw, n, c,
+                                                             heads, ld, ldv, nw, scale, s);
 }
 
 // Bytes of shared memory one block of mde_window_attention takes for this
@@ -210,7 +237,7 @@ extern "C" int mde_window_attention(const void* q, const void* k, const void* v,
 extern "C" int mde_window_attention_smem(int n, int c, int heads, int dtype) {
   if (heads <= 0) return 0;
   const int hd = c / heads;
-  if (dtype == MDE_BF16 && mma_shape(n, hd)) return (int)mma_smem(n, hd);
+  if (dtype == MDE_BF16 && window_mma_shape(n, hd)) return (int)mma_smem(n, hd);
   return (int)(window_head_smem_floats(n, hd) * sizeof(float));
 }
 

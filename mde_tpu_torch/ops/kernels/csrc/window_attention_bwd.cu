@@ -49,15 +49,30 @@
 // grid that made 2.8 M of them, skipping them saved under 2% of the
 // kernel's time (PERF.md).
 //
-// Shapes: as the forward (mma_shape): bf16 at n <= 128 and head dims that
-// are multiples of 8 up to 128 on the tensor cores; f32, and bf16 beyond
-// those shapes, on the CUDA-core body window_head_attention_bwd
-// (common.cuh). Window-pair packing and _pick_tb are TPU tricks with no
-// counterpart.
+// Wide windows (the ODA encoder's window 12: n = 144 at hd 32): staged as
+// above a block would need 295 KB (FragBias tile and dbias partial 83 KB
+// each, bf16 P and dS 83 KB, qs, k, v and dO 46 KB), past the 227 KB a block
+// may have. There the logits read bias and mask through L2 (GlobalBias,
+// as the forward) and the block keeps the dbias partial, P and dS and the
+// four operands: 207 KB, one block an SM, of 9 warps (bwd_threads), one
+// for each 16-row tile and then each 16-key tile.
+//
+// The CUDA-core body at that shape, with a bias, would need 324 KB (q, k,
+// v, dO, P and dP as f32, and the dbias partial). There it keeps one f32
+// (n, n) matrix (window_head_attention_bwd_lean: P, then dS in its place,
+// dP recomputed a row at a time, 158 KB at n = 144, hd 32) and adds dS to
+// dbias in device memory with one atomicAdd an entry a window.
+//
+// Shapes: as the forward (window_mma_shape): bf16 at n <= 128 and head dims
+// that are multiples of 8 up to 128, and at 128 < n <= 144 with head dims
+// that are multiples of 8 up to 32, on the tensor cores; f32, and bf16
+// beyond those shapes, on the CUDA-core body window_head_attention_bwd
+// (common.cuh), or its lean form where that does not fit a block.
+// Window-pair packing and _pick_tb are TPU tricks with no counterpart.
 
 #include "attention_mma.cuh"
 
-// f32, and bf16 outside mma_shape: one block of 256 threads per (run of
+// f32, and bf16 outside window_mma_shape: one block of 256 threads per (run of
 // windows, head), everything staged as f32, dbias summed per block in
 // shared memory (each entry owned by one thread).
 template <typename T>
@@ -103,6 +118,148 @@ __global__ void window_attention_bwd_kernel(const T* __restrict__ q, const T* __
       atomicAdd(dbias + (size_t)h * n * n + i, acc[i]);
 }
 
+// Shared memory a block may have on the H100 (bytes).
+#define BWD_SMEM_LIMIT 232448
+
+// Floats of shared memory that window_head_attention_bwd_lean needs for n
+// tokens at head dim hd: qs and dO (n*hd each), k and v (n*(hd+1) each),
+// one (n, n) matrix and n row sums.
+__host__ __device__ inline size_t lean_bwd_smem_floats(int n, int hd) {
+  return (size_t)n * hd * 2 + (size_t)n * (hd + 1) * 2 + (size_t)n * n + n;
+}
+
+// window_head_attention_bwd with one (n, n) f32 matrix in shared memory: P,
+// then, after dv = bf16(P)^T . dO, dS in its place, with dP = dO . v^T
+// recomputed a row at a time (the same f32 sums in the same order, so the
+// same results); dS goes to dbias_h (the head's (n, n) f32 gradient in
+// device memory, or null) by atomicAdd. The caller synchronises before it
+// reuses smem.
+template <typename T, typename BiasFn>
+__device__ void window_head_attention_bwd_lean(const T* __restrict__ q,
+                                               const T* __restrict__ k,
+                                               const T* __restrict__ v,
+                                               const T* __restrict__ dout, T* __restrict__ dq,
+                                               T* __restrict__ dk, T* __restrict__ dv, int n,
+                                               int hd, int ld, int ldv, int ldo, float scale,
+                                               float* smem, BiasFn bias,
+                                               float* __restrict__ dbias_h) {
+  const int ldk = hd + 1;
+  float* sq = smem;          // q * scale, rounded to T
+  float* sdo = sq + n * hd;  // dO
+  float* sk = sdo + n * hd;  // k, rows ldk apart
+  float* sv = sk + n * ldk;  // v, rows ldk apart
+  float* sp = sv + n * ldk;  // S, then P, then dS rounded to T
+  float* sdot = sp + n * n;  // rowsum(dP * P)
+  const float scale_t = to_float(from_float<T>(scale));
+  for (int i = threadIdx.x; i < n * hd; i += blockDim.x) {
+    const int r = i / hd, d = i - r * hd;
+    const size_t off = (size_t)r * ld + d;
+    sq[i] = round_to<T>(to_float(q[off]) * scale_t);
+    sk[r * ldk + d] = to_float(k[off]);
+    sv[r * ldk + d] = to_float(v[(size_t)r * ldv + d]);
+    sdo[i] = to_float(dout[(size_t)r * ldo + d]);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n * n; i += blockDim.x) {
+    const int r = i / n, c = i - r * n;
+    const float* qr = sq + r * hd;
+    const float* kc = sk + c * ldk;
+    float s = 0.f;
+    for (int d = 0; d < hd; ++d) s = fmaf(qr[d], kc[d], s);
+    sp[i] = s + bias(r, c);
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+  // dP[r, j] = dO[r] . v[j], summed as window_head_attention_bwd sums it
+  auto dp_at = [&](int r, int j) {
+    const float* dor = sdo + r * hd;
+    const float* vc = sv + j * ldk;
+    float dp = 0.f;
+    for (int d = 0; d < hd; ++d) dp = fmaf(dor[d], vc[d], dp);
+    return dp;
+  };
+  for (int r = warp; r < n; r += nwarps) {
+    float* prow = sp + r * n;
+    float m = -INFINITY;
+    for (int j = lane; j < n; j += 32) m = fmaxf(m, prow[j]);
+    m = warp_max(m);
+    float sum = 0.f;
+    for (int j = lane; j < n; j += 32) {
+      const float e = expf(prow[j] - m);
+      prow[j] = e;
+      sum += e;
+    }
+    const float inv = 1.f / warp_sum(sum);
+    float dot = 0.f;
+    for (int j = lane; j < n; j += 32) {
+      prow[j] *= inv;
+      dot = fmaf(dp_at(r, j), prow[j], dot);
+    }
+    dot = warp_sum(dot);
+    if (lane == 0) sdot[r] = dot;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n * hd; i += blockDim.x) {
+    const int r = i / hd, d = i - r * hd;
+    float gv = 0.f;
+    for (int j = 0; j < n; ++j) gv = fmaf(round_to<T>(sp[j * n + r]), sdo[j * hd + d], gv);
+    dv[(size_t)r * ldv + d] = from_float<T>(gv);
+  }
+  __syncthreads();
+  for (int r = warp; r < n; r += nwarps) {
+    float* prow = sp + r * n;
+    const float dot = sdot[r];
+    for (int j = lane; j < n; j += 32) {
+      const float ds = prow[j] * (dp_at(r, j) - dot);
+      if (dbias_h) atomicAdd(dbias_h + r * n + j, ds);
+      prow[j] = round_to<T>(ds);
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n * hd; i += blockDim.x) {
+    const int r = i / hd, d = i - r * hd;
+    float gq = 0.f, gk = 0.f;
+    for (int j = 0; j < n; ++j) {
+      gq = fmaf(sp[r * n + j], sk[j * ldk + d], gq);  // dS[r, j] k[j, d]
+      gk = fmaf(sp[j * n + r], sq[j * hd + d], gk);   // dS[j, r] qs[j, d]
+    }
+    const size_t off = (size_t)r * ld + d;
+    dq[off] = from_float<T>(gq * scale);
+    dk[off] = from_float<T>(gk);
+  }
+}
+
+// The lean body's kernel: one block of 256 threads per (window, head).
+template <typename T>
+__global__ void window_attention_bwd_lean_kernel(const T* __restrict__ q,
+                                                 const T* __restrict__ k,
+                                                 const T* __restrict__ v,
+                                                 const T* __restrict__ dout,
+                                                 const float* __restrict__ bias,
+                                                 const float* __restrict__ mask,
+                                                 T* __restrict__ dq, T* __restrict__ dk,
+                                                 T* __restrict__ dv, float* __restrict__ dbias,
+                                                 int n, int c, int hd, int ld, int ldv, int nw,
+                                                 float scale) {
+  extern __shared__ float smem[];
+  const int w = blockIdx.x, h = blockIdx.y;
+  const float* bh = bias ? bias + (size_t)h * n * n : nullptr;
+  const float* mw = mask ? mask + (size_t)(w % nw) * n * n : nullptr;
+  auto add = [=](int r, int col) {
+    float b = 0.f;
+    if (bh) b += bh[r * n + col];
+    if (mw) b += mw[r * n + col];
+    return b;
+  };
+  const size_t in_off = (size_t)w * n * ld + (size_t)h * hd;
+  const size_t v_off = (size_t)w * n * ldv + (size_t)h * hd;
+  const size_t out_off = (size_t)w * n * c + (size_t)h * hd;
+  window_head_attention_bwd_lean<T>(q + in_off, k + in_off, v + v_off, dout + out_off,
+                                    dq + in_off, dk + in_off, dv + v_off, n, hd, ld, ldv, c,
+                                    scale, smem, add,
+                                    dbias ? dbias + (size_t)h * n * n : nullptr);
+}
+
 // Adds one warp's f32 dS of a 16-row tile to the block's dbias partial, a
 // (pad16(n), pad16(n)) f32 tile in FragBias order: each lane adds its C
 // fragments to the float4s that only it reads and writes, in every window.
@@ -130,12 +287,18 @@ struct DBiasSink {
 // path's n <= 64, hd <= 32 (68 KB of shared memory with the bias).
 constexpr int bwd_min_blocks(int nt, int dt) { return nt <= 4 && dt <= 2 ? 3 : 1; }
 
-// bf16 on the tensor cores: one block of MMA_THREADS per (run of wpb
+// Threads a block of the bf16 kernel: MMA_THREADS, and for wide windows,
+// where a block holds 207 KB and so is alone on its SM, a warp for each of
+// the nine 16-row tiles (and, after the barrier, each of the nine key tiles).
+constexpr int bwd_threads(int nt) { return nt > MMA_MAX_N / 16 ? 32 * nt : MMA_THREADS; }
+
+// bf16 on the tensor cores: one block of bwd_threads(NT) per (run of wpb
 // windows, head), head-fastest, windows in the forward's order (slots = nW
 // with a mask, 1 without). NT and DT bound pad16(n) / 16 and pad16(hd) / 16.
-// q, k, dq and dk rows are ldg apart, v and dv rows ldv.
-template <int NT, int DT>
-__global__ void __launch_bounds__(MMA_THREADS, bwd_min_blocks(NT, DT))
+// q, k, dq and dk rows are ldg apart, v and dv rows ldv. L2_BIAS: bias and
+// mask through L2 (GlobalBias), no FragBias tile.
+template <int NT, int DT, bool L2_BIAS>
+__global__ void __launch_bounds__(bwd_threads(NT), bwd_min_blocks(NT, DT))
     window_attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
                                     const float* __restrict__ bias,
@@ -149,7 +312,7 @@ __global__ void __launch_bounds__(MMA_THREADS, bwd_min_blocks(NT, DT))
   const int hd = c / heads, np = mma_pad16(n), ld = mma_ld(hd);
   const int images = bw / slots;
   float* sb = reinterpret_cast<float*>(smem_raw);  // bias + mask, FragBias order
-  float* sdb = sb + np * np;                         // dbias partial, the same order
+  float* sdb = sb + (L2_BIAS ? 0 : np * np);         // dbias partial, the same order
   bf16* sq = reinterpret_cast<bf16*>(sdb + (dbias ? np * np : 0));  // qs, rounded to bf16
   bf16* sk = sq + np * ld;
   bf16* sv = sk + np * ld;
@@ -174,15 +337,20 @@ __global__ void __launch_bounds__(MMA_THREADS, bwd_min_blocks(NT, DT))
     mma_stage(sq, q + base, n, np, hd, ldg, ld);
     mma_stage(sdo, dout + obase, n, np, hd, c, ld);
     cp_async_commit();
-    if (s != slot) {  // the last window's readers of sb passed its middle barrier
+    const float* ms = mask ? mask + (size_t)s * n * n : nullptr;
+    if (!L2_BIAS && s != slot) {  // the last window's readers of sb passed its middle barrier
       slot = s;
-      mma_bias_tile(sb, bh, mask ? mask + (size_t)s * n * n : nullptr, n);
+      mma_bias_tile(sb, bh, ms, n);
     }
     cp_async_wait<0>();
     mma_scale_staged(sq, np, hd, ld, scale_t);
     __syncthreads();
-    mma_bwd_rows<NT, DT, true>(sq, sk, sv, sdo, ld, sp, sds, dq + base, ldg, n, hd, scale,
-                               FragBias{reinterpret_cast<const float4*>(sb)}, sink);
+    if constexpr (L2_BIAS)
+      mma_bwd_rows<NT, DT, true>(sq, sk, sv, sdo, ld, sp, sds, dq + base, ldg, n, hd, scale,
+                                 GlobalBias{bh, ms}, sink);
+    else
+      mma_bwd_rows<NT, DT, true>(sq, sk, sv, sdo, ld, sp, sds, dq + base, ldg, n, hd, scale,
+                                 FragBias{reinterpret_cast<const float4*>(sb)}, sink);
     __syncthreads();
     if (u + 1 < u1) {
       const int s1 = (u + 1) / images, w1 = s1 + (u + 1 - s1 * images) * slots;
@@ -200,12 +368,12 @@ __global__ void __launch_bounds__(MMA_THREADS, bwd_min_blocks(NT, DT))
     }
 }
 
-// Shared memory of the bf16 tensor-core kernel: the FragBias tile, with a
-// bias the dbias partial, qs, k, v and dO in pad16(n) rows of mma_ld(hd)
-// elements, and bf16 P and dS as (pad16(n), pad16(n)).
+// Shared memory of the bf16 tensor-core kernel: the FragBias tile (none for
+// wide windows), with a bias the dbias partial, qs, k, v and dO in pad16(n)
+// rows of mma_ld(hd) elements, and bf16 P and dS as (pad16(n), pad16(n)).
 static size_t mma_bwd_smem(int n, int hd, bool with_dbias) {
   const size_t np = mma_pad16(n);
-  return (with_dbias ? 2 : 1) * np * np * sizeof(float) +
+  return ((window_mma_wide(n, hd) ? 0 : 1) + (with_dbias ? 1 : 0)) * np * np * sizeof(float) +
          (4 * np * mma_ld(hd) + 2 * np * np) * sizeof(bf16);
 }
 
@@ -214,6 +382,12 @@ static size_t mma_bwd_smem(int n, int hd, bool with_dbias) {
 static size_t cuda_cores_bwd_smem(int n, int hd, bool with_dbias) {
   return (window_head_bwd_smem_floats(n, hd) + (with_dbias ? (size_t)n * n : 0)) *
          sizeof(float);
+}
+
+// Whether the CUDA-core shapes take the lean body: where the full one does
+// not fit a block.
+static bool lean_bwd(int n, int hd, bool with_dbias) {
+  return cuda_cores_bwd_smem(n, hd, with_dbias) > BWD_SMEM_LIMIT;
 }
 
 // The launches take the pointers of mde_window_attention_bwd, packed.
@@ -226,11 +400,11 @@ struct BwdArgs {
   float scale;
 };
 
-template <int NT, int DT>
+template <int NT, int DT, bool L2_BIAS>
 static int launch_mma(const BwdArgs& a, cudaStream_t stream) {
   const int bw = a.bw, n = a.n, c = a.c, heads = a.heads;
   float* dbias = a.dbias;
-  auto kernel = window_attention_bwd_mma_kernel<NT, DT>;
+  auto kernel = window_attention_bwd_mma_kernel<NT, DT, L2_BIAS>;
   const size_t smem = mma_bwd_smem(n, c / heads, dbias != nullptr);
   cudaError_t err = allow_smem(kernel, smem);
   if (err == cudaSuccess)  // room for bwd_min_blocks blocks an SM
@@ -238,10 +412,11 @@ static int launch_mma(const BwdArgs& a, cudaStream_t stream) {
                                cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
   // runs of about 16 windows, so that dbias meets device memory once a run
-  const int wpb = balanced_windows_per_block(kernel, smem, bw, heads, 16);
+  const int threads = bwd_threads(NT);
+  const int wpb = balanced_windows_per_block(kernel, smem, bw, heads, 16, threads);
   if (wpb <= 0) return (int)cudaGetLastError();
   const unsigned blocks = (unsigned)((bw + wpb - 1) / wpb) * heads;
-  kernel<<<blocks, MMA_THREADS, smem, stream>>>(
+  kernel<<<blocks, threads, smem, stream>>>(
       (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v, (const bf16*)a.dout, a.bias, a.mask,
       (bf16*)a.dq, (bf16*)a.dk, (bf16*)a.dv, dbias, bw, n, c, heads, a.ld, a.ldv,
       a.mask ? a.nw : 1, wpb, a.scale);
@@ -249,8 +424,22 @@ static int launch_mma(const BwdArgs& a, cudaStream_t stream) {
 }
 
 template <typename T>
+static int launch_lean(const BwdArgs& a, cudaStream_t stream) {
+  const int hd = a.c / a.heads;
+  const size_t smem = lean_bwd_smem_floats(a.n, hd) * sizeof(float);
+  cudaError_t err = allow_smem(window_attention_bwd_lean_kernel<T>, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(a.bw, a.heads);
+  window_attention_bwd_lean_kernel<T><<<grid, 256, smem, stream>>>(
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout, a.bias, a.mask, (T*)a.dq,
+      (T*)a.dk, (T*)a.dv, a.dbias, a.n, a.c, hd, a.ld, a.ldv, a.nw, a.scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
 static int launch_cuda_cores(const BwdArgs& a, cudaStream_t stream) {
   const int hd = a.c / a.heads;
+  if (lean_bwd(a.n, hd, a.dbias != nullptr)) return launch_lean<T>(a, stream);
   const size_t smem = cuda_cores_bwd_smem(a.n, hd, a.dbias != nullptr);
   cudaError_t err = allow_smem(window_attention_bwd_kernel<T>, smem);
   if (err != cudaSuccess) return (int)err;
@@ -267,7 +456,7 @@ static int launch_cuda_cores(const BwdArgs& a, cudaStream_t stream) {
 // and a separate v); dq, dk, dv: laid out like q, k, v (rows ld, ld and
 // ldv apart); dout: contiguous (bw, n, c); bias: (heads, n, n) f32 or null;
 // mask: (nw, n, n) f32 or null, nw dividing bw; dbias: (heads, n, n) f32,
-// zeroed by the caller, or null (only with bias). bf16 at mma_shape:
+// zeroed by the caller, or null (only with bias). bf16 at window_mma_shape:
 // 16-byte aligned, ld and ldv multiples of 8. Returns the CUDA error code
 // of the launch (0 on success).
 extern "C" int mde_window_attention_bwd(const void* q, const void* k, const void* v,
@@ -284,13 +473,14 @@ extern "C" int mde_window_attention_bwd(const void* q, const void* k, const void
   const int hd = c / heads;
   if (dtype == MDE_F32) return launch_cuda_cores<float>(a, s);
   if (dtype != MDE_BF16) return (int)cudaErrorInvalidValue;
-  if (!mma_shape(n, hd)) return launch_cuda_cores<bf16>(a, s);
+  if (!window_mma_shape(n, hd)) return launch_cuda_cores<bf16>(a, s);
   // the tensor-core bodies copy 16-byte pieces
   if ((((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout | (uintptr_t)dq |
         (uintptr_t)dk | (uintptr_t)dv) & 15) || ld % 8 || ldv % 8)
     return (int)cudaErrorMisalignedAddress;
-  if (n <= 64 && hd <= 32) return launch_mma<4, 2>(a, s);
-  return launch_mma<8, 8>(a, s);
+  if (n <= 64 && hd <= 32) return launch_mma<4, 2, false>(a, s);
+  if (n <= MMA_MAX_N) return launch_mma<8, 8, false>(a, s);
+  return launch_mma<MMA_WIDE_N / 16, MMA_WIDE_HD / 16, true>(a, s);
 }
 
 // Bytes of shared memory one block of mde_window_attention_bwd takes for
@@ -299,6 +489,7 @@ extern "C" int mde_window_attention_bwd_smem(int n, int c, int heads, int has_bi
                                              int dtype) {
   if (heads <= 0) return 0;
   const int hd = c / heads;
-  if (dtype == MDE_BF16 && mma_shape(n, hd)) return (int)mma_bwd_smem(n, hd, has_bias);
+  if (dtype == MDE_BF16 && window_mma_shape(n, hd)) return (int)mma_bwd_smem(n, hd, has_bias);
+  if (lean_bwd(n, hd, has_bias)) return (int)(lean_bwd_smem_floats(n, hd) * sizeof(float));
   return (int)cuda_cores_bwd_smem(n, hd, has_bias);
 }

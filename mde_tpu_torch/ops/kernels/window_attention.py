@@ -11,8 +11,11 @@ one over the NewCRFs blocks' fused (B*nW, N, 2C) qk projection and separate
 concatenates. ``plain_window_attention`` mirrors ``xla_window_attention`` (:77) and
 ``plain_window_attention_bwd`` the backward kernel body (``_bwd_kernel``,
 :180). bf16 windows of up to 128 tokens at head dims that are multiples of
-8 up to 128 run on the tensor cores; f32, and bf16 beyond those shapes, on
-the CUDA cores (the rule ``mma_shape`` in ``csrc/attention_mma.cuh``).
+8 up to 128, and of up to 144 tokens (the ODA encoder's 12 x 12 windows) at
+head dims that are multiples of 8 up to 32, run on the tensor cores; f32,
+and bf16 beyond those shapes, on the CUDA cores (the rule
+``window_mma_shape`` in ``csrc/attention_mma.cuh``). A shape whose block
+would not fit the card's shared memory is refused before any launch.
 """
 
 from __future__ import annotations

@@ -1,8 +1,11 @@
-"""Pyramid Pooling Module on NHWC tensors (``mde_tpu/ops/ppm.py:21-56``).
+"""Pyramid Pooling Modules on NHWC tensors (``mde_tpu/ops/ppm.py``): the
+ODA2 module (``:21-56``) and the ODA gen-1 one (``PyramidPoolingModuleV1``,
+``:59-98``).
 
-Parameter names follow the reference torch state dict
-(``conv_reduce_layers.{i}.{0,1}`` and ``conv.{0,1}``), the names
-``mde_tpu.core.family_converters._oda2_ppm`` converts from.
+Parameter names follow the reference torch state dicts
+(``conv_reduce_layers.{i}.{0,1}`` and ``conv.{0,1}``; gen-1
+``conv_reduce_layers.{i}``, ``conv`` and ``bn``), the names
+``mde_tpu.core.family_converters._oda2_ppm`` and ``_ppm_v1`` convert from.
 """
 
 from __future__ import annotations
@@ -54,3 +57,29 @@ class PyramidPoolingModule(nn.Module):
             red = gelu(reduce(adaptive_avg_pool2d(x, (size, size))))
             spp.append(resize_bilinear(red, (h, w), align_corners=True))
         return gelu(self.conv(torch.cat(spp, dim=-1)))
+
+
+class PyramidPoolingModuleV1(nn.Module):
+    """The ODA gen-1 PPM: for each pooled size, adaptive average pool ->
+    biased 1x1 conv to in_ch / len(sizes) (no norm, no activation) ->
+    align-corners bilinear resize back; concatenated after the input ->
+    bias-free 1x1 conv to ``out_ch`` -> BatchNorm (no activation)."""
+
+    def __init__(self, in_ch: int, out_ch: int, spatial_sizes: Sequence[int] = (1, 2, 3, 6),
+                 bn_eps: float = 1e-5, bn_momentum: float = 0.1):
+        super().__init__()
+        self.spatial_sizes = tuple(spatial_sizes)
+        n = len(self.spatial_sizes)
+        if in_ch % n:
+            raise ValueError(f"{in_ch} channels do not split over {n} pooled sizes")
+        self.conv_reduce_layers = nn.ModuleList(Conv1x1(in_ch, in_ch // n, bias=True)
+                                                for _ in self.spatial_sizes)
+        self.conv = Conv1x1(2 * in_ch, out_ch, bias=False)
+        self.bn = BatchNorm(out_ch, eps=bn_eps, momentum=bn_momentum)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h, w = x.shape[1], x.shape[2]
+        spp = [x] + [resize_bilinear(reduce(adaptive_avg_pool2d(x, (size, size))), (h, w),
+                                     align_corners=True)
+                     for size, reduce in zip(self.spatial_sizes, self.conv_reduce_layers)]
+        return self.bn(self.conv(torch.cat(spp, dim=-1)))

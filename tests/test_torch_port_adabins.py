@@ -44,6 +44,7 @@ from mde_tpu_torch.ops import drop
 from mde_tpu_torch.serve import Predictor
 from mde_tpu_torch.train.step import make_adapter
 from test_torch_port_flagship import _random_jax_variables
+from _torch_port_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-4
 MAX_DEPTH = 10.0

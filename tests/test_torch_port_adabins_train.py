@@ -30,6 +30,7 @@ from mde_tpu.models.adabins import model as jax_adabins
 from mde_tpu_torch.convert import from_jax_variables
 from mde_tpu_torch.models import build_model
 from test_torch_port_adabins import TINY_ENC, _variables
+from _torch_port_threads import one_torch_thread  # noqa: F401
 
 
 def test_adabins_train_step_matches_jax(monkeypatch):

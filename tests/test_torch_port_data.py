@@ -46,6 +46,7 @@ from mde_tpu_torch.ops.tnn import BatchNorm
 from mde_tpu_torch.train.state import TrainState
 from mde_tpu_torch.utils.visualize import colorize
 from test_driver import TINY_OPT
+from _torch_port_threads import one_torch_thread  # noqa: F401
 
 IMAGE_TOL = 1e-5
 ROUNDING_BAND = 1e-4

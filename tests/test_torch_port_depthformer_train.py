@@ -26,6 +26,7 @@ from mde_tpu_torch.convert import from_jax_variables
 from mde_tpu_torch.models import build_model
 from test_torch_port_depthformer import MAX_DEPTH, MODELS, TINY_ENC
 from test_torch_port_flagship import _random_jax_variables
+from _torch_port_threads import one_torch_thread  # noqa: F401
 
 DROP = dict(attn_drop_prob=0.0, drop_prob=0.0)
 # name -> (JAX's adapter: None for its default, the chamfer weight)

@@ -24,6 +24,7 @@ from mde_tpu.ops.resize import resize_bilinear as jax_resize
 from mde_tpu_torch.convert import from_jax_variables
 from mde_tpu_torch.models import build_model
 from mde_tpu_torch.serve import Predictor
+from _torch_port_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-4
 ENC = dict(embed_dim=16, depths=(2, 1, 2, 1), num_heads=(1, 2, 4, 8), window_size=4)

@@ -29,6 +29,7 @@ from mde_tpu_torch.ops import kernels, tnn
 from mde_tpu_torch.ops.kernels.glu_ff import glu_ff, plain_glu_ff
 from mde_tpu_torch.ops.mlp import PreNormDWConvFF
 from test_torch_port_modules import _randomize
+from _torch_port_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 GRAD_TOL = 1e-4

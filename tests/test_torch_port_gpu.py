@@ -144,19 +144,25 @@ def test_window_attention_bwd_kernel(cuda, dtype, r, shifted):
 
 # (window side, heads, channels, images, bias, shifted): the KSA decoder's
 # head dim 16; stage 3's 16 heads at C 512; bias only, mask only, neither;
-# 144 tokens (a 12 x 12 window), past the tensor-core bodies' 128, at head
-# dim 32 with both and at 16 with the mask alone (the backward's f32 body
-# fits a block only so); head dim 12, not a multiple of 8 (both on the
-# CUDA-core body, mma_shape in csrc/attention_mma.cuh); and 47 images of 8
-# windows, so that a block's run of windows (2 or more here) crosses mask
-# slots and dbias sums many windows a block
+# 144 tokens (a 12 x 12 window: the ODA encoder's), past the n <= 128
+# tensor-core bodies, on the wide ones (window_mma_wide in
+# csrc/attention_mma.cuh; bias and mask through L2) at head dim 32 with
+# both, at 16 with the mask alone, and unmasked at 48 heads of C 1536 (the
+# ODA encoder's stage 4); the f32 backward there on the lean CUDA-core body
+# (one n x n matrix, dbias by device atomics); 144 tokens at head dim 40,
+# past the wide bodies' 32 (the CUDA-core bodies); head dim 12, not a
+# multiple of 8 (both on the CUDA-core body); and 47 images of 8 windows,
+# so that a block's run of windows (2 or more here) crosses mask slots and
+# dbias sums many windows a block
 WINDOW_CASES = {"hd16": (7, 4, 64, 3, True, True), "heads16": (7, 16, 512, 3, True, True),
                 "bias_only": (7, 4, 128, 3, True, False),
                 "mask_only": (7, 4, 128, 3, False, True),
                 "neither": (7, 4, 128, 3, False, False),
                 "n144": (12, 4, 128, 3, True, True), "n144_hd16": (12, 4, 64, 3, False, True),
+                "n144_heads48": (12, 48, 1536, 1, True, False),
+                "n144_hd40": (12, 2, 80, 1, True, True),
                 "hd12": (7, 3, 36, 3, True, True), "many_windows": (7, 4, 128, 47, True, True)}
-WINDOW_BWD_CASES = [case for case in WINDOW_CASES if case != "n144"]
+WINDOW_BWD_CASES = list(WINDOW_CASES)
 
 
 def _window_case_args(cuda, dtype, case, seed):
@@ -208,6 +214,25 @@ def test_window_attention_kernels_refuse_misaligned_bf16_views(cuda):
     torch.cat([out.new_zeros(1), out.reshape(-1)]).backward(flat[:bw * n * c + 1])
     dqkv, _ = window_attention_bwd(qkv, bad_dout.clone(), bias, mask, nh, scale)
     assert torch.equal(x.grad, dqkv)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_attention_kernels_refuse_blocks_past_shared_memory(cuda, dtype):
+    """A 14 x 14 window (196 tokens) at head dim 64, past the tensor-core
+    bodies and too large for a block of the CUDA-core ones (or of the
+    backward's lean body), is refused before any launch."""
+    rng = np.random.RandomState(23)
+    bw, n, c, nh = 2, 196, 128, 2
+    qkv = _randn(rng, bw, n, 3 * c).to(cuda, dtype)
+    bias = _randn(rng, nh, n, n).to(cuda)
+    dout = _randn(rng, bw, n, c).to(cuda, dtype)
+    before = dict(kernels.launch_counts)
+    with pytest.raises(ValueError, match="shared memory"):
+        window_attention(qkv, bias, None, nh, (c // nh) ** -0.5)
+    with pytest.raises(ValueError, match="shared memory"):
+        window_attention_bwd(qkv, dout, bias, None, nh, (c // nh) ** -0.5)
+    assert kernels.launch_counts == before
 
 
 # (n, heads, channels, num_emb, every index of a window equal): the
@@ -1119,9 +1144,9 @@ def test_attention_dropout_step_leaves_the_kernels_as_jax_does(cuda, name, rate)
     assert all(np.isfinite(float(v)) for v in logs.values())
 
 
-# the tiny AdaBins and Depthformer v1-v5 of tests/test_torch_port_adabins.py and
-# tests/test_torch_port_depthformer.py: name -> (config, image size). No kernel
-# of the port lies on their paths
+# the tiny AdaBins and Depthformer v1-v8 of tests/test_torch_port_adabins.py,
+# tests/test_torch_port_depthformer.py and test_torch_port_depthformer_luna.py:
+# name -> (config, image size). No kernel of the port lies on their paths
 EFFNET_KW = dict(encoder_kwargs=dict(width=0.1, depth=0.25, stem_ch=32, head_ch=256))
 EFFNET_TINY = {
     "adabins": (dict(num_bins=16), (288, 480)),
@@ -1131,12 +1156,16 @@ EFFNET_TINY = {
                        (64, 96)),
     "depthformer_v4": (dict(hidden_dim=16, num_heads=4), (64, 96)),
     "depthformer_v5": (dict(hidden_dim=32, num_heads=4, img_size=(64, 96), key_query_dim=64),
-                       (64, 96))}
+                       (64, 96)),
+    **{f"depthformer_v{v}": (dict(hidden_dim=32, num_heads=8, num_bins=10, num_aux=6,
+                                  img_size=(64, 96)), (64, 96)) for v in (6, 7, 8)}}
 
 
 def _flat_outputs(out):
-    """Every tensor of a model's output, in order."""
-    return [t for item in out for t in ([item] if torch.is_tensor(item) else item)]
+    """Every tensor of a model's output, in order (a None, ``oda_conv``'s
+    second, left out)."""
+    return [t for item in out if item is not None
+            for t in ([item] if torch.is_tensor(item) else item)]
 
 
 @pytest.mark.gpu
@@ -1177,7 +1206,8 @@ def test_tiny_efficientnet_train_step_on_card_matches_cpu(cuda, name):
     it by about 1/sqrt(pixels)."""
     from chip_smoke import KinkReplay
     extra, hw = EFFNET_TINY[name]
-    chamfer = 0.1 if name in ("adabins", "depthformer_v3") else 0.0
+    chamfer = 0.1 if name in ("adabins", "depthformer_v3", "depthformer_v7",
+                              "depthformer_v8") else 0.0
     opt = {"model": dict(extra, name=name),
            "loss": {"alpha": 10.0, "beta": 0.15, "per_image": True, "chamfer_weight": chamfer},
            "optimizer": {"lr": 1e-4, "weight_decay": 0.1, "eps": 1e-6,
@@ -1206,6 +1236,119 @@ def test_tiny_efficientnet_train_step_on_card_matches_cpu(cuda, name):
         if dev.type == "cuda":
             torch.cuda.synchronize()
             assert kernels.launch_counts == NO_LAUNCHES
+        results.append(({k: float(v) for k, v in logs.items()}, grads,
+                        {k: v.detach().cpu() for k, v in model.state_dict().items()}))
+    (logs, grads, weights), (ref_logs, ref_grads, ref_weights) = results
+    assert (ref_logs.get("loss_chamfer", 0.0) > 0) == (chamfer > 0)
+    for key in ref_logs:
+        assert abs(logs[key] - ref_logs[key]) <= 1e-4 * max(1.0, abs(ref_logs[key])), key
+    floor = 1e-2 * max(g.abs().max().item() for g in ref_grads.values())
+    for n, g in ref_grads.items():
+        assert (grads[n] - g).abs().max().item() <= 1e-3 * max(g.abs().max().item(), floor), n
+    for n, value in ref_weights.items():
+        tol = 1e-4 * max(1.0, value.abs().max().item()) if "running" in n else 1e-4 / 25
+        if value.is_floating_point():
+            assert (weights[n] - value).abs().max().item() <= tol, n
+
+
+# the tiny ODA models of tests/test_torch_port_oda.py on an encoder of width
+# 32, depths (2, 2, 2, 2) and head dim 32: at 128x192, not resized, stages 1
+# and 2 run 12x12 windows (144 tokens, the wide tensor-core bodies in bf16),
+# their odd blocks shifted and masked, stages 3 and 4 shrunk windows of 8 and
+# 4; oda_bins at 384x384 (resized to itself: mViT takes 129 patches or more).
+# name -> (config, image size). One forward launches K1 8 times (a block
+# each), a train step 8 and 8 backward
+ODA_KW = dict(encoder_kwargs=dict(embed_dim=32, depths=(2, 2, 2, 2), num_heads=(1, 2, 4, 8)))
+ODA_LUNA = dict(decoder_channels=32, num_aux=8, aux_dim=16, num_heads=4)
+ODA_TINY = {"oda_conv": (dict(decoder_channels=32), (128, 192)),
+            "oda_luna": (ODA_LUNA, (128, 192)),
+            "oda_luna_cls": (dict(ODA_LUNA, num_bins=8), (128, 192)),
+            "oda_bins": (dict(decoder_channels=32, num_bins=8), (384, 384))}
+
+
+def _oda_build(name, dev, seed, **overrides):
+    """A tiny ODA model. The cls head's last regressor bias is set to 1: its
+    8 ELU(0.1) bin widths (no +0.1, as the reference's) sum near 0 at
+    init, where the normalised widths, and so the depth, carry f32 rounding
+    up a hundredfold (8.5e-3 m card vs CPU, the gradients' norms 1.2%
+    apart; ROADMAP Queue 3); from 1 the widths sum to about 8."""
+    extra, hw = ODA_TINY[name]
+    kw = dict(ODA_KW, **overrides)
+    if hw != (384, 384):
+        kw.update(resize_to_multiple=False, img_size=hw)
+    model = build_model(dict(extra, name=name), 0.001, 80.0, device=dev, seed=seed, **kw)
+    if name == "oda_luna_cls":
+        with torch.no_grad():
+            model.bin_regressor[4].bias.fill_(1.0)
+    return model
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(ODA_TINY))
+def test_tiny_oda_model_on_card_matches_cpu(cuda, name):
+    """A tiny ODA model's f32 forward on the card (K1 8 times: the f32
+    CUDA-core bodies at 144 tokens) against the CPU's: the depth, bins, aux
+    tokens and attention weights within 1e-3 (m, or probability); in bf16
+    on the card (the wide tensor-core bodies), 8 launches and finite
+    outputs."""
+    hw = ODA_TINY[name][1]
+    x = torch.from_numpy(np.random.RandomState(24).rand(2, *hw, 3).astype(np.float32))
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        model = _oda_build(name, dev, 25)
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            outs.append([t.cpu() for t in _flat_outputs(model(x.to(dev)))])
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert kernels.launch_counts == dict(NO_LAUNCHES, window_attention=8)
+    for a, b in zip(*outs):
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        assert (a - b).abs().max().item() <= 1e-3, (name, (a - b).abs().max().item())
+    model = _oda_build(name, cuda, 25, dtype=torch.bfloat16)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        out = _flat_outputs(model(x.to(cuda)))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts == dict(NO_LAUNCHES, window_attention=8)
+    assert all(torch.isfinite(t.float()).all() for t in out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(ODA_TINY))
+def test_tiny_oda_train_step_on_card_matches_cpu(cuda, name):
+    """One f32 train step of a tiny ODA model (dropout and stochastic depth
+    off; the bin models with the chamfer loss at 0.1) on the card (K1 8 and
+    8 backward, the f32 bodies at 144 tokens, the lean backward among them)
+    against the same step on the CPU, at the tolerances of
+    ``test_tiny_efficientnet_train_step_on_card_matches_cpu``."""
+    hw = ODA_TINY[name][1]
+    chamfer = 0.1 if name in ("oda_luna_cls", "oda_bins") else 0.0
+    opt = {"model": dict(ODA_TINY[name][0], name=name),
+           "loss": {"alpha": 10.0, "beta": 0.15, "per_image": True, "chamfer_weight": chamfer},
+           "optimizer": {"lr": 1e-4, "weight_decay": 0.1, "eps": 1e-6},
+           "scheduler": {"name": "onecycle"}, "train": {"grad_norm": 0.1}}
+    rng = np.random.RandomState(26)
+    batch = {"image": rng.rand(2, *hw, 3).astype(np.float32),
+             "depth": rng.uniform(0.5, 60.0, (2, *hw, 1)).astype(np.float32)}
+    no_drop = dict(encoder_kwargs=dict(ODA_KW["encoder_kwargs"], drop_prob=0.0,
+                                       path_drop_prob=0.0))
+    if name != "oda_conv":  # the Luna layers', mViT's
+        no_drop["drop_prob"] = 0.0
+    results = []
+    for dev in (cuda, torch.device("cpu")):
+        model = _oda_build(name, dev, 27, **no_drop)
+        state = TrainState.create(model, opt, 100)
+        grads = {}
+        update = state.optimizer.update
+        state.optimizer.update = lambda g, update=update: (grads.update(
+            {n: t.detach().cpu().clone() for n, t in g.items()}), update(g))
+        kernels.reset_launch_counts()
+        _, logs = make_train_step(opt, 0.001, 80.0)(state, batch)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert kernels.launch_counts == dict(NO_LAUNCHES, window_attention=8,
+                                                 window_attention_bwd=8)
         results.append(({k: float(v) for k, v in logs.items()}, grads,
                         {k: v.detach().cpu() for k, v in model.state_dict().items()}))
     (logs, grads, weights), (ref_logs, ref_grads, ref_weights) = results

@@ -24,6 +24,7 @@ from mde_tpu_torch.ops.kernels.ordered_attention import (ordered_attention,
                                                          plain_ordered_attention)
 from mde_tpu_torch.ops.kernels.window_attention import (plain_window_attention,
                                                         window_attention)
+from _torch_port_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 

@@ -46,6 +46,7 @@ from mde_tpu_torch.ops.kernels.channel_attention import (channel_attention,
                                                          plain_channel_attention_bwd)
 from mde_tpu_torch.ops.ppm import PyramidPoolingModule
 from test_torch_port_flagship import ENC, _random_jax_variables
+from _torch_port_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-4
 KERNEL_TOL = 1e-5

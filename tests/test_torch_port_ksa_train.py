@@ -41,6 +41,7 @@ from mde_tpu_torch.train.state import TrainState
 from mde_tpu_torch.train.step import make_train_step
 from test_torch_port_flagship import ENC, _random_jax_variables
 from test_torch_port_ksa import CFG
+from _torch_port_threads import one_torch_thread  # noqa: F401
 
 
 def batch():

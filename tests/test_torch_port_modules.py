@@ -33,6 +33,7 @@ from mde_tpu_torch.ops.attention import WindowAttention
 from mde_tpu_torch.ops.conv import ConvBN
 from mde_tpu_torch.ops.mlp import PreNormDWConvFF
 from mde_tpu_torch.ops.ordered_attention import PreNormOrderedSwinSA
+from _torch_port_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-4
 # BatchNorm running statistics, relative to max(1, max |JAX's|): they are
@@ -253,7 +254,10 @@ def test_port_imports_no_jax():
             "mde_tpu_torch.models.oda2.red_reg, mde_tpu_torch.models.oda2.conv, "
             "mde_tpu_torch.models.oda2.base, mde_tpu_torch.models.efficientnet, "
             "mde_tpu_torch.models.adabins.model, mde_tpu_torch.models.depthformer.layers, "
-            "mde_tpu_torch.models.depthformer.model, mde_tpu_torch.models.depthformer.versions\n"
+            "mde_tpu_torch.models.depthformer.model, mde_tpu_torch.models.depthformer.versions, "
+            "mde_tpu_torch.ops.luna, mde_tpu_torch.models.depthformer.luna_versions, "
+            "mde_tpu_torch.models.oda.encoder, mde_tpu_torch.models.oda.decoders, "
+            "mde_tpu_torch.models.oda.models, mde_tpu_torch.ops.ppm\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
             "'optax', 'orbax', 'mde_tpu')]\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -293,4 +297,4 @@ def test_build_model_defaults_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_model({"name": "oda2_red_order_swin2"}, 0.001, 80.0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model({"name": "depthformer_v6"}, 0.001, 80.0, device="cpu")
+        build_model({"name": "oda_lion"}, 0.001, 80.0, device="cpu")

@@ -57,6 +57,7 @@ from mde_tpu_torch.ops.pixel_shuffle import pixel_shuffle, pixel_unshuffle
 from mde_tpu_torch.ops.resize import resize_bilinear
 from mde_tpu_torch.ops.tnn import GroupNorm
 from mde_tpu_torch.serve import Predictor
+from _torch_port_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-4
 KERNEL_TOL = 1e-5

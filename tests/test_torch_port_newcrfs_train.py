@@ -27,6 +27,7 @@ from mde_tpu.models.newcrfs import model as jax_model
 from mde_tpu_torch.convert import from_jax_variables
 from mde_tpu_torch.models import build_model
 from test_torch_port_newcrfs import CFG, MAX_DEPTH, TINY, _random_vars
+from _torch_port_threads import one_torch_thread  # noqa: F401
 
 
 def batch():

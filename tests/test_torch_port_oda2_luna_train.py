@@ -39,6 +39,7 @@ from mde_tpu_torch.convert import from_jax_variables
 from mde_tpu_torch.models import build_model
 from test_torch_port_flagship import _random_jax_variables
 from test_torch_port_oda2_luna import LUNA, MAX_DEPTH, RED_LUNA, TINY_ENC, _jax_model
+from _torch_port_threads import one_torch_thread  # noqa: F401
 
 # name -> (the config, JAX's adapter: None for its default, freeze_bn)
 NAMES = {"oda2_luna_cls": (dict(LUNA, drop_prob=0.0), None, True),

@@ -57,6 +57,7 @@ from mde_tpu_torch.train.step import default_adapter
 from test_driver import TINY_OPT
 from test_torch_port_driver import _small_test_split
 from test_torch_port_flagship import _random_jax_variables
+from _torch_port_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-4
 MAX_DEPTH = 80.0

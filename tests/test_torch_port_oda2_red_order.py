@@ -37,6 +37,7 @@ from mde_tpu_torch.serve import Predictor
 from mde_tpu_torch.train.step import default_adapter
 from test_torch_port_flagship import _random_jax_variables
 from test_torch_port_oda2_red import MAX_DEPTH, MODEL_KW
+from _torch_port_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-4
 

@@ -23,6 +23,7 @@ from mde_tpu_torch.models import build_model
 from test_torch_port_flagship import _random_jax_variables
 from test_torch_port_oda2_red import MAX_DEPTH, TINY_ENC
 from test_torch_port_oda2_red_order import _cfg, _jax_model
+from _torch_port_threads import one_torch_thread  # noqa: F401
 
 NAMES = ("oda2_red_order_reg", "oda2_red_order_swin")
 

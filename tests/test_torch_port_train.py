@@ -34,6 +34,7 @@ from mde_tpu_torch.train import loss as port_loss
 from mde_tpu_torch.train.optim import build_lr_schedule, build_momentum_schedule
 from mde_tpu_torch.train.state import TrainState
 from mde_tpu_torch.train.step import make_eval_step, make_train_step
+from _torch_port_threads import one_torch_thread  # noqa: F401
 
 LOSS_TOL = 1e-6
 

@@ -8,6 +8,7 @@ without recompute."""
 import pytest
 
 import _torch_port_train_case as case
+from _torch_port_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

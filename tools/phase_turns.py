@@ -2,11 +2,12 @@
 
     python3 tools/phase_turns.py OTHER_TREE [PHASE ...]
 
-Runs each checkout's own ``chip_smoke.py`` phase functions (K1 fwd and bwd
-at the flagship's stages 1 and 3, K3 dxdw and dw, K4, K5 fwd and bwd), each
-checkout in processes of its own (its kernels built from its own sources
-into its own ``build/kernels/``), in the order other, this, this, other,
-and prints the
+Runs this checkout's ``chip_smoke.py`` phase functions (K1 fwd and bwd
+at the flagship's stages 1 and 3 and at the ODA encoder's 144-token
+windows, K3 dxdw and dw, K4, K5 fwd and bwd) over each checkout's
+package, each checkout in processes of its own (its kernels built from its
+own sources into its own ``build/kernels/``), in the order other, this,
+this, other, and prints the
 device ms of each phase per run and one JSON line of them all. OTHER_TREE
 is another checkout of the repo, e.g. the parent commit unpacked with
 ``git archive`` into ``chip_trees/``. PHASE names are keys of PHASES
@@ -31,9 +32,19 @@ PHASES = {"K1 stage 1": "window_phase('stage 1', 512 * cs.BATCH, 128, 4, 512, Tr
           "K5 bwd stage 1": "channel_phase(dev, True, 128)",
           "K5 bwd stage 2": "channel_phase(dev, True, 256)",
           "K3 dxdw": "depthwise_bwd_phase(dev, True)",
-          "K3 dw": "depthwise_bwd_phase(dev, False)"}
-SETUP = """
-import json, torch, chip_smoke as cs
+          "K3 dw": "depthwise_bwd_phase(dev, False)",
+          # fwd only: before the wide tensor-core bodies, the backward at
+          # 144 tokens did not fit a block
+          "K1 ODA stage 1": "oda_window_phase(1, cs.BATCH, 192, 6, True, dev)",
+          "K1 ODA stage 1 unmasked": "oda_window_phase(1, cs.BATCH, 192, 6, False, dev)",
+          "K1 ODA stage 4": "oda_window_phase(4, cs.BATCH, 1536, 48, False, dev)"}
+# the checkout's package comes first on the path (the command runs in it);
+# the phases are this checkout's, so that both trees are timed alike
+SETUP = f"""
+import importlib.util, json, torch
+spec = importlib.util.spec_from_file_location("chip_smoke", {str(ROOT / "chip_smoke.py")!r})
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
 from mde_tpu_torch.ops import kernels
 kernels.build()
 dev = torch.device("cuda")
