@@ -43,8 +43,9 @@
    K1, 6 K2 and 6 K3 forward launches after; then with the six FFs fused
    (24 K1, 6 K2, 6 K4, no K3); each is timed and profiled.
 4. Flagship training at full width: one f32 train step at batch 1 on
-   224x448 (encoder depths ``SHALLOW``), card against CPU (fed the card's
-   index maps), comparing the loss, the
+   224x448 (encoder depths ``SHALLOW``, one repeat of the head,
+   ``ONE_REPEAT``), card against CPU (fed the card's index maps), comparing
+   the loss, the
    gradient norm, every gradient, the BatchNorm statistics and the
    parameters after AdamW. Then the bf16 train step at batch 4 on 352x704
    images (``make_train_step``, AdamW + OneCycle + clip 0.1, stochastic
@@ -55,7 +56,8 @@
    image (resized to 448x1536, where every Swin stage pads its token grid
    to whole windows) on the card against the CPU, fed the card's index
    maps, with the windows each kernel sees logged and checked, the encoder
-   at depths (2, 2, 2, 2) (``SHALLOW``) to keep the CPU side short.
+   at depths (2, 2, 2, 2) (``SHALLOW``) and one repeat of the head
+   (``ONE_REPEAT``: 2 K2 and 2 K3 launches) to keep the CPU side short.
 6. The driver: a synthetic KITTI tree (16 train and 4 test samples of
    375x1242, written with the port's PNG codec) in a temporary directory,
    then ``train.driver.Trainer`` on the flagship as ``bench.py`` pins it
@@ -106,7 +108,8 @@
    FFs fused (K1 24, K4 6); the bf16 train step at batch 4 with
    ``use_checkpoint`` (K1 48 and 24 backward, and K3 6 / dxdw 6 or K2 6 /
    bwd 6), timed and profiled. The f32 train step card against CPU at
-   224x448, batch 2, for ``oda2_red_order_reg`` and ``oda2_red_order_swin``.
+   224x448, batch 2, for ``oda2_red_order_reg`` and ``oda2_red_order_swin``
+   at one repeat of the head (``ONE_REPEAT``).
    K2's backward is also checked and timed bias-free at the gen-1 train
    shape (1568, 64, 512)/8, one depth value, beside SDPA's backward.
 10. The ODA2 Luna half at full width (Swin-B, dec_dim 512, 8 heads, 256 aux
@@ -154,6 +157,22 @@
    step card against CPU at batch 2 on 384x384 (chamfer 0.1, batch
    statistics), whose encoder runs K1's f32 forward and backward at 144
    tokens.
+13. The last three ODA models at full width (``ODA_LAST``, the JAX builds'
+   defaults): ``oda_lion`` (decoder_channels 2048: axial channel
+   attention, 8 f32 weights returned; built for the size it runs at, its
+   position embedding taking that 1/32 grid), ``oda_lime`` (256 channels,
+   16 layers over a 2048-wide memory; resized by the model; depth at 1/4)
+   and ``oda_jeju`` (2048, 128 aux tokens, 64 heads; grouped 5x5 FFs). Each
+   as in 12: the f32 forward at batch 1 on 384x384 card against CPU (the
+   depth, every weight, Jeju's aux tokens), bf16 serving at batch 8 and the
+   bf16 train step at batch 4 on 352x704 (resized to 384x768), timed and
+   profiled with peak memory, K1 24 serving and 24 + 24 backward a step,
+   the loss taking the depth map in every step (J1: JAX's adapter would
+   hand it Lion's weights).
+
+Each phase group logs its seconds ("seconds: <group> <s>"), and before the
+result lines one line sums them, with the model builds' and the profiled
+calls' share.
 
 Any failure exits non-zero before the result lines. The last three lines
 are the card, the ``kernels`` JSON line and the ``ok`` JSON line. The
@@ -161,7 +180,7 @@ are the card, the ``kernels`` JSON line and the ``ok`` JSON line. The
 kernels from the driver's ``fit``; K1's and K1 bwd's entries also carry
 NewCRFs' launches (``newcrfs_launches``), every other model's that
 launches it by model and path (``sibling_launches``: the siblings, the
-ODA2 Luna half and the ODA family).
+ODA2 Luna half and the ODA family, Lion, Lime and Jeju included).
 """
 
 from __future__ import annotations
@@ -177,6 +196,8 @@ import subprocess
 import sys
 import tempfile
 import time
+
+START = time.perf_counter()
 
 import numpy as np
 import torch
@@ -395,10 +416,32 @@ LUNA_FAMILY = {
                        (352, 704), {}, {}, 9)}
 # the chamfer loss at 0.1 where a model returns bins (centers or edges)
 LUNA_CHAMFER = ("oda_luna_cls", "oda_bins", "depthformer_v7", "depthformer_v8")
+# the last three ODA models as the JAX builds make them (mde_tpu/models/oda/
+# {lion,lime,jeju}.py; no reference config or weights are in the repo): the
+# same encoder and resize; oda_lion decoder_channels 2048 (PPM-v2 proj 512),
+# oda_lime 256 and 16 layers (the model resizes; its depth is at 1/4 scale),
+# oda_jeju 2048, 128 aux tokens, 64 heads; dropout 0.1, attention dropout 0,
+# sigmoid heads. In LUNA_FAMILY's layout: lion returns 8 weights, lime 16, jeju
+# its aux tokens and 8 weights; the encoder runs K1, the decoders no kernel
+ODA_LAST = {
+    "oda_lion": (dict(name="oda_lion", decoder_channels=2048), (384, 384), ODA_SERVE_LAUNCHES,
+                 ODA_TRAIN_LAUNCHES, 8),
+    "oda_lime": (dict(name="oda_lime", decoder_channels=256, decoder_layers=16), (384, 384),
+                 ODA_SERVE_LAUNCHES, ODA_TRAIN_LAUNCHES, 16),
+    "oda_jeju": (dict(name="oda_jeju", decoder_channels=2048, num_aux=128, num_heads=64),
+                 (384, 384), ODA_SERVE_LAUNCHES, ODA_TRAIN_LAUNCHES, 9)}
+# the depth map's scale of the (resized) input where it is not 1/2
+DEPTH_SCALE = {"oda_lime": 4}
 # the earlier paths' f32 CPU references (the flagship at 352x1216, the siblings'
 # and the ODA2 Luna models' forwards and train steps) run a Swin-B of depths
 # (2, 2, 2, 2) on both devices: full width, cut depth, to keep the CPU side short
 SHALLOW = {"depths": (2, 2, 2, 2)}
+# the ordered heads' f32 references at 352x1216 and in the flagship's and the
+# ordered siblings' f32 train steps run one repeat of three (full width, cut
+# depth): the plain K3 of the 2048-channel FFs took most of their CPU time
+# (with three repeats, on an H100's host: the 352x1216 forward 32.6 s,
+# oda2_red_order_reg's step 33.6 s; PERF.md)
+ONE_REPEAT = {"num_repeats": 1}
 # one eval forward of the flagship (no gradient, so nothing recomputes)
 EVAL_LAUNCHES = {"window_attention": 24, "ordered_attention": 6, "depthwise_conv2d": 6}
 # KITTI's test images after the KB-crop; the flagship resizes them to 448x1536
@@ -416,6 +459,50 @@ DRIVER_TRAIN, DRIVER_TEST, DRIVER_STEPS = 16, 4, 4
 
 def log(*args):
     print(*args, flush=True)
+
+
+# seconds by phase group, and the count and seconds of the model builds and
+# profiles inside them, for the line before the result lines
+SECONDS: dict = {}
+OVERHEAD = {"builds": [0, 0.0], "profiles": [0, 0.0]}
+
+
+@contextlib.contextmanager
+def timed(label: str, group: bool = False):
+    """Log the seconds the block took ("seconds: <label> <s>"); a ``group``
+    adds them to ``SECONDS`` under its label."""
+    t0 = time.perf_counter()
+    yield
+    s = time.perf_counter() - t0
+    if group:
+        SECONDS[label] = SECONDS.get(label, 0.0) + s
+    log(f"seconds: {label} {s:.1f}")
+
+
+def count_builds() -> None:
+    """Make ``mde_tpu_torch.models.build_model`` add its calls and seconds to
+    ``OVERHEAD`` (every phase imports it at call time)."""
+    from mde_tpu_torch import models
+    real = models.build_model
+
+    def build_model(*args, **kwargs):
+        t0 = time.perf_counter()
+        model = real(*args, **kwargs)
+        OVERHEAD["builds"][0] += 1
+        OVERHEAD["builds"][1] += time.perf_counter() - t0
+        return model
+
+    models.build_model = build_model
+
+
+def log_seconds() -> None:
+    """The seconds of each phase group, their sum, the builds' and
+    profiles' share of it, and the script's own clock."""
+    total = sum(SECONDS.values())
+    (nb, sb), (np_, sp) = OVERHEAD["builds"], OVERHEAD["profiles"]
+    log(f"seconds by group: {json.dumps({k: round(v, 1) for k, v in SECONDS.items()})}; "
+        f"sum {total:.1f} s (model builds {nb} in {sb:.1f} s, profiled calls {np_} in "
+        f"{sp:.1f} s); the script's clock {time.perf_counter() - START:.1f} s")
 
 
 def free_garbage() -> None:
@@ -999,25 +1086,35 @@ def model_f32_check(dev) -> None:
 def luna_family_opt(name: str) -> dict:
     """The train config of an ODA or Depthformer v6-v8 model: the flagship's,
     and the chamfer loss at 0.1 where the model returns bins."""
-    opt = dict(TRAIN_OPT, model=LUNA_FAMILY[name][0])
+    opt = dict(TRAIN_OPT, model={**LUNA_FAMILY, **ODA_LAST}[name][0])
     if name in LUNA_CHAMFER:
         opt["loss"] = dict(opt["loss"], chamfer_weight=0.1)
     return opt
 
 
+def sized(name: str, hw: tuple) -> dict:
+    """Build overrides for inputs of ``hw``: ``oda_lion``'s position
+    embedding takes the 1/32 grid of the size it is built for."""
+    return {"img_size": hw} if name == "oda_lion" else {}
+
+
 def luna_family_f32_check(dev, name: str, seed: int) -> dict:
-    """An ODA or Depthformer v6-v8 model's full-width f32 forward at batch 1
-    (the ODA models at 384x384, v6-v8 at 352x704): the card against the
-    CPU, the depth map and the bin centers or edges in metres, the aux
-    tokens at WEIGHTS_TOL of their size, the attention weights as
-    probabilities. Returns the card's launches."""
+    """An ODA (``LUNA_FAMILY``, ``ODA_LAST``) or Depthformer v6-v8 model's
+    full-width f32 forward at batch 1 (the ODA models at 384x384, v6-v8 at
+    352x704): the card against the CPU, the depth map and the bin centers
+    or edges in metres, the aux tokens at WEIGHTS_TOL of their size, the
+    attention weights as probabilities. Returns the card's launches."""
     from mde_tpu_torch.models import build_model
     from mde_tpu_torch.ops import kernels
-    cfg, hw, serving, _, rest_count = LUNA_FAMILY[name]
+    cfg, hw, serving, _, rest_count = {**LUNA_FAMILY, **ODA_LAST}[name]
+    scale = DEPTH_SCALE.get(name, 2)
     x = torch.from_numpy(np.random.RandomState(seed).rand(1, *hw, 3).astype(np.float32))
     outs = []
+    # one build, moved to the card and back: build_model draws the weights
+    # on the CPU whatever the device
+    model = build_model(cfg, 0.001, 80.0, device="cpu", seed=0, **sized(name, hw))
     for device in (dev, torch.device("cpu")):
-        model = build_model(cfg, 0.001, 80.0, device=device, seed=0)
+        model.to(device)
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         with torch.no_grad():
@@ -1028,8 +1125,9 @@ def luna_family_f32_check(dev, name: str, seed: int) -> dict:
         else:
             log(f"{name} f32 CPU forward (plain versions): {time.perf_counter() - t0:.1f} s")
         outs.append((depth.cpu(), [t.cpu() for t in rest]))
-        del model, depth, rest
+        del depth, rest
         free_garbage()
+    del model
     (depth, rest), (ref, ref_rest) = outs
     err = (depth - ref).abs().max().item()
     errs, tols = [], []
@@ -1043,7 +1141,7 @@ def luna_family_f32_check(dev, name: str, seed: int) -> dict:
         f"{[tuple(t.shape) for t in rest]} max_abs_err {[f'{e:.2e}' for e in errs]} "
         f"(tolerances: bins in m {MODEL_F32_TOL}, aux tokens {WEIGHTS_TOL} of their size, "
         f"weights {WEIGHTS_TOL})")
-    if (tuple(depth.shape) != (1, hw[0] // 2, hw[1] // 2, 1) or err > MODEL_F32_TOL
+    if (tuple(depth.shape) != (1, hw[0] // scale, hw[1] // scale, 1) or err > MODEL_F32_TOL
             or counts != dict(dict.fromkeys(kernels.KERNELS, 0), **serving)
             or len(rest) != rest_count
             or [t.shape for t in rest] != [t.shape for t in ref_rest]
@@ -1053,16 +1151,12 @@ def luna_family_f32_check(dev, name: str, seed: int) -> dict:
     return counts
 
 
-def oda_train_f32_check(dev, seed: int) -> None:
-    """``oda_luna_cls``'s full-width f32 train step at batch 2 on 384x384
-    (chamfer 0.1, batch statistics, dropout and stochastic depth off): the
-    card, whose encoder runs K1's f32 forward and backward at 144 tokens,
-    against the CPU. The loss must take the depth map and the bin centers."""
+@contextlib.contextmanager
+def loss_inputs():
+    """While active, every ``DepthLoss`` a train step builds appends (the
+    shapes of the maps it took, of the bin centers or None) to the yielded
+    list at each call."""
     import mde_tpu_torch.train.step as step_module
-    from mde_tpu_torch.ops import kernels
-    name = "oda_luna_cls"
-    batch = train_batch(2, seed, hw=(384, 384))
-    tag = f"{name} f32 train step batch 2 at 384x384 (chamfer 0.1)"
     seen, real = [], step_module.DepthLoss
 
     class Record(real):
@@ -1072,8 +1166,23 @@ def oda_train_f32_check(dev, seed: int) -> None:
             return super().__call__(outputs, gt, bin_centers)
 
     step_module.DepthLoss = Record
-    kw = dict(drop_prob=0.0, encoder_kwargs={"drop_prob": 0.0, "path_drop_prob": 0.0})
     try:
+        yield seen
+    finally:
+        step_module.DepthLoss = real
+
+
+def oda_train_f32_check(dev, seed: int) -> None:
+    """``oda_luna_cls``'s full-width f32 train step at batch 2 on 384x384
+    (chamfer 0.1, batch statistics, dropout and stochastic depth off): the
+    card, whose encoder runs K1's f32 forward and backward at 144 tokens,
+    against the CPU. The loss must take the depth map and the bin centers."""
+    from mde_tpu_torch.ops import kernels
+    name = "oda_luna_cls"
+    batch = train_batch(2, seed, hw=(384, 384))
+    tag = f"{name} f32 train step batch 2 at 384x384 (chamfer 0.1)"
+    kw = dict(drop_prob=0.0, encoder_kwargs={"drop_prob": 0.0, "path_drop_prob": 0.0})
+    with loss_inputs() as seen:
         kernels.reset_launch_counts()
         card = one_train_step(dev, batch, luna_family_opt(name), **kw)
         torch.cuda.synchronize()
@@ -1084,8 +1193,6 @@ def oda_train_f32_check(dev, seed: int) -> None:
         log(f"{tag}: card launches {counts}; CPU step (plain versions) "
             f"{time.perf_counter() - t0:.1f} s; the loss took maps {seen[0][0]} and bin "
             f"centers {seen[0][1]}")
-    finally:
-        step_module.DepthLoss = real
     want = ([(2, 192, 192, 1)], (2, 256))
     if (seen != [want, want] or not card[0]["loss_chamfer"] > 0
             or counts != dict(dict.fromkeys(kernels.KERNELS, 0), **ODA_TRAIN_LAUNCHES)):
@@ -1094,31 +1201,42 @@ def oda_train_f32_check(dev, seed: int) -> None:
     compare_steps(tag, card, cpu)
 
 
-def luna_family_runs(dev) -> dict:
-    """Every phase of the ODA models and Depthformer v6-v8: the f32 forward
-    card vs CPU, bf16 serving at batch 8 and the bf16 train step at batch 4
-    at 352x704 (each counted, timed, with peak memory and a profile), and
-    ``oda_luna_cls``'s f32 train step card vs CPU. Returns {name: {path:
-    launches}}."""
+def luna_family_runs(dev, models: dict, seed: int) -> dict:
+    """Every phase of ``models`` (``LUNA_FAMILY`` or ``ODA_LAST``): the f32
+    forward card vs CPU, bf16 serving at batch 8 and the bf16 train step at
+    batch 4 at 352x704 (each counted, timed, with peak memory and a
+    profile; the maps each step's loss took are checked: the depth map,
+    whatever else the model returns). Returns {name: {path: launches}}."""
     from mde_tpu_torch.models import build_model
     from mde_tpu_torch.serve import Predictor
     runs = {}
-    for i, (name, (cfg, _, serving, training, _)) in enumerate(LUNA_FAMILY.items()):
-        runs[name] = {"f32_forward": luna_family_f32_check(dev, name, 110 + i)}
-        model = build_model(cfg, 0.001, 80.0, device=dev, seed=0, dtype=torch.bfloat16)
-        images = torch.from_numpy(
-            np.random.RandomState(120 + i).rand(BATCH, 352, 704, 3).astype(np.float32)).to(dev)
+    hw = (352, 704)
+    for i, (name, (cfg, _, serving, training, _)) in enumerate(models.items()):
+        with timed(f"{name} f32 forward"):
+            runs[name] = {"f32_forward": luna_family_f32_check(dev, name, seed + i)}
         resized = " (resized to 384x768)" if name.startswith("oda") else ""
-        _, runs[name]["serving"] = serve_run(f"{name} bf16 batch {BATCH}{resized}",
-                                             Predictor(model), images, serving)
-        del model, images
+        with timed(f"{name} serving"):
+            model = build_model(cfg, 0.001, 80.0, device=dev, seed=0, dtype=torch.bfloat16,
+                                **sized(name, hw))
+            images = torch.from_numpy(np.random.RandomState(seed + 10 + i).rand(
+                BATCH, *hw, 3).astype(np.float32)).to(dev)
+            _, runs[name]["serving"] = serve_run(f"{name} bf16 batch {BATCH}{resized}",
+                                                 Predictor(model), images, serving)
+            del model, images
+            free_garbage()
+        tag = f"{name} bf16 train step batch {TRAIN_BATCH}{resized}"
+        with timed(f"{name} train step"), loss_inputs() as seen:
+            runs[name]["train_step"], _ = train_run(tag, luna_family_opt(name), dev, training,
+                                                    warmup=2, timed=3, profile=True,
+                                                    **sized(name, hw))
         free_garbage()
-        runs[name]["train_step"], _ = train_run(
-            f"{name} bf16 train step batch {TRAIN_BATCH}{resized}", luna_family_opt(name), dev,
-            training, warmup=2, timed=3, profile=True)
-        free_garbage()
-    oda_train_f32_check(dev, 130)
-    free_garbage()
+        rh, rw = (384, 768) if name.startswith("oda") else hw
+        scale = DEPTH_SCALE.get(name, 2)
+        maps = [(TRAIN_BATCH, rh // scale, rw // scale, 1)]
+        log(f"{tag}: the loss took maps {seen[0][0]} and bin centers {seen[0][1]} in each of "
+            f"{len(seen)} steps")
+        if any(s[0] != maps for s in seen) or len({repr(s) for s in seen}) != 1:
+            raise RuntimeError(f"{tag}: the loss took {seen}, expected the maps {maps}")
     return runs
 
 
@@ -1217,19 +1335,20 @@ def one_train_step(dev, batch: dict, opt=TRAIN_OPT, freeze_bn: bool = False,
 
 def train_f32_check(dev) -> None:
     """Full-width f32 train step at batch 1 on 224x448 (a quarter of the
-    pixels of 448x896 and the encoder depth SHALLOW keep the CPU step
-    short): the card against the CPU."""
+    pixels of 448x896, the encoder depth SHALLOW and one repeat of the head,
+    ``ONE_REPEAT``, keep the CPU step short): the card against the CPU."""
     batch = train_batch(1, 2, hw=(224, 448))
+    opt = dict(TRAIN_OPT, model=dict(FLAGSHIP, **ONE_REPEAT))
     replay = IndexReplay()
     try:
         replay.record()
         kw = dict(path_drop_prob=0.0, use_checkpoint=False, encoder_kwargs=SHALLOW)
-        card = one_train_step(dev, batch, **kw)
+        card = one_train_step(dev, batch, opt, **kw)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         replay.replay()
         t0 = time.perf_counter()
-        cpu = one_train_step("cpu", batch, **kw)
+        cpu = one_train_step("cpu", batch, opt, **kw)
         log(f"flagship f32 CPU train step (plain versions): {time.perf_counter() - t0:.1f} s")
     finally:
         replay.restore()
@@ -1723,11 +1842,12 @@ def sibling_serve_run(dev, name: str, seed: int) -> dict:
 
 
 def sibling_train_f32_check(dev, name: str, seed: int) -> None:
-    """A sibling's full-width f32 train step (encoder depth SHALLOW) at
-    batch 2 on 224x448, the card against the CPU (fed the card's index
-    maps), stochastic depth and recompute off."""
+    """A sibling's full-width f32 train step (encoder depth SHALLOW, one
+    repeat of the ordered head, ``ONE_REPEAT``) at batch 2 on 224x448, the
+    card against the CPU (fed the card's index maps), stochastic depth and
+    recompute off."""
     batch = train_batch(2, seed, hw=(224, 448))
-    opt = dict(TRAIN_OPT, model=SIBLINGS[name])
+    opt = dict(TRAIN_OPT, model=dict(SIBLINGS[name], **ONE_REPEAT))
     tag = f"{name} f32 train step batch 2 at 224x448"
     replay = sibling_replay()
     try:
@@ -1750,16 +1870,20 @@ def sibling_runs(dev) -> dict:
     """Every phase of the five siblings. Returns {name: {path: launches}}."""
     runs = {}
     for i, name in enumerate(SIBLINGS):
-        sibling_f32_check(dev, name, 20 + i)
+        with timed(f"{name} f32 forward"):
+            sibling_f32_check(dev, name, 20 + i)
         free_garbage()
-        runs[name] = sibling_serve_run(dev, name, 30 + i)
-        runs[name]["train_step"], _ = train_run(
-            f"{name} bf16 train step batch {TRAIN_BATCH} (resized to 448x896, "
-            f"use_checkpoint=True)", dict(TRAIN_OPT, model=SIBLINGS[name]), dev,
-            SIBLING_TRAIN_LAUNCHES[name], warmup=2, timed=3, profile=True)
+        with timed(f"{name} serving"):
+            runs[name] = sibling_serve_run(dev, name, 30 + i)
+        with timed(f"{name} train step"):
+            runs[name]["train_step"], _ = train_run(
+                f"{name} bf16 train step batch {TRAIN_BATCH} (resized to 448x896, "
+                f"use_checkpoint=True)", dict(TRAIN_OPT, model=SIBLINGS[name]), dev,
+                SIBLING_TRAIN_LAUNCHES[name], warmup=2, timed=3, profile=True)
         free_garbage()
     for i, name in enumerate(("oda2_red_order_reg", "oda2_red_order_swin")):
-        sibling_train_f32_check(dev, name, 40 + i)
+        with timed(f"{name} f32 train step"):
+            sibling_train_f32_check(dev, name, 40 + i)
         free_garbage()
     return runs
 
@@ -1876,22 +2000,26 @@ def luna_runs(dev) -> dict:
     from mde_tpu_torch.serve import Predictor
     runs = {}
     for i, (name, (cfg, serving, training, _)) in enumerate(LUNAS.items()):
-        luna_f32_check(dev, name, 50 + i)
-        model = build_model(cfg, 0.001, 80.0, device=dev, seed=0, dtype=torch.bfloat16)
-        images = torch.from_numpy(
-            np.random.RandomState(60 + i).rand(BATCH, 352, 704, 3).astype(np.float32)).to(dev)
-        _, counts = serve_run(f"{name} bf16 batch {BATCH} (resized to 448x896)",
-                              Predictor(model), images, serving)
-        runs[name] = {"serving": counts}
-        del model, images
-        free_garbage()
-        runs[name]["train_step"], _ = train_run(
-            f"{name} bf16 train step batch {TRAIN_BATCH} (resized to 448x896, "
-            f"use_checkpoint=True)", luna_opt(name), dev, training, warmup=2, timed=3,
-            profile=True)
+        with timed(f"{name} f32 forward"):
+            luna_f32_check(dev, name, 50 + i)
+        with timed(f"{name} serving"):
+            model = build_model(cfg, 0.001, 80.0, device=dev, seed=0, dtype=torch.bfloat16)
+            images = torch.from_numpy(np.random.RandomState(60 + i).rand(
+                BATCH, 352, 704, 3).astype(np.float32)).to(dev)
+            _, counts = serve_run(f"{name} bf16 batch {BATCH} (resized to 448x896)",
+                                  Predictor(model), images, serving)
+            runs[name] = {"serving": counts}
+            del model, images
+            free_garbage()
+        with timed(f"{name} train step"):
+            runs[name]["train_step"], _ = train_run(
+                f"{name} bf16 train step batch {TRAIN_BATCH} (resized to 448x896, "
+                f"use_checkpoint=True)", luna_opt(name), dev, training, warmup=2, timed=3,
+                profile=True)
         free_garbage()
     for i, name in enumerate(("oda2_luna_cls", "oda2_red_luna_reg")):
-        luna_train_f32_check(dev, name, 70 + i)
+        with timed(f"{name} f32 train step"):
+            luna_train_f32_check(dev, name, 70 + i)
         free_garbage()
     return runs
 
@@ -1926,8 +2054,10 @@ def efficientnet_f32_check(dev, name: str, seed: int) -> None:
     cfg, _, hw, max_depth, shapes = efficientnet_models()[name]
     x = torch.from_numpy(np.random.RandomState(seed).rand(1, *hw, 3).astype(np.float32))
     outs = []
+    # one build, moved to the card and back, as in luna_family_f32_check
+    model = build_model(cfg, 0.001, max_depth, device="cpu", seed=0)
     for device in (dev, torch.device("cpu")):
-        model = build_model(cfg, 0.001, max_depth, device=device, seed=0)
+        model.to(device)
         t0 = time.perf_counter()
         with torch.no_grad():
             depth, rest = split_outputs(model(x.to(device)))
@@ -1936,8 +2066,9 @@ def efficientnet_f32_check(dev, name: str, seed: int) -> None:
         else:
             log(f"{name} f32 CPU forward: {time.perf_counter() - t0:.1f} s")
         outs.append((depth.cpu(), [t.cpu() for t in rest]))
-        del model, depth, rest
+        del depth, rest
         free_garbage()
+    del model
     (depth, rest), (ref, ref_rest) = outs
     err = (depth - ref).abs().max().item()
     errs = [(a - b).abs().max().item() for a, b in zip(rest, ref_rest)]
@@ -2045,20 +2176,24 @@ def efficientnet_runs(dev) -> None:
     from mde_tpu_torch.models import build_model
     from mde_tpu_torch.serve import Predictor
     for i, (name, (cfg, opt, hw, max_depth, _)) in enumerate(efficientnet_models().items()):
-        efficientnet_f32_check(dev, name, 80 + i)
-        model = build_model(cfg, 0.001, max_depth, device=dev, seed=0, dtype=torch.bfloat16)
-        images = torch.from_numpy(
-            np.random.RandomState(90 + i).rand(BATCH, *hw, 3).astype(np.float32)).to(dev)
-        serve_run(f"{name} bf16 batch {BATCH}", Predictor(model), images, {})
-        del model, images
+        with timed(f"{name} f32 forward"):
+            efficientnet_f32_check(dev, name, 80 + i)
+        with timed(f"{name} serving"):
+            model = build_model(cfg, 0.001, max_depth, device=dev, seed=0,
+                                dtype=torch.bfloat16)
+            images = torch.from_numpy(
+                np.random.RandomState(90 + i).rand(BATCH, *hw, 3).astype(np.float32)).to(dev)
+            serve_run(f"{name} bf16 batch {BATCH}", Predictor(model), images, {})
+            del model, images
+            free_garbage()
+        with timed(f"{name} train step"):
+            train_run(f"{name} bf16 train step batch {TRAIN_BATCH}", opt, dev, {}, warmup=2,
+                      timed=3, profile=True, hw=hw, max_depth=max_depth)
         free_garbage()
-        train_run(f"{name} bf16 train step batch {TRAIN_BATCH}", opt, dev, {}, warmup=2,
-                  timed=3, profile=True, hw=hw, max_depth=max_depth)
+    for name, hw, seed in (("adabins", (288, 480), 100), ("depthformer_v3", (224, 448), 101)):
+        with timed(f"{name} f32 train step"):
+            efficientnet_train_f32_check(dev, name, hw, seed)
         free_garbage()
-    efficientnet_train_f32_check(dev, "adabins", (288, 480), 100)
-    free_garbage()
-    efficientnet_train_f32_check(dev, "depthformer_v3", (224, 448), 101)
-    free_garbage()
 
 
 def kernel_inputs(model) -> tuple:
@@ -2078,7 +2213,8 @@ def kernel_inputs(model) -> tuple:
 
 def eval_shape_f32_check(dev) -> None:
     """The flagship's f32 forward of one 352x1216 image (KITTI's test shape,
-    resized to 448x1536) at the encoder depth SHALLOW: the card against the
+    resized to 448x1536) at the encoder depth SHALLOW and one repeat of the
+    head (``ONE_REPEAT``: 2 K2 and 2 K3 launches): the card against the
     CPU, fed the card's index maps, with the windows K1, K2 and K3 see at
     this shape checked."""
     from mde_tpu_torch.models import build_model
@@ -2087,8 +2223,8 @@ def eval_shape_f32_check(dev) -> None:
     replay = IndexReplay()
     try:
         replay.record()
-        model = build_model(FLAGSHIP, 0.001, 80.0, device=dev, seed=0, use_checkpoint=False,
-                            encoder_kwargs=SHALLOW)
+        model = build_model(dict(FLAGSHIP, **ONE_REPEAT), 0.001, 80.0, device=dev, seed=0,
+                            use_checkpoint=False, encoder_kwargs=SHALLOW)
         seen, handles = kernel_inputs(model)
         kernels.reset_launch_counts()
         with torch.no_grad():
@@ -2106,13 +2242,13 @@ def eval_shape_f32_check(dev) -> None:
             f"{sorted({s[1] for s in seen['K1']})}); K2 inputs {sorted(set(seen['K2']))} "
             f"({seen['K2'][0][1] * seen['K2'][0][2] // 64} windows of 8x8); K3 inputs "
             f"{sorted(set(seen['K3']))}")
-        if (counts != dict(dict.fromkeys(kernels.KERNELS, 0),
-                           **dict(EVAL_LAUNCHES, window_attention=len(EVAL_WINDOWS)))
+        if (counts != dict(dict.fromkeys(kernels.KERNELS, 0), window_attention=len(EVAL_WINDOWS),
+                           ordered_attention=2, depthwise_conv2d=2)
                 or windows != EVAL_WINDOWS or set(seen["K2"]) != {(1, 112, 384, 512)}
                 or set(seen["K3"]) != {(1, 112, 384, 2048)}):
             raise RuntimeError("the flagship at 352x1216 did not run the kernels at the "
                                "expected shapes")
-        cpu_model = build_model(FLAGSHIP, 0.001, 80.0, device="cpu", seed=0,
+        cpu_model = build_model(dict(FLAGSHIP, **ONE_REPEAT), 0.001, 80.0, device="cpu", seed=0,
                                 use_checkpoint=False, encoder_kwargs=SHALLOW)
         replay.replay()
         t0 = time.perf_counter()
@@ -2127,7 +2263,7 @@ def eval_shape_f32_check(dev) -> None:
         f"{tuple(gpu_outs[-1].shape)}, max_abs_err per map {errs} m (tolerance "
         f"{MODEL_F32_TOL}); index flips per repeat {replay.flips} of "
         f"{replay.card[0].numel()} (the CPU run was fed the card's indices)")
-    if (len(errs) != FLAGSHIP["num_repeats"] + 1 or max(errs) > MODEL_F32_TOL
+    if (len(errs) != ONE_REPEAT["num_repeats"] + 1 or max(errs) > MODEL_F32_TOL
             or gpu_outs[-1].shape != (1, 112, 384, 1) or not torch.isfinite(gpu_outs[-1]).all()):
         raise RuntimeError("flagship f32 forward at 352x1216 on the card disagrees with the CPU")
 
@@ -2445,10 +2581,13 @@ def newcrfs_driver_run(dev, card: str, bare_rate: float) -> dict:
 
 def profile_call(call) -> None:
     """Device time by kernel over one profiled call, and the device's busy
-    share of that call's host-clock time."""
+    share of that call's host-clock time. The profiler records the card's
+    activity alone: the host's ops, which nothing here reads, took 3-4x as
+    long to sum up and lengthened the profiled call itself (PERF.md)."""
     from torch.profiler import ProfilerActivity, profile
+    t_start = time.perf_counter()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         call()
         torch.cuda.synchronize()
@@ -2464,11 +2603,13 @@ def profile_call(call) -> None:
         if dev_us > 0:
             rows.append((dev_us / 1e3, e.count, e.key))
     busy_ms = sum(r[0] for r in rows)
+    OVERHEAD["profiles"][0] += 1
+    OVERHEAD["profiles"][1] += time.perf_counter() - t_start
     if busy_ms == 0:
         log("profile: the profiler recorded no device time (not measured)")
         return
     log(f"profile of one call: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms host clock "
-        f"(idle share {1 - busy_ms / wall_ms:.3f}, profiler on)")
+        f"(idle share {1 - busy_ms / wall_ms:.3f}, profiler on, the card's activity only)")
     # the 25 largest, and the port's own kernels wherever they rank
     ours = ("window_attention", "ordered_attention", "depthwise", "glu_ff", "channel_attention")
     for i, (ms, count, key) in enumerate(sorted(rows, reverse=True)):
@@ -2546,17 +2687,10 @@ def build_report(kernels) -> dict:
     return out
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    from mde_tpu_torch.ops import kernels
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True, timeout=60).stdout.strip().splitlines()[0]
-    dev = torch.device("cuda")
-    log(f"card: {card}; torch {torch.__version__} CUDA {torch.version.cuda}; "
-        f"{torch.cuda.get_device_name(0)}")
+def kernel_phases(kernels, dev) -> tuple:
+    """Build the kernels, log their registers and shared memory, and run
+    every kernel phase. Returns (the main phases, the other shapes by
+    kernel, the build report)."""
     t0 = time.perf_counter()
     kernels.build()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
@@ -2635,43 +2769,86 @@ def main() -> int:
         log(f"{p['phase']}: {p['ms'] / p['library_ms']:.2f}x the cuDNN yardstick, "
             f"{p['ms'] / p['bound_ms']:.2f}x the bound")
     torch.cuda.empty_cache()
+    return phases, more, build
 
-    model_f32_check(dev)
-    torch.cuda.empty_cache()
-    fused_counts = model_bf16_run(dev)
-    torch.cuda.empty_cache()
-    train_f32_check(dev)
-    torch.cuda.empty_cache()
-    counts, bare_rate = train_bf16_run(dev)
-    eval_shape_f32_check(dev)
-    torch.cuda.empty_cache()
-    driver_counts = driver_run(dev, card, bare_rate)
-    ksa_f32_check(dev)
-    ksa_serve_run(dev)
-    ksa_train_f32_check(dev, 2, freeze_bn=True)
-    ksa_train_f32_check(dev, 4, freeze_bn=False)
-    torch.cuda.empty_cache()
-    ksa_counts, _ = train_run(f"oda2_ksa_reg bf16 train step batch {TRAIN_BATCH} (resized to "
-                              f"448x896, use_checkpoint=True)", KSA_TRAIN_OPT, dev,
-                              KSA_TRAIN_LAUNCHES, warmup=2, timed=5, profile=True)
-    free_garbage()
 
-    newcrfs_f32_check(dev, EVAL_HW)
-    newcrfs_f32_check(dev, NYU_HW)
-    _, newcrfs_serve_counts = newcrfs_serve_run(dev)
-    newcrfs_train_f32_check(dev)
-    free_garbage()
-    newcrfs_counts, newcrfs_rate = train_run(
-        f"NewCRFs large07 bf16 train step batch {TRAIN_BATCH} (352x704, use_checkpoint=False)",
-        NEWCRFS_TRAIN_OPT, dev, NEWCRFS_TRAIN_LAUNCHES, warmup=2, timed=5, profile=True,
-        entries=NEWCRFS_TRAIN_ENTRIES)
-    free_garbage()
-    newcrfs_fit_counts = newcrfs_driver_run(dev, card, newcrfs_rate)
-    free_garbage()
-    siblings = sibling_runs(dev)
-    siblings.update(luna_runs(dev))
-    efficientnet_runs(dev)
-    siblings.update(luna_family_runs(dev))
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from mde_tpu_torch.ops import kernels
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda")
+    log(f"card: {card}; torch {torch.__version__} CUDA {torch.version.cuda}; "
+        f"{torch.cuda.get_device_name(0)}")
+    count_builds()
+    with timed("kernel phases", group=True):
+        phases, more, build = kernel_phases(kernels, dev)
+    with timed("flagship", group=True):
+        with timed("flagship f32 forward"):
+            model_f32_check(dev)
+        torch.cuda.empty_cache()
+        with timed("flagship serving"):
+            fused_counts = model_bf16_run(dev)
+        torch.cuda.empty_cache()
+        with timed("flagship f32 train step"):
+            train_f32_check(dev)
+        torch.cuda.empty_cache()
+        with timed("flagship train steps"):
+            counts, bare_rate = train_bf16_run(dev)
+        with timed("flagship f32 at 352x1216"):
+            eval_shape_f32_check(dev)
+        torch.cuda.empty_cache()
+    with timed("driver", group=True):
+        driver_counts = driver_run(dev, card, bare_rate)
+    with timed("KSA", group=True):
+        with timed("KSA f32 forward"):
+            ksa_f32_check(dev)
+        with timed("KSA serving"):
+            ksa_serve_run(dev)
+        with timed("KSA f32 train steps"):
+            ksa_train_f32_check(dev, 2, freeze_bn=True)
+            ksa_train_f32_check(dev, 4, freeze_bn=False)
+        torch.cuda.empty_cache()
+        with timed("KSA train step"):
+            ksa_counts, _ = train_run(
+                f"oda2_ksa_reg bf16 train step batch {TRAIN_BATCH} (resized to 448x896, "
+                f"use_checkpoint=True)", KSA_TRAIN_OPT, dev, KSA_TRAIN_LAUNCHES, warmup=2,
+                timed=5, profile=True)
+        free_garbage()
+    with timed("NewCRFs", group=True):
+        with timed("NewCRFs f32 forwards"):
+            newcrfs_f32_check(dev, EVAL_HW)
+            newcrfs_f32_check(dev, NYU_HW)
+        with timed("NewCRFs serving"):
+            _, newcrfs_serve_counts = newcrfs_serve_run(dev)
+        with timed("NewCRFs f32 train step"):
+            newcrfs_train_f32_check(dev)
+        free_garbage()
+        with timed("NewCRFs train step"):
+            newcrfs_counts, newcrfs_rate = train_run(
+                f"NewCRFs large07 bf16 train step batch {TRAIN_BATCH} (352x704, "
+                f"use_checkpoint=False)", NEWCRFS_TRAIN_OPT, dev, NEWCRFS_TRAIN_LAUNCHES,
+                warmup=2, timed=5, profile=True, entries=NEWCRFS_TRAIN_ENTRIES)
+        free_garbage()
+        with timed("NewCRFs driver"):
+            newcrfs_fit_counts = newcrfs_driver_run(dev, card, newcrfs_rate)
+        free_garbage()
+    with timed("siblings", group=True):
+        siblings = sibling_runs(dev)
+    with timed("Luna", group=True):
+        siblings.update(luna_runs(dev))
+    with timed("EfficientNet", group=True):
+        efficientnet_runs(dev)
+    with timed("ODA/Luna family", group=True):
+        siblings.update(luna_family_runs(dev, LUNA_FAMILY, 110))
+        with timed("oda_luna_cls f32 train step"):
+            oda_train_f32_check(dev, 130)
+        free_garbage()
+    with timed("ODA Lion/Lime/Jeju", group=True):
+        siblings.update(luna_family_runs(dev, ODA_LAST, 140))
 
     # the line reports each kernel at its main-path shape in bf16 (K1 at
     # stage 1 with the shift mask, K2 with the table) and its launches in
@@ -2714,6 +2891,7 @@ def main() -> int:
                                                  "plain_ms", "host_ms", "max_abs_err_bf16")}
                              for q in more[name]]} if name in more else {}))
         for name, p in report.items()]}
+    log_seconds()
     log(card)
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

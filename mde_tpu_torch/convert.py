@@ -10,7 +10,9 @@ JAX model the port has (arrays of any kind numpy can read) into the port's
 ``convert_oda2_red_luna_decoder``, ``convert_adabins_model`` with
 ``convert_efficientnet_b5``, ``convert_depthformer_v2_decoder``,
 ``convert_depthformer_v4_decoder``, ``convert_depthformer_luna_decoder``,
-``convert_oda_conv_decoder``, ``convert_oda_luna_decoder``; Depthformer v1
+``convert_oda_conv_decoder``, ``convert_oda_luna_decoder``,
+``convert_oda_lion_decoder``, ``convert_oda_lime_decoder``,
+``convert_oda_jeju_decoder``; Depthformer v1
 and v3, which have none, on their pattern; the ODA encoder as the Swin
 backbones, without output norms; the ODA heads as AdaBins'), written
 without importing the JAX package.
@@ -303,13 +305,63 @@ def _is_oda(paths) -> bool:
     return any(p[:2] == ("encoder", "backbone") for p in paths)
 
 
+# the conv FFs' segments (Lion's, Jeju's, Lime's conv block) -> their slots
+_CONV_FF = {"conv1": ("conv1", "0"), "bn1": ("conv1", "1"), "conv2": ("conv2", "0"),
+            "bn2": ("conv2", "1"), "conv3": ("conv3", "0"), "bn3": ("conv3", "1"),
+            "se0": ("se", "0"), "se1": ("se", "2")}
+# Lime's stem segments -> their slots
+_LIME_STEM = {"stem_conv0": ("stem_conv", "0"), "stem_bn0": ("stem_conv", "1"),
+              "stem_conv1": ("stem_conv", "3"), "stem_bn1": ("stem_conv", "4"),
+              "stem_enc_norm": ("stem_enc", "0"), "stem_enc_linear": ("stem_enc", "1")}
+
+
+def _oda_segment(parent: str, seg: str) -> Tuple[str, ...]:
+    """A decoder segment of an ODA model's tree in the port's segments:
+    the conv and Luna decoders' ``block{L}_{0,1,2}`` as ``block{L}.{0,1,3}``
+    (slot 2 the upsample), ``block2_out`` as ``block2.1``,
+    ``block{L}_post`` as ``block{L}_post.1`` (slot 0 the upsample); the
+    PPMs' ``reduce{i}[_conv]`` as ``conv_reduce_layers.{i}``, gen-1's
+    ``out_conv``, ``out_bn`` as ``conv``, ``bn``; Lion's, Lime's and Jeju's
+    ``out_conv{j}`` as ``out_conv.{j}``, their conv FFs' ``conv{j}``,
+    ``bn{j}``, ``se{j}`` as ``conv{j}.{0,1}``, ``se.{0,2}``; Lion's
+    ``out_norm`` and ``out_bn`` as ``out`` and ``out.0``; Lime's stem as
+    ``stem_conv.{0,1,3,4}`` and ``stem_enc.{0,1}``, ``layers{i}_{conv,attn}``
+    as ``layers.{i}.{conv,attn}``; Jeju's ``jeju{L}`` and ``jeju{L}_ff`` as
+    ``jeju{L}.jeju_attn`` and ``.jeju_ff``, ``up{L}`` as
+    ``hidden_{L}to{L/2}`` (its BatchNorm ``bn`` as ``norm.0``),
+    ``aux_up{L}`` as ``aux_{L}to{L/2}``."""
+    if parent == "ppm" and (m := re.fullmatch(r"reduce(\d+)(_conv)?", seg)):
+        return ("conv_reduce_layers", m.group(1))
+    if parent == "ppm" and seg in ("out_conv", "out_bn"):
+        return (seg[len("out_"):],)
+    if m := re.fullmatch(r"block(\d+)_(\d|out)", seg):
+        j = 1 if m.group(2) == "out" else int(m.group(2))
+        return (f"block{m.group(1)}", str(3 if j == 2 else j))
+    if re.fullmatch(r"block\d+_post", seg):
+        return (seg, "1")
+    if parent == "decoder" and (m := re.fullmatch(r"out_conv(\d)", seg)):
+        return ("out_conv", m.group(1))
+    if seg in _CONV_FF and re.fullmatch(r"feed_forward_[hw]|jeju\d+_ff|layers\d+_conv", parent):
+        return _CONV_FF[seg]
+    if re.fullmatch(r"lion\d+", parent) and seg in ("out_norm", "out_bn"):
+        return ("out",) if seg == "out_norm" else ("out", "0")
+    if seg in _LIME_STEM:
+        return _LIME_STEM[seg]
+    if m := re.fullmatch(r"layers(\d+)_(conv|attn)", seg):
+        return ("layers", m.group(1), m.group(2))
+    if m := re.fullmatch(r"jeju(\d+)(_ff)?", seg):
+        return (f"jeju{m.group(1)}", "jeju_ff" if m.group(2) else "jeju_attn")
+    if m := re.fullmatch(r"(aux_)?up(\d+)", seg):
+        level = int(m.group(2))
+        return (f"{'aux' if m.group(1) else 'hidden'}_{level}to{level // 2}",)
+    if re.fullmatch(r"up\d+", parent) and seg == "bn":
+        return ("norm", "0")
+    return (seg,)
+
+
 def _oda_path(path: Path) -> Path:
     """A path of an ODA model's tree (blocks unstacked) in the port's
-    segments: the decoders' ``block{L}_{0,1,2}`` as ``block{L}.{0,1,3}``
-    (slot 2 the upsample), ``block2_out`` as ``block2.1``,
-    ``block{L}_post`` as ``block{L}_post.1`` (slot 0 the upsample), the
-    gen-1 PPM's ``reduce{i}_conv``, ``out_conv``, ``out_bn`` as
-    ``conv_reduce_layers.{i}``, ``conv``, ``bn``; the cls head's
+    segments: the decoder's as ``_oda_segment`` maps them; the cls head's
     ``bin_regressor{i}`` as ``bin_regressor.{2i}``; mViT as AdaBins'
     (``_efficientnet_path``)."""
     if path[0] == "encoder":
@@ -320,17 +372,7 @@ def _oda_path(path: Path) -> Path:
         return _efficientnet_path(path, False)
     out = ["decoder"]
     for parent, seg in zip(path, path[1:]):
-        if parent == "ppm" and (m := re.fullmatch(r"reduce(\d+)_conv", seg)):
-            out += ["conv_reduce_layers", m.group(1)]
-        elif parent == "ppm" and seg in ("out_conv", "out_bn"):
-            out.append(seg[len("out_"):])
-        elif m := re.fullmatch(r"block(\d+)_(\d|out)", seg):
-            j = 1 if m.group(2) == "out" else int(m.group(2))
-            out += [f"block{m.group(1)}", str(3 if j == 2 else j)]
-        elif re.fullmatch(r"block\d+_post", seg):
-            out += [seg, "1"]
-        else:
-            out.append(seg)
+        out += _oda_segment(parent, seg)
     return tuple(out)
 
 
@@ -404,7 +446,10 @@ def from_jax_variables(variables: Mapping, output_scale: int = 4) -> Dict[str, t
     out: Dict[str, torch.Tensor] = {}
     for flat in (params, stats):
         for path, arr in flat.items():
-            convbn = path[:-2] + ("conv", "kernel") in params
+            # a ConvBN's norm is the reference's ``bn``; Jeju's upsampling
+            # pairs its conv with an LN, which keeps the name ``norm``
+            convbn = (path[:-2] + ("conv", "kernel") in params
+                      and not any(re.fullmatch(r"hidden_\d+to\d+", seg) for seg in path[-3:-2]))
             name = _rename(path, segment, convbn)
             out[name] = torch.from_numpy(np.array(_leaf(path, arr), dtype=np.float32))
             if path[-1] == "mean":

@@ -7,6 +7,7 @@ mode (the train step switches it to training), on the card unless
 constructor: ``dtype``, and for the Swin models ``use_checkpoint``
 (recompute blocks in the backward pass) and ``path_drop_prob`` (the
 encoder's stochastic depth; the ODA models' is fixed at 0.1, as JAX's).
+Every name the JAX registry holds is ported.
 """
 
 from __future__ import annotations
@@ -22,6 +23,9 @@ from .depthformer.model import Depthformer
 from .depthformer.luna_versions import DepthformerLuna
 from .depthformer.versions import DepthformerV2, DepthformerV3, DepthformerV4
 from .newcrfs.model import NewCRFDepth
+from .oda.jeju import ODAJejuModel
+from .oda.lime import ODALimeModel
+from .oda.lion import ODALionModel
 from .oda.models import ODABinsModel, ODAConvModel, ODALunaModel
 from .oda2.conv import ODA2ConvModel
 from .oda2.ksa import ODA2KSARegModel
@@ -50,7 +54,8 @@ _REGISTRY = {"oda2_red_order_swin2": ODA2OrderedSwin2RegModel.build,
                 for v in (6, 7, 8)},
              "oda_conv": ODAConvModel.build, "oda_luna": ODALunaModel.build,
              "oda_luna_cls": functools.partial(ODALunaModel.build, cls_head=True),
-             "oda_bins": ODABinsModel.build}
+             "oda_bins": ODABinsModel.build, "oda_lion": ODALionModel.build,
+             "oda_lime": ODALimeModel.build, "oda_jeju": ODAJejuModel.build}
 
 
 def available_models():
@@ -74,9 +79,7 @@ def build_model(opt, min_depth: float, max_depth: float,
     model_opt = opt["model"] if "model" in opt else opt
     name = model_opt["name"]
     if name not in _REGISTRY:
-        raise NotImplementedError(
-            f"Model {name!r} is not ported yet (ported: {available_models()}); "
-            f"see ROADMAP.md Queue 1 for the order of the rest")
+        raise ValueError(f"Unknown model {name!r}. Available: {available_models()}")
     with no_default_init():
         model = _REGISTRY[name](model_opt, min_depth, max_depth, **overrides)
     init_weights(model, torch.Generator().manual_seed(seed))

@@ -57,6 +57,14 @@ class ODASwinEncoder(nn.Module):
             use_checkpoint=use_checkpoint, shift_collapse=True,
             input_size=None if resize_to_multiple else input_size, out_norms=False, **kwargs)
 
+    def grid(self, img_size: Tuple[int, int]) -> Tuple[int, int]:
+        """The 1/32 (stage 4) token grid of an ``img_size`` input: after the
+        resize where it runs; the patch embedding and each merge round
+        up."""
+        h, w = (oda_resize_policy(*img_size) if self.resize_to_multiple
+                else (int(img_size[0]), int(img_size[1])))
+        return -(-h // 32), -(-w // 32)
+
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, ...]:
         if self.resize_to_multiple:

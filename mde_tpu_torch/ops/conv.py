@@ -34,6 +34,23 @@ class ConvBN(nn.Module):
         return x if self.act is None else self.act(x)
 
 
+class EdgeConv(nn.Conv2d):
+    """k x k conv (odd k; bias-free unless ``bias``; ``groups`` as
+    ``nn.Conv2d``'s) after a (k // 2)-pixel replicate pad, on NHWC input,
+    in the input's dtype."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, bias: bool = False,
+                 groups: int = 1):
+        if kernel_size % 2 != 1:
+            raise ValueError("EdgeConv takes odd kernels only")
+        super().__init__(in_ch, out_ch, kernel_size, bias=bias, groups=groups)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        p = self.kernel_size[0] // 2
+        return conv2d_nhwc(pad2d(x, p, p, p, p, mode="edge"), self.weight, self.bias,
+                           groups=self.groups)
+
+
 class ValidConv(nn.Conv2d):
     """k x k VALID conv (at ``stride``, default 1) on NHWC input, in the
     input's dtype."""

@@ -67,8 +67,16 @@ def build_all(opt: Config, dtype=torch.float32, model_overrides=None,
                              num_workers=workers, drop_last=False, device_augment=False,
                              device=device)
 
+    # JAX sizes a model by its first train batch (``Trainer.init_state``); the
+    # port's ODA models fix their encoder windows (the resize off) and
+    # oda_lion its position embedding's grid at build: from the train crop,
+    # unless the model's config or the overrides name a size
+    overrides = dict(model_overrides or {})
+    model_opt = opt["model"] if "model" in opt else opt
+    if model_opt["name"].startswith("oda_") and not model_opt.get("img_size"):
+        overrides.setdefault("img_size", (spec.height, spec.width))
     model = build_model(opt, min_depth, max_depth, device=device, seed=seed, dtype=dtype,
-                        **(model_overrides or {}))
+                        **overrides)
 
     # one optimizer step consumes num_accum loader batches (effective batch
     # batch_size * num_accum); the OneCycle schedule runs over optimizer steps

@@ -1263,7 +1263,18 @@ ODA_LUNA = dict(decoder_channels=32, num_aux=8, aux_dim=16, num_heads=4)
 ODA_TINY = {"oda_conv": (dict(decoder_channels=32), (128, 192)),
             "oda_luna": (ODA_LUNA, (128, 192)),
             "oda_luna_cls": (dict(ODA_LUNA, num_bins=8), (128, 192)),
-            "oda_bins": (dict(decoder_channels=32, num_bins=8), (384, 384))}
+            "oda_bins": (dict(decoder_channels=32, num_bins=8), (384, 384)),
+            "oda_lion": (dict(decoder_channels=32), (128, 192)),
+            "oda_lime": (dict(decoder_channels=16, decoder_layers=2), (128, 192)),
+            "oda_jeju": (dict(decoder_channels=32, num_aux=4, num_heads=8), (128, 192))}
+
+
+# the models with a PPM-v2, whose 1x1 pooled BatchNorm normalises one value an
+# image: at two images its output is +-1 whatever they are and the gradient
+# into it rounding noise (the tiny steps' gradient norms came out 1.1e-4 apart
+# card vs CPU), so their train step takes four images with colour casts of
+# their own, as tests/test_torch_port_ksa_train.py's
+PPM_V2 = ("oda_lion", "oda_jeju")
 
 
 def _oda_build(name, dev, seed, **overrides):
@@ -1318,19 +1329,24 @@ def test_tiny_oda_model_on_card_matches_cpu(cuda, name):
 @pytest.mark.parametrize("name", list(ODA_TINY))
 def test_tiny_oda_train_step_on_card_matches_cpu(cuda, name):
     """One f32 train step of a tiny ODA model (dropout and stochastic depth
-    off; the bin models with the chamfer loss at 0.1) on the card (K1 8 and
+    off; the bin models with the chamfer loss at 0.1; ``PPM_V2``'s on four
+    colour-cast images) on the card (K1 8 and
     8 backward, the f32 bodies at 144 tokens, the lean backward among them)
     against the same step on the CPU, at the tolerances of
     ``test_tiny_efficientnet_train_step_on_card_matches_cpu``."""
     hw = ODA_TINY[name][1]
+    size = 4 if name in PPM_V2 else 2
     chamfer = 0.1 if name in ("oda_luna_cls", "oda_bins") else 0.0
     opt = {"model": dict(ODA_TINY[name][0], name=name),
            "loss": {"alpha": 10.0, "beta": 0.15, "per_image": True, "chamfer_weight": chamfer},
            "optimizer": {"lr": 1e-4, "weight_decay": 0.1, "eps": 1e-6},
            "scheduler": {"name": "onecycle"}, "train": {"grad_norm": 0.1}}
     rng = np.random.RandomState(26)
-    batch = {"image": rng.rand(2, *hw, 3).astype(np.float32),
-             "depth": rng.uniform(0.5, 60.0, (2, *hw, 1)).astype(np.float32)}
+    batch = {"image": rng.rand(size, *hw, 3).astype(np.float32),
+             "depth": rng.uniform(0.5, 60.0, (size, *hw, 1)).astype(np.float32)}
+    if name in PPM_V2:
+        batch["image"] *= np.array([[1.0, 0.2, 0.2], [0.2, 1.0, 0.2], [0.2, 0.2, 1.0],
+                                    [1.0, 1.0, 1.0]], np.float32)[:, None, None]
     no_drop = dict(encoder_kwargs=dict(ODA_KW["encoder_kwargs"], drop_prob=0.0,
                                        path_drop_prob=0.0))
     if name != "oda_conv":  # the Luna layers', mViT's

@@ -257,7 +257,9 @@ def test_port_imports_no_jax():
             "mde_tpu_torch.models.depthformer.model, mde_tpu_torch.models.depthformer.versions, "
             "mde_tpu_torch.ops.luna, mde_tpu_torch.models.depthformer.luna_versions, "
             "mde_tpu_torch.models.oda.encoder, mde_tpu_torch.models.oda.decoders, "
-            "mde_tpu_torch.models.oda.models, mde_tpu_torch.ops.ppm\n"
+            "mde_tpu_torch.models.oda.models, mde_tpu_torch.ops.ppm, "
+            "mde_tpu_torch.models.oda.lion, mde_tpu_torch.models.oda.lime, "
+            "mde_tpu_torch.models.oda.jeju, mde_tpu_torch.ops.resize\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
             "'optax', 'orbax', 'mde_tpu')]\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
@@ -296,5 +298,9 @@ def test_build_model_defaults_to_cuda():
         return
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_model({"name": "oda2_red_order_swin2"}, 0.001, 80.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model({"name": "oda_lion"}, 0.001, 80.0, device="cpu")
+    with pytest.raises(ValueError, match="Unknown model 'oda_lions'"):
+        build_model({"name": "oda_lions"}, 0.001, 80.0, device="cpu")
+    # every name of the JAX registry is ported
+    from mde_tpu.models import available_models as jax_models
+    from mde_tpu_torch.models import available_models
+    assert available_models() == jax_models() and len(available_models()) == 27
