@@ -50,8 +50,22 @@
    parameters after AdamW. Then the bf16 train step at batch 4 on 352x704
    images (``make_train_step``, AdamW + OneCycle + clip 0.1, stochastic
    depth 0.2): its launch counts, finite logs and moved parameters, 5 timed
-   steps after 2 warm-up, peak memory, one profiled step, and one run with
-   ``use_checkpoint``.
+   steps after 2 warm-up, peak memory, one profiled step. The recompute
+   policies: the same step with ``use_checkpoint`` under each
+   ``MDE_REMAT_POLICY`` (``full``, ``save_sa``, ``save_sa_conv``, the
+   default, and ``save_sa_conv_glu``), each with its exact launches
+   (``REMAT_LAUNCHES``: K3's forward runs once a step where the conv's
+   output is kept), img/s (5 timed steps after 2 warm-up) and peak memory,
+   a line each beside the step without recompute; and in f32 at the check
+   size above, each policy's step against the step without recompute, both
+   on the card. Data parallelism: a one-rank NCCL group (a ``FileStore`` in
+   a temporary directory, destroyed after the phase), the f32
+   ``make_train_step_shard_map`` step at the check size against
+   ``make_train_step`` from the same weights and generator, the bf16
+   shard_map step at batch 4 with its exact launches, and the time of
+   ``all_reduce_tensors`` (mean) over a gradient of the flagship's size on
+   that one rank: the concatenation and the division around a collective
+   that crosses no link, not a collective's rate.
 5. The flagship at KITTI's test shape: the f32 forward of one 352x1216
    image (resized to 448x1536, where every Swin stage pads its token grid
    to whole windows) on the card against the CPU, fed the card's index
@@ -264,9 +278,25 @@ TRAIN_TOTAL_STEPS = 1000
 TRAIN_LAUNCHES = {"window_attention": 24, "window_attention_bwd": 24,
                   "ordered_attention": 6, "ordered_attention_bwd": 6,
                   "depthwise_conv2d": 6, "depthwise_conv2d_dxdw": 6, "depthwise_conv2d_dw": 0}
-# with use_checkpoint every checkpointed block runs its forward twice
-CHECKPOINT_LAUNCHES = dict(TRAIN_LAUNCHES, window_attention=48, ordered_attention=12,
-                           depthwise_conv2d=12)
+# launches of the recomputing step (use_checkpoint) under each
+# MDE_REMAT_POLICY (mde_tpu_torch/ops/remat.py), derived from the code: every
+# checkpointed block (24 Swin blocks, 3 ordered head repeats) runs its
+# forward again in the backward pass. The attentions run again under every
+# policy: o_proj's weight gradient needs K1's and K2's outputs, which no
+# policy keeps (K1 48, K2 12; the kept sa_out spares no work). A FF's conv
+# runs again unless its output (dw_conv) is kept: K3 12 under full and
+# save_sa, 6 under save_sa_conv and save_sa_conv_glu, where K3 dxdw takes
+# the recomputed GLU output (or the kept one) and the weight. No backward
+# kernel runs twice. The other recomputing paths below (KSA, the siblings,
+# the Luna half) recompute Swin blocks only, whose one tag is sa_out: their
+# launches are the same under every policy
+REMAT_POLICIES = ("full", "save_sa", "save_sa_conv", "save_sa_conv_glu")
+REMAT_LAUNCHES = dict.fromkeys(("full", "save_sa"), dict(
+    TRAIN_LAUNCHES, window_attention=48, ordered_attention=12, depthwise_conv2d=12))
+REMAT_LAUNCHES.update(dict.fromkeys(("save_sa_conv", "save_sa_conv_glu"), dict(
+    REMAT_LAUNCHES["full"], depthwise_conv2d=6)))
+# the default policy, JAX's (ops/remat.DEFAULT_POLICY)
+CHECKPOINT_LAUNCHES = REMAT_LAUNCHES["save_sa_conv"]
 # one serving forward with the six FFs fused: K4 takes K3's place
 FUSED_SERVE_LAUNCHES = {"window_attention": 24, "ordered_attention": 6, "glu_ff": 6}
 # oda2_ksa_reg as the JAX build makes it from dec_dim alone (ksa.py:326-341):
@@ -1226,7 +1256,7 @@ def luna_family_runs(dev, models: dict, seed: int) -> dict:
             free_garbage()
         tag = f"{name} bf16 train step batch {TRAIN_BATCH}{resized}"
         with timed(f"{name} train step"), loss_inputs() as seen:
-            runs[name]["train_step"], _ = train_run(tag, luna_family_opt(name), dev, training,
+            runs[name]["train_step"], _, _ = train_run(tag, luna_family_opt(name), dev, training,
                                                     warmup=2, timed=3, profile=True,
                                                     **sized(name, hw))
         free_garbage()
@@ -1309,13 +1339,17 @@ def train_batch(size: int, seed: int, hw=(352, 704), max_depth: float = 80.0) ->
 
 
 def one_train_step(dev, batch: dict, opt=TRAIN_OPT, freeze_bn: bool = False,
-                   max_depth: float = 80.0, prepare=None, **overrides):
+                   max_depth: float = 80.0, prepare=None, make_step=None, seed=None,
+                   **overrides):
     """One train step of a fresh model of ``opt`` (seed 0), ``prepare``d
-    (a callable given the model) where given: (logs, gradients, state
-    dict), all on the CPU."""
+    (a callable given the model) where given, by ``make_step`` (default
+    ``make_train_step``), its stochastic depth drawn from a generator of
+    ``seed`` where given: (logs, gradients, state dict), all on the CPU."""
     from mde_tpu_torch.models import build_model
     from mde_tpu_torch.train.state import TrainState
     from mde_tpu_torch.train.step import make_train_step
+    make_step = make_step or make_train_step
+    generator = None if seed is None else torch.Generator(device=dev).manual_seed(seed)
     model = build_model(opt["model"], 0.001, max_depth, device=dev, seed=0, **overrides)
     if prepare is not None:
         prepare(model)
@@ -1328,7 +1362,7 @@ def one_train_step(dev, batch: dict, opt=TRAIN_OPT, freeze_bn: bool = False,
         update(g)
 
     state.optimizer.update = keep
-    _, logs = make_train_step(opt, 0.001, max_depth, freeze_bn=freeze_bn)(state, batch)
+    _, logs = make_step(opt, 0.001, max_depth, freeze_bn=freeze_bn)(state, batch, generator)
     return ({k: float(v) for k, v in logs.items()}, grads,
             {k: v.detach().cpu() for k, v in model.state_dict().items()})
 
@@ -1357,10 +1391,11 @@ def train_f32_check(dev) -> None:
     compare_steps("flagship f32 train step batch 1 at 224x448", card, cpu)
 
 
-def compare_steps(tag, card, cpu) -> None:
-    """Hold one train step on the card against the same step on the CPU."""
+def compare_steps(tag, card, cpu, labels=("card", "CPU")) -> None:
+    """Hold one train step on the card against the same step on the CPU
+    (or, as ``labels`` name them, one step against another)."""
     (logs, grads, weights), (ref_logs, ref_grads, ref_weights) = card, cpu
-    log(f"{tag}: card {logs}, CPU {ref_logs}")
+    log(f"{tag}: {labels[0]} {logs}, {labels[1]} {ref_logs}")
     bad = [k for k in ("loss", "loss_si", "grad_norm", "param_norm")
            if abs(logs[k] - ref_logs[k]) > STEP_LOG_TOL * max(1.0, abs(ref_logs[k]))]
     floor = 1e-2 * max(g.abs().max().item() for g in ref_grads.values())
@@ -1384,24 +1419,26 @@ def compare_steps(tag, card, cpu) -> None:
         f"{STEP_PARAM_TOL:.2e})")
     if (bad or len(grads) != len(ref_grads) or grad_errs[-1][0] > STEP_GRAD_TOL
             or stat_errs[-1][0] > STEP_STATS_TOL or param_errs[-1][0] > STEP_PARAM_TOL):
-        raise RuntimeError(f"{tag} on the card disagrees with the CPU (logs {bad})")
+        raise RuntimeError(f"{tag}: the {labels[0]} step disagrees with the {labels[1]} one "
+                           f"(logs {bad})")
 
 
 def train_run(tag, opt, dev, expect, warmup, timed, profile, entries=None, hw=(352, 704),
-              max_depth: float = 80.0, **overrides) -> tuple:
-    """Full-width bf16 train steps at batch 4 of a fresh model of ``opt``:
-    one counted step (every launch count from 0, then exactly ``expect``,
-    every other kernel 0, and ``entries`` of them through second entries,
-    none by default; finite logs, moved parameters), more warm-up
-    steps up to ``warmup``, ``timed`` timed steps, peak memory and, with
-    ``profile``, one profiled step. Returns (the counted launches, img/s)."""
+              max_depth: float = 80.0, make_step=None, **overrides) -> tuple:
+    """Full-width bf16 train steps at batch 4 of a fresh model of ``opt``
+    by ``make_step`` (default ``make_train_step``): one counted step (every
+    launch count from 0, then exactly ``expect``, every other kernel 0, and
+    ``entries`` of them through second entries, none by default; finite
+    logs, moved parameters), more warm-up steps up to ``warmup``, ``timed``
+    timed steps, peak memory and, with ``profile``, one profiled step.
+    Returns (the counted launches, img/s, peak bytes)."""
     from mde_tpu_torch.models import build_model
     from mde_tpu_torch.ops import kernels
     from mde_tpu_torch.train.state import TrainState
     from mde_tpu_torch.train.step import make_train_step
     batch = {k: torch.from_numpy(v).to(dev)
              for k, v in train_batch(TRAIN_BATCH, 3, hw, max_depth).items()}
-    step = make_train_step(opt, 0.001, max_depth)
+    step = (make_step or make_train_step)(opt, 0.001, max_depth)
     generator = torch.Generator(device=dev).manual_seed(0)
     model = build_model(opt["model"], 0.001, max_depth, device=dev, seed=0,
                         dtype=torch.bfloat16, **overrides)
@@ -1442,19 +1479,116 @@ def train_run(tag, opt, dev, expect, warmup, timed, profile, entries=None, hw=(3
         profile_call(lambda: step(state, batch, generator))
     del state, model
     torch.cuda.empty_cache()
-    return run, rate
+    return run, rate, peak
 
 
 def train_bf16_run(dev) -> tuple:
-    """The flagship's bf16 train step at batch 4, then one recomputing run.
-    Returns the first run's counted launches and the recomputing run's
-    img/s."""
-    tag = f"flagship bf16 train step batch {TRAIN_BATCH} (resized to 448x896, use_checkpoint="
-    counts, _ = train_run(tag + "False)", TRAIN_OPT, dev, TRAIN_LAUNCHES, warmup=3, timed=5,
-                          profile=True, use_checkpoint=False)
-    _, rate = train_run(tag + "True)", TRAIN_OPT, dev, CHECKPOINT_LAUNCHES, warmup=2, timed=2,
-                        profile=False, use_checkpoint=True)
-    return counts, rate
+    """The flagship's bf16 train step at batch 4 without recompute.
+    Returns its counted launches, img/s and peak bytes."""
+    return train_run(f"flagship bf16 train step batch {TRAIN_BATCH} (resized to 448x896, "
+                     f"use_checkpoint=False)", TRAIN_OPT, dev, TRAIN_LAUNCHES, warmup=3,
+                     timed=5, profile=True, use_checkpoint=False)
+
+
+@contextlib.contextmanager
+def remat_policy(name: str):
+    """``MDE_REMAT_POLICY`` set to ``name`` for the block, as it was after."""
+    old = os.environ.get("MDE_REMAT_POLICY")
+    os.environ["MDE_REMAT_POLICY"] = name
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["MDE_REMAT_POLICY"]
+        else:
+            os.environ["MDE_REMAT_POLICY"] = old
+
+
+def remat_runs(dev, card: str, plain: tuple) -> dict:
+    """The flagship's recomputing bf16 train step at batch 4 under each
+    ``MDE_REMAT_POLICY``: exact launches (``REMAT_LAUNCHES``), img/s (median
+    of 5 after 2 warm-up steps), peak memory and one profiled step, beside
+    ``plain``, the step without recompute. Then in f32 at the check size of ``train_f32_check``
+    (batch 1 at 224x448, ``SHALLOW``, ``ONE_REPEAT``, stochastic depth 0.2
+    from one seeded generator), each policy's step on the card against the
+    step without recompute on the card. Returns {policy: (launches, img/s,
+    peak bytes)}."""
+    runs = {}
+    for policy in REMAT_POLICIES:
+        with remat_policy(policy):
+            runs[policy] = train_run(
+                f"flagship bf16 train step batch {TRAIN_BATCH} (resized to 448x896, "
+                f"use_checkpoint=True, MDE_REMAT_POLICY={policy})", TRAIN_OPT, dev,
+                REMAT_LAUNCHES[policy], warmup=2, timed=5, profile=True, use_checkpoint=True)
+        free_garbage()
+    for name, (_, rate, peak) in [("none", plain)] + list(runs.items()):
+        log(f"recompute {name}: flagship bf16 train step batch {TRAIN_BATCH} {rate:.2f} img/s, "
+            f"peak memory {peak / 2 ** 30:.2f} GiB ({card})")
+    batch = train_batch(1, 2, hw=(224, 448))
+    opt = dict(TRAIN_OPT, model=dict(FLAGSHIP, **ONE_REPEAT))
+    ref = one_train_step(dev, batch, opt, encoder_kwargs=SHALLOW, use_checkpoint=False, seed=7)
+    for policy in REMAT_POLICIES:
+        with remat_policy(policy):
+            step = one_train_step(dev, batch, opt, encoder_kwargs=SHALLOW, use_checkpoint=True,
+                                  seed=7)
+        compare_steps(f"flagship f32 train step batch 1 at 224x448, MDE_REMAT_POLICY={policy} "
+                      f"against no recompute (both on the card)", step, ref,
+                      ("recomputing", "plain"))
+    return runs
+
+
+def data_parallel_run(dev, card: str) -> dict:
+    """A one-rank NCCL data group (``parallel.mesh.make_mesh`` with a
+    ``FileStore`` in a temporary directory), destroyed before the script
+    goes on: the flagship's f32 ``make_train_step_shard_map`` step at the
+    check size (batch 1 at 224x448, ``SHALLOW``, ``ONE_REPEAT``, stochastic
+    depth 0.2) against ``make_train_step`` from the same weights and
+    generator; then the bf16 shard_map step at batch 4, recomputing under
+    the default policy, with its launches exactly the plain step's
+    (``CHECKPOINT_LAUNCHES``), and the time of ``all_reduce_tensors``
+    (mean) over a gradient the flagship's size (every parameter's, f32) on
+    one rank: the concatenation and division it adds, with no link crossed.
+    Returns the counted launches."""
+    import torch.distributed as tdist
+    from mde_tpu_torch.core import dist
+    from mde_tpu_torch.models import build_model
+    from mde_tpu_torch.parallel.mesh import make_mesh
+    from mde_tpu_torch.train.step import make_train_step_shard_map
+    with tempfile.TemporaryDirectory() as root:
+        mesh = make_mesh(dev, rank=0, world_size=1,
+                         store=tdist.FileStore(os.path.join(root, "store"), 1))
+        try:
+            log(f"data parallel: a {tdist.get_backend()} group of {mesh.size} rank on {dev}")
+
+            def shard_map(opt, lo, hi, **kw):
+                return make_train_step_shard_map(opt, lo, hi, mesh, **kw)
+
+            batch = train_batch(1, 2, hw=(224, 448))
+            opt = dict(TRAIN_OPT, model=dict(FLAGSHIP, **ONE_REPEAT))
+            ref = one_train_step(dev, batch, opt, encoder_kwargs=SHALLOW, seed=9)
+            step = one_train_step(dev, batch, opt, encoder_kwargs=SHALLOW, seed=9,
+                                  make_step=shard_map)
+            compare_steps("flagship f32 train step batch 1 at 224x448: make_train_step_shard_map "
+                          "on one NCCL rank against make_train_step", step, ref,
+                          ("shard_map", "make_train_step"))
+            counts, _, _ = train_run(
+                f"flagship bf16 make_train_step_shard_map batch {TRAIN_BATCH} on one NCCL rank "
+                f"(resized to 448x896, use_checkpoint=True)", TRAIN_OPT, dev,
+                CHECKPOINT_LAUNCHES, warmup=1, timed=1, profile=False, make_step=shard_map,
+                use_checkpoint=True)
+            model = build_model(FLAGSHIP, 0.001, 80.0, device=dev, seed=0)
+            grads = [torch.ones_like(p) for p in model.parameters()]
+            del model
+            size = sum(g.numel() for g in grads)
+            ms = time_ms(lambda: dist.all_reduce_tensors(grads, "mean"), iters=10)
+            log(f"data parallel: all_reduce_tensors (mean) of {size} f32 values in "
+                f"{len(grads)} tensors on one rank: {ms:.3f} ms of concatenation and "
+                f"division, no link crossed, not a collective's rate ({card})")
+            del grads
+        finally:
+            tdist.destroy_process_group()
+        free_garbage()
+    return counts
 
 
 def ksa_f32_check(dev) -> None:
@@ -1876,7 +2010,7 @@ def sibling_runs(dev) -> dict:
         with timed(f"{name} serving"):
             runs[name] = sibling_serve_run(dev, name, 30 + i)
         with timed(f"{name} train step"):
-            runs[name]["train_step"], _ = train_run(
+            runs[name]["train_step"], _, _ = train_run(
                 f"{name} bf16 train step batch {TRAIN_BATCH} (resized to 448x896, "
                 f"use_checkpoint=True)", dict(TRAIN_OPT, model=SIBLINGS[name]), dev,
                 SIBLING_TRAIN_LAUNCHES[name], warmup=2, timed=3, profile=True)
@@ -2012,7 +2146,7 @@ def luna_runs(dev) -> dict:
             del model, images
             free_garbage()
         with timed(f"{name} train step"):
-            runs[name]["train_step"], _ = train_run(
+            runs[name]["train_step"], _, _ = train_run(
                 f"{name} bf16 train step batch {TRAIN_BATCH} (resized to 448x896, "
                 f"use_checkpoint=True)", luna_opt(name), dev, training, warmup=2, timed=3,
                 profile=True)
@@ -2797,7 +2931,13 @@ def main() -> int:
             train_f32_check(dev)
         torch.cuda.empty_cache()
         with timed("flagship train steps"):
-            counts, bare_rate = train_bf16_run(dev)
+            plain = train_bf16_run(dev)
+            counts = plain[0]
+        with timed("flagship recompute policies"):
+            remat = remat_runs(dev, card, plain)
+            bare_rate = remat["save_sa_conv"][1]
+        with timed("flagship data parallel"):
+            data_parallel_run(dev, card)
         with timed("flagship f32 at 352x1216"):
             eval_shape_f32_check(dev)
         torch.cuda.empty_cache()
@@ -2813,7 +2953,7 @@ def main() -> int:
             ksa_train_f32_check(dev, 4, freeze_bn=False)
         torch.cuda.empty_cache()
         with timed("KSA train step"):
-            ksa_counts, _ = train_run(
+            ksa_counts, _, _ = train_run(
                 f"oda2_ksa_reg bf16 train step batch {TRAIN_BATCH} (resized to 448x896, "
                 f"use_checkpoint=True)", KSA_TRAIN_OPT, dev, KSA_TRAIN_LAUNCHES, warmup=2,
                 timed=5, profile=True)
@@ -2828,7 +2968,7 @@ def main() -> int:
             newcrfs_train_f32_check(dev)
         free_garbage()
         with timed("NewCRFs train step"):
-            newcrfs_counts, newcrfs_rate = train_run(
+            newcrfs_counts, newcrfs_rate, _ = train_run(
                 f"NewCRFs large07 bf16 train step batch {TRAIN_BATCH} (352x704, "
                 f"use_checkpoint=False)", NEWCRFS_TRAIN_OPT, dev, NEWCRFS_TRAIN_LAUNCHES,
                 warmup=2, timed=5, profile=True, entries=NEWCRFS_TRAIN_ENTRIES)

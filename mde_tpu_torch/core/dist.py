@@ -1,16 +1,107 @@
-"""Process helpers of the driver (``mde_tpu/core/dist.py:86-100``): which
-process logs and checkpoints. Rank 0 of ``torch.distributed`` when a process
-group is initialised, else the one process there is."""
+"""Collectives and process helpers over ``torch.distributed``
+(``mde_tpu/core/dist.py``).
+
+JAX's collectives act inside a mapped computation that binds the data
+axis and are the identity outside one. Here the data axis is a process
+group, one process a card (``parallel/mesh.py``): each collective acts
+across the processes of ``group`` (the default group where it is None)
+and is the identity where no process group is live, so that every code
+path runs in one process. A collective leaves its input as it is, as
+JAX's do.
+"""
 
 from __future__ import annotations
 
+from typing import Dict, List, Optional, Sequence
+
+import torch
 import torch.distributed as tdist
+
+_OPS = {"sum": "SUM", "mean": "SUM", "max": "MAX", "min": "MIN", "product": "PRODUCT"}
+
+
+def live() -> bool:
+    """Whether a process group is live in this process."""
+    return tdist.is_available() and tdist.is_initialized()
+
+
+def process_index() -> int:
+    """This process's rank, 0 where no process group is live."""
+    return tdist.get_rank() if live() else 0
+
+
+def process_count(group=None) -> int:
+    """The processes of ``group``, 1 where no process group is live."""
+    return tdist.get_world_size(group) if live() else 1
+
+
+def _reduce_op(op: str):
+    if op not in _OPS:
+        raise ValueError(f"Unsupported reduce op {op}.")
+    return getattr(tdist.ReduceOp, _OPS[op])
+
+
+def all_reduce_tensors(tensors: Sequence[torch.Tensor], op: str = "sum",
+                       group=None) -> List[torch.Tensor]:
+    """``all_reduce_tensor`` of each tensor, in one collective for the
+    tensors of each dtype (their values copied into one flat buffer)."""
+    reduce_op = _reduce_op(op)
+    if not live():
+        return list(tensors)
+    out: List[Optional[torch.Tensor]] = [None] * len(tensors)
+    n = process_count(group)
+    for dtype in dict.fromkeys(t.dtype for t in tensors):
+        idx = [i for i, t in enumerate(tensors) if t.dtype == dtype]
+        flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+        tdist.all_reduce(flat, op=reduce_op, group=group)
+        if op == "mean":
+            flat = flat / n
+        for i, part in zip(idx, flat.split([tensors[i].numel() for i in idx])):
+            out[i] = part.view_as(tensors[i])
+    return out
+
+
+def all_reduce_tensor(x: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
+    """Reduction across the group's processes: sum, mean, max, min or
+    product (reference ``all_reduce_tensor``, ``dist_utils.py:49-64``)."""
+    return all_reduce_tensors([x], op, group)[0]
+
+
+def _scalar_device(group=None) -> torch.device:
+    """Where a collective of the group takes a host value: NCCL reduces
+    tensors on the card, gloo on the host."""
+    if live() and tdist.get_backend(group) == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def all_reduce_scalar(value, op: str = "sum", group=None) -> torch.Tensor:
+    """A Python or 0-d value reduced across the group (reference
+    ``all_reduce_scalar``, ``dist_utils.py:15-46``), as a 0-d tensor."""
+    return all_reduce_tensor(torch.as_tensor(value, device=_scalar_device(group)), op, group)
+
+
+def all_reduce_dict(d: Dict[str, torch.Tensor], op: str = "mean",
+                    group=None) -> Dict[str, torch.Tensor]:
+    """Every value of a (metric) dict reduced (reference
+    ``dist_utils.py:67-76``), in one collective a dtype."""
+    return dict(zip(d, all_reduce_tensors(list(d.values()), op, group)))
+
+
+def all_gather_tensor(x: torch.Tensor, axis: int = 0, group=None) -> torch.Tensor:
+    """Every process's ``x`` concatenated along ``axis`` in rank order
+    (reference ``all_gather_tensor``, ``dist_utils.py:79-89``)."""
+    if not live():
+        return x
+    parts = [torch.empty_like(x) for _ in range(process_count(group))]
+    tdist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=axis)
 
 
 def is_primary() -> bool:
     """Rank-0 guard for logging and checkpointing (the reference's
     ``local_rank == 0``)."""
-    return not (tdist.is_available() and tdist.is_initialized()) or tdist.get_rank() == 0
+    return process_index() == 0
 
 
 def dprint(*args, force: bool = False, **kwargs) -> None:

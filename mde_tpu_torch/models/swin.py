@@ -30,7 +30,7 @@ from ..ops.attention import WindowAttention
 from ..ops.drop import Dropout, DropPath
 from ..ops.mlp import SwinMLP
 from ..ops.pad import pad2d, pad_to_multiple
-from ..ops.remat import checkpoint
+from ..ops.remat import checkpoint, tag_sa
 from ..ops.tnn import LayerNorm, Linear, conv2d_nhwc
 from ..ops.window import (cyclic_shift, cyclic_unshift, shifted_window_attn_mask,
                           window_partition, window_reverse)
@@ -136,7 +136,8 @@ class SwinBlock(nn.Module):
         mask = shifted_window_attn_mask(hp, wp, r, s, x.device) if s > 0 else None
         y = window_partition(cyclic_shift(y, s), r)
         y = cyclic_unshift(window_reverse(self.attn(y, mask, generator), r, hp, wp), s)
-        x = x + self.drop_path(y[:, :h, :w], keep_attn)
+        # kept by a recomputing block under the save_sa policies (ops/remat.py)
+        x = tag_sa(x + self.drop_path(y[:, :h, :w], keep_attn))
         return x + self.drop_path(self.mlp(self.norm2(x), generator), keep_mlp)
 
 
@@ -145,7 +146,8 @@ class SwinStage(nn.Module):
     ``built_window`` (default ``window_size``) sizes the blocks' rel-pos
     tables, where ``shift_collapse`` shrinks the window at the built input
     size. Returns (stage output, input of the next stage). ``use_checkpoint``
-    recomputes each block in the backward pass (``ops/remat.py``); its
+    recomputes each block in the backward pass under the recompute policy
+    (``ops/remat.py``); its
     drop-path masks are drawn before the block, once, and its dropout masks
     again from the same generator state."""
 

@@ -10,6 +10,7 @@ from torch import nn
 from .depthwise import DepthwiseConv2d
 from .drop import Dropout
 from .kernels.glu_ff import glu_ff
+from .remat import tag_conv, tag_glu
 from .tnn import BatchNorm, LayerNorm, Linear, bn_use_running_average, gelu
 
 
@@ -58,7 +59,10 @@ class PreNormDWConvFF(nn.Module):
     or inside an active ``bn_freeze_scope`` (JAX's ``fused_ok``, :176-178).
     With batch statistics the unfused path runs. In bf16 the two paths differ
     by about a bf16 ulp: the fused GELU is exact erf, the unfused one
-    ``tnn.gelu``'s tanh form."""
+    ``tnn.gelu``'s tanh form. The unfused path tags the gate's output and
+    the conv for the recompute policies (``ops/remat.py``), as JAX's does
+    (:195-196); the fused one, which runs only without batch statistics,
+    takes no tag."""
 
     FF_IMPLS = ("auto", "fused")
 
@@ -87,5 +91,6 @@ class PreNormDWConvFF(nn.Module):
             y = glu_ff(ab, self.conv2.kernel(ab.dtype), s, t)
         else:
             a, b = ab.chunk(2, dim=-1)
-            y = gelu(self.bn2(self.conv2((a * torch.sigmoid(b)).contiguous())))
+            g = tag_glu((a * torch.sigmoid(b)).contiguous())
+            y = gelu(self.bn2(tag_conv(self.conv2, g)))
         return self.drop(self.lin3(y), generator) + x

@@ -11,6 +11,7 @@ from torch import nn
 from .drop import Dropout
 from .init import depth_embedding_init
 from .kernels.ordered_attention import ordered_attention
+from .remat import tag_sa
 from .tnn import LayerNorm, Linear
 from .window import cyclic_shift, cyclic_unshift, window_partition, window_reverse
 
@@ -75,7 +76,8 @@ class PreNormOrderedSwinSA(nn.Module):
             out = ordered_attention(q, k, v, idx, self.depth_embedding, self.num_heads, scale,
                                     self.num_emb)
         out = window_reverse(self.drop(self.o_proj(out), generator), r, h, w)
-        return cyclic_unshift(out, s) + identity
+        # kept by a recomputing block under the save_sa policies (ops/remat.py)
+        return tag_sa(cyclic_unshift(out, s) + identity)
 
     def _dropout_attention(self, q, k, v, idx, scale, generator) -> torch.Tensor:
         """JAX's einsum path over (BW, n, C) windows: the logits q . k times

@@ -11,6 +11,14 @@
 Everything runs on the card unless the caller asks for the CPU. The fit
 loop keeps each step's logs on the card and reads them back only every
 ``print_freq`` steps, so it adds no per-step wait for the card.
+
+Data parallelism: under ``torchrun`` (or in processes that joined a data
+group, ``parallel/mesh.py``) every rank builds the same model and loaders,
+takes its rows of each batch and runs ``train.spmd``'s step: ``shard_map``
+(``make_train_step_shard_map``: gradients, BatchNorm statistics and logs
+averaged over the ranks). Rank 0 alone prints, logs and checkpoints.
+
+    torchrun --nproc_per_node 4 -m mde_tpu_torch.train.driver --opt x.json --bf16
 """
 
 from __future__ import annotations
@@ -24,16 +32,19 @@ import torch
 from ..core import checkpoint as ckpt
 from ..core.averages import RunningAverage, Timer, time_log
 from ..core.config import Config, parse
-from ..core.dist import dprint
+from ..core.dist import dprint, is_primary
 from ..data.dataset import DepthDataset
 from ..data.loader import DataLoader
 from ..data.png import write_png
 from ..data.splits import dataset_spec, parse_split_line
 from ..models import build_model, resolve_device
+from ..parallel.mesh import make_mesh, replicate, shard_batch
 from ..serve import Predictor
 from ..utils.wandb_utils import set_wandb
 from .state import TrainState
-from .step import make_eval_step, make_train_step
+from .step import make_eval_step, make_train_step, make_train_step_shard_map
+
+SPMD_MODES = ("gspmd", "shard_map")
 
 
 def build_all(opt: Config, dtype=torch.float32, model_overrides=None,
@@ -89,18 +100,34 @@ def build_all(opt: Config, dtype=torch.float32, model_overrides=None,
 class Trainer:
     """The driver's state: loaders, model, train state, best value, step.
     Builds on the card unless ``device`` asks for another (raises where
-    CUDA is missing); the model's weights are drawn from ``seed``."""
+    CUDA is missing); the model's weights are drawn from ``seed``. Joins
+    the data group (``parallel.mesh.make_mesh``): across several ranks
+    ``train.spmd`` must be ``shard_map`` and each optimizer step's batch
+    must split over the ranks."""
 
     def __init__(self, opt: Config, dtype=torch.float32, model_overrides=None,
                  device: Optional[Union[str, torch.device]] = None, seed: int = 0):
         self.opt = opt
-        self.device = resolve_device(device)
+        self.mesh = make_mesh(resolve_device(device))
+        self.device = self.mesh.device
+        t = opt["train"]
+        self.spmd = t.get("spmd", "gspmd")
+        if self.spmd not in SPMD_MODES:
+            raise ValueError(f"train.spmd {self.spmd!r}: expected one of {SPMD_MODES}")
+        if self.mesh.size > 1 and self.spmd != "shard_map":
+            raise NotImplementedError(
+                f"train.spmd {self.spmd!r} across {self.mesh.size} ranks needs global-batch "
+                f"BatchNorm statistics and dropout draws (JAX's GSPMD step), which the port "
+                f"has not yet (ROADMAP.md, Queue 1a); train.spmd 'shard_map' trains across "
+                f"ranks")
         (self.train_loader, self.test_loader, self.model, self.min_depth, self.max_depth,
          self.total_steps) = build_all(opt, dtype, model_overrides, self.device, seed)
-        self.num_accum = int(opt["train"].get("num_accum", 1))
+        self.num_accum = int(t.get("num_accum", 1))
+        rows = self.train_loader.batch_size * self.num_accum
+        if rows % self.mesh.size:
+            raise ValueError(f"a step's {rows} images do not split over {self.mesh.size} ranks")
         self.run, self.run_dir = set_wandb(opt)
 
-        t = opt["train"]
         self.print_freq = int(t.get("print_freq", 25))
         self.valid_freq = int(t.get("valid_freq", 250))
         self.epochs = int(t.get("epoch", 24))
@@ -122,9 +149,14 @@ class Trainer:
 
     def _get_step(self, freeze_bn: bool):
         if freeze_bn not in self._steps:
-            self._steps[freeze_bn] = make_train_step(
-                self.opt, self.min_depth, self.max_depth, num_accum=self.num_accum,
-                freeze_bn=freeze_bn, freeze_encoder_bn=self.freeze_encoder_bn)
+            kw = dict(num_accum=self.num_accum, freeze_bn=freeze_bn,
+                      freeze_encoder_bn=self.freeze_encoder_bn)
+            if self.spmd == "shard_map":
+                self._steps[freeze_bn] = make_train_step_shard_map(
+                    self.opt, self.min_depth, self.max_depth, self.mesh, **kw)
+            else:
+                self._steps[freeze_bn] = make_train_step(
+                    self.opt, self.min_depth, self.max_depth, **kw)
         return self._steps[freeze_bn]
 
     def init_state(self) -> TrainState:
@@ -143,6 +175,7 @@ class Trainer:
                 self.best_value = meta.get("best_value") or None
                 self.global_step = int(meta.get("step", 0))
                 dprint(f"Resumed from {path} at step {self.global_step}")
+        replicate(self.mesh, self.state)
         return self.state
 
     def validate(self) -> dict:
@@ -170,8 +203,13 @@ class Trainer:
         KITTI and ONLINE, 1000 NYU), mirroring each sample's relative path;
         with ``visualize`` also a coloured ``*_vis.png``. The depth is
         ``serve.Predictor``'s: the last map, resized back to the image with
-        align_corners, clipped at 0. Returns the number of files written."""
+        align_corners, clipped at 0. Returns the number of files written.
+        Every rank holds the same state: rank 0 alone predicts and writes,
+        and the other ranks write nothing and return 0."""
         from ..utils.visualize import colorize
+
+        if not is_primary():
+            return 0
 
         ds_opt = self.opt["dataset"]
         data_type = ds_opt["data_type"]
@@ -232,7 +270,7 @@ class Trainer:
                 else:
                     batch = {k: torch.cat([b[k] for b in accum_buf]) for k in ("image", "depth")}
                 accum_buf = []
-                self.state, logs = step_fn(self.state, batch, generator)
+                self.state, logs = step_fn(self.state, shard_batch(self.mesh, batch), generator)
                 self.global_step += 1
                 log_buf.append(logs)
 
@@ -248,23 +286,28 @@ class Trainer:
                            f"loss {loss_avg.get_value():.4f} "
                            f"grad_norm {grad_norm:.4f} "
                            f"({timer.elapsed_ms() / self.print_freq:.0f} ms/step)")
-                    self.run.log({"train/loss": loss_avg.get_value(),
-                                  "train/grad_norm": grad_norm,
-                                  "step": self.global_step})
+                    if is_primary():
+                        self.run.log({"train/loss": loss_avg.get_value(),
+                                      "train/grad_norm": grad_norm,
+                                      "step": self.global_step})
                     loss_avg.reset()
                     timer.reset()
 
                 if self.global_step % self.valid_freq == 0:
                     metrics = self.validate()
                     dprint(f"[valid @ {self.global_step}] {metrics}")
-                    self.run.log({f"valid/{k}": v for k, v in metrics.items()})
                     value = metrics.get("abs_rel")
-                    if value is not None and (self.best_value is None
-                                              or value < self.best_value):
+                    best = value is not None and (self.best_value is None
+                                                  or value < self.best_value)
+                    if best:
                         self.best_value = value
-                        ckpt.save_checkpoint(ckpt_dir, self.state, self.global_step,
-                                             best_value=value)
-                        dprint(f"saved best checkpoint (abs_rel={value:.4f})")
+                    # every rank holds the same state; rank 0 logs and saves it
+                    if is_primary():
+                        self.run.log({f"valid/{k}": v for k, v in metrics.items()})
+                        if best:
+                            ckpt.save_checkpoint(ckpt_dir, self.state, self.global_step,
+                                                 best_value=value)
+                            dprint(f"saved best checkpoint (abs_rel={value:.4f})")
 
                 if max_steps is not None and self.global_step >= max_steps:
                     return metrics or self.validate()
@@ -293,7 +336,8 @@ def main(argv=None):
     if args.predict:
         return trainer.predict(args.predict)
     if args.eval_only:
-        metrics = trainer.validate()
+        # every rank holds the same state: rank 0 alone evaluates
+        metrics = trainer.validate() if is_primary() else {}
         dprint(f"[eval] {metrics}")
         return metrics
     return trainer.fit(max_steps=args.max_steps)

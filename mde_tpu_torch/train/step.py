@@ -4,20 +4,25 @@ One train step: forward in training mode, loss, backward, gradient
 accumulation over ``num_accum`` microbatches, the global clip and the AdamW
 update, on the device the model lies on. BatchNorm statistics carry from
 one microbatch to the next, and the gradients are averaged, as the JAX
-step's scan does (``:155-192``).
+step's scan does (``:155-192``). The data-parallel step
+(``make_train_step_shard_map``) runs the same on each rank's rows of the
+batch and averages the gradients, the BatchNorm statistics and the logs
+over the ranks before the update.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
+from ..core import dist
 from ..core import metrics as M
 from ..ops.resize import resize_bilinear
-from ..ops.tnn import bn_freeze_scope, encoder_only
+from ..ops.tnn import BatchNorm, bn_freeze_scope, encoder_only
 from .loss import DepthLoss
 from .optim import global_norm
 from .state import TrainState
@@ -92,6 +97,14 @@ def make_train_step(opt, min_depth: float, max_depth: float,
     ``freeze_bn`` normalises every BatchNorm with its running statistics and
     leaves them unchanged (the reference's ``m.eval()`` freeze);
     ``freeze_encoder_bn`` does so for the encoder's only."""
+    return _make_step(opt, min_depth, max_depth, adapter, num_accum, freeze_bn,
+                      freeze_encoder_bn)
+
+
+def _make_step(opt, min_depth: float, max_depth: float, adapter: Optional[ModelAdapter],
+               num_accum: int, freeze_bn: bool, freeze_encoder_bn: bool, mesh=None):
+    """The train step; given the data group ``mesh``, the step of one of
+    its ranks (``make_train_step_shard_map``)."""
     if adapter is None:
         adapter = make_adapter(opt.get("model", {}).get("name", ""))
     depth_loss = DepthLoss(opt["loss"], min_depth, max_depth)
@@ -102,6 +115,8 @@ def make_train_step(opt, min_depth: float, max_depth: float,
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         model = state.model
         device = _model_device(model)
+        if mesh is not None:
+            generator = _rank_generator(generator, mesh.rank, state.step)
         images = torch.as_tensor(batch["image"], dtype=torch.float32, device=device)
         depths = torch.as_tensor(batch["depth"], dtype=torch.float32, device=device)
         b = images.shape[0]
@@ -129,6 +144,8 @@ def make_train_step(opt, min_depth: float, max_depth: float,
         if num_accum > 1:
             grads = {n: g / num_accum for n, g in grads.items()}
         logs = {key: value / num_accum for key, value in sums.items()}
+        if mesh is not None:
+            grads, logs = _rank_mean(model, grads, logs)
         logs["grad_norm"] = global_norm(list(grads.values()))
         state.optimizer.update(grads)
         logs["param_norm"] = global_norm(list(params.values()))
@@ -136,6 +153,59 @@ def make_train_step(opt, min_depth: float, max_depth: float,
         return state, logs
 
     return step
+
+
+def _rank_generator(generator: Optional[torch.Generator], rank: int,
+                    step: int) -> Optional[torch.Generator]:
+    """The generator rank ``rank`` draws from in step ``step``: JAX folds
+    the shard index into each step's key (``fold_in``). Rank 0 draws from
+    the caller's generator, so that one rank steps as ``make_train_step``
+    does; rank r > 0 from a generator seeded by the caller's seed, r and
+    the step."""
+    if generator is None or rank == 0:
+        return generator
+    seed = np.random.SeedSequence([generator.initial_seed(), rank, step])
+    return torch.Generator(device=generator.device).manual_seed(
+        int(seed.generate_state(1, np.uint64)[0] >> np.uint64(1)))
+
+
+def _rank_mean(model: nn.Module, grads: Dict[str, torch.Tensor],
+               logs: Dict[str, torch.Tensor]
+               ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """The mean over the ranks of the gradients, of every BatchNorm's
+    running statistics (written back in place) and of the logs: JAX's
+    ``pmean``s (``mde_tpu/train/step.py:276-282``), each set in one
+    collective a dtype."""
+    grads = dict(zip(grads, dist.all_reduce_tensors(list(grads.values()), "mean")))
+    stats: List[torch.Tensor] = [t for m in model.modules() if isinstance(m, BatchNorm)
+                                 for t in (m.running_mean, m.running_var)]
+    with torch.no_grad():
+        for t, mean in zip(stats, dist.all_reduce_tensors(stats, "mean")):
+            t.copy_(mean)
+    return grads, dist.all_reduce_dict(logs, "mean")
+
+
+def make_train_step_shard_map(opt, min_depth: float, max_depth: float, mesh,
+                              adapter: Optional[ModelAdapter] = None, num_accum: int = 1,
+                              freeze_bn: bool = False, freeze_encoder_bn: bool = False):
+    """The data-parallel train step (``mde_tpu/train/step.py:197-300``):
+    ``step(state, batch, generator=None) -> (state, logs)`` on every rank
+    of ``mesh`` (``parallel.mesh.make_mesh``), ``batch`` that rank's rows
+    (``parallel.mesh.shard_batch``) and ``state`` the same on every rank
+    (``parallel.mesh.replicate``).
+
+    Each rank runs its rows as ``make_train_step`` runs a batch, in
+    ``num_accum`` microbatches, drawing its dropout and stochastic depth
+    from a generator of its own (``_rank_generator``); then the gradients,
+    the BatchNorm running statistics and the logs are averaged over the
+    ranks and every rank takes the same clipped AdamW update. BatchNorm
+    normalises with each rank's own batch statistics, as torch's DDP
+    without SyncBN and JAX's ``shard_map`` step do. ``grad_norm`` is the
+    averaged gradient's norm, ``param_norm`` the new parameters'; the
+    freezes act as in ``make_train_step``. With one rank it is
+    ``make_train_step``."""
+    return _make_step(opt, min_depth, max_depth, adapter, num_accum, freeze_bn,
+                      freeze_encoder_bn, mesh)
 
 
 def make_eval_step(model: nn.Module, opt, min_depth_eval: float, max_depth_eval: float,

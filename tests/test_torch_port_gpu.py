@@ -1114,17 +1114,24 @@ DROPOUT_STEPS = {
                                  num_heads=4, num_repeats=2, num_emb=16, window_size=4),
                             dict(window_attention=6, window_attention_bwd=6,
                                  ordered_attention=4, ordered_attention_bwd=4),
-                            dict(window_attention=6, window_attention_bwd=6))}
+                            dict(window_attention=6, window_attention_bwd=6)),
+    # the flagship: its encoder draws no dropout (JAX's build fixes it at 0),
+    # its ordered SAs leave K2 at attention dropout; the FFs keep K3
+    "oda2_red_order_swin2": (TINY, dict(window_attention=6, window_attention_bwd=6,
+                                        ordered_attention=4, ordered_attention_bwd=4,
+                                        depthwise_conv2d=4, depthwise_conv2d_dxdw=4),
+                             dict(window_attention=6, window_attention_bwd=6,
+                                  depthwise_conv2d=4, depthwise_conv2d_dxdw=4))}
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("name", list(DROPOUT_STEPS))
 def test_attention_dropout_step_leaves_the_kernels_as_jax_does(cuda, name, rate):
-    """A train step of the tiny KSA (K5 and the decoder's K1) and gen-1
-    (K2) models at ``attn_drop_prob`` 0.1 takes JAX's einsum path: those
-    kernels launch no time in it; at rate 0 exactly as usual. The logs are
-    finite."""
+    """A train step of the tiny KSA (K5 and the decoder's K1), gen-1 (K2)
+    and flagship (K2) models at ``attn_drop_prob`` 0.1 takes JAX's einsum
+    path: those kernels launch no time in it; at rate 0 exactly as usual.
+    The logs are finite."""
     cfg, usual, dropping = DROPOUT_STEPS[name]
     cfg = dict(cfg, attn_drop_prob=rate)
     opt = {"model": cfg, "loss": {"alpha": 10.0, "beta": 0.15, "per_image": True},
@@ -1142,6 +1149,37 @@ def test_attention_dropout_step_leaves_the_kernels_as_jax_does(cuda, name, rate)
     torch.cuda.synchronize()
     assert kernels.launch_counts == dict(NO_LAUNCHES, **(dropping if rate else usual))
     assert all(np.isfinite(float(v)) for v in logs.values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", ["full", "save_sa", "save_sa_conv", "save_sa_conv_glu"])
+def test_recompute_replays_the_global_generators_masks(cuda, policy, monkeypatch):
+    """The tiny flagship's forward and backward at batch 2, stochastic
+    depth 0.2, dropout 0.2 and attention dropout 0.1 drawn from the global
+    CUDA generator (no ``generator``), recomputing under ``policy``: the
+    gradients of the same step without recompute from the same seed within
+    1e-4 of each tensor's max |g| (floor 1% of the largest), and the
+    generator left where that step leaves it."""
+    monkeypatch.setenv("MDE_REMAT_POLICY", policy)
+    x = torch.from_numpy(np.random.RandomState(17).rand(2, 64, 96, 3).astype(np.float32))
+    cfg = dict(TINY, drop_prob=0.2, attn_drop_prob=0.1)
+
+    def step(use_checkpoint):
+        model = build_model(cfg, 0.001, 80.0, device=cuda, seed=18, path_drop_prob=0.2,
+                            use_checkpoint=use_checkpoint, **TINY_KW).train()
+        torch.cuda.manual_seed(19)
+        _, outs = model(x.to(cuda))
+        sum(o.mean() for o in outs).backward()
+        grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
+        return grads, torch.cuda.get_rng_state(cuda)
+
+    ref, ref_state = step(False)
+    grads, state = step(True)
+    assert torch.equal(state, ref_state)
+    floor = 1e-2 * max(g.abs().max().item() for g in ref.values())
+    worst = max(((grads[n] - g).abs().max().item() / max(g.abs().max().item(), floor), n)
+                for n, g in ref.items())
+    assert worst[0] <= 1e-4, worst
 
 
 # the tiny AdaBins and Depthformer v1-v8 of tests/test_torch_port_adabins.py,

@@ -37,6 +37,7 @@ import pytest
 import torch
 
 from mde_tpu.core.family_converters import convert_oda2_conv_decoder, convert_oda2_red_decoder
+from mde_tpu.models.oda2 import red_order_swin2 as jax_flagship
 from mde_tpu.models.oda2.conv import ODA2ConvModel as JaxConvModel
 from mde_tpu.models.oda2.red_reg import ODA2RedRegModel as JaxRedRegModel
 from mde_tpu.models.newcrfs import layers as jax_crf
@@ -51,6 +52,7 @@ from mde_tpu_torch.core.config import load_config
 from mde_tpu_torch.models import build_model
 from mde_tpu_torch.models.newcrfs import layers as crf
 from mde_tpu_torch.models.oda2 import ksa
+from mde_tpu_torch.models.oda2 import red_order_swin2 as port_flagship
 from mde_tpu_torch.ops import attention, drop, mlp, ordered_attention, reduction
 from mde_tpu_torch.train import driver
 from mde_tpu_torch.train.step import default_adapter
@@ -298,6 +300,37 @@ def test_sa_dropout_matches_flax_with_shared_masks(kind, monkeypatch):
     assert _rel(out, ref) <= TOL
 
 
+def test_flagship_dropout_matches_flax_with_shared_masks(monkeypatch):
+    """The flagship's ordered block in training at both rates, as the
+    flagship's ``build`` now makes every one of its blocks: flax draws the
+    six masks (each SA's dropped logits and projection, each FF's output),
+    the port's dropout takes them in the same order, and the block's
+    BatchNorms take batch statistics."""
+    x = _input(11, 2, 8, 12, 32)
+    idx = np.random.RandomState(12).randint(0, 16, (2, 8, 12)).astype(np.int32)
+    jm = jax_flagship.OrderedSwinBlock(num_heads=4, num_emb=16, window_size=4, **RATES)
+    variables = _module_vars(jm, 13, x, idx)
+    masks, interceptor = _intercept_dropout_masks()
+    with flax_nn.intercept_methods(interceptor):
+        (ref, _), _ = jm.apply(variables, jnp.asarray(x), jnp.asarray(idx), train=True,
+                               mutable=["batch_stats"], rngs={"dropout": jax.random.PRNGKey(14)})
+    assert len(masks) == 6
+    model = build_model(dict(name="oda2_red_order_swin2", encoder_type="custom", dec_dim=32,
+                             num_heads=4, num_repeats=2, num_emb=16, window_size=4, **RATES),
+                        0.001, MAX_DEPTH, device="cpu", **MODEL_KW)
+    blocks = list(model.decoder.reducer.attn_layers)
+    assert all(b.sa1.attn_drop.rate == b.sa2.attn_drop.rate == 0.1 for b in blocks)
+    assert all(m.drop.rate == 0.2 for b in blocks for m in (b.sa1, b.ff1, b.sa2, b.ff2))
+    mod = blocks[0].train()
+    mod.load_state_dict(_placed(("decoder", "reducer", "attn0"),
+                                "decoder.reducer.attn_layers.0.")(variables))
+    handed = iter(masks)
+    monkeypatch.setattr(drop, "_keep_mask", lambda shape, *a: next(handed))
+    out = mod(torch.from_numpy(x), torch.from_numpy(idx))
+    assert next(handed, None) is None
+    assert _rel(out, ref) <= TOL
+
+
 def _jax_red_reg():
     return JaxRedRegModel(dec_dim=32, min_depth=0.001, max_depth=MAX_DEPTH, num_heads=4,
                           encoder_type="custom", **MODEL_KW)
@@ -366,7 +399,7 @@ def test_sibling_build_runs_on_the_card_unless_asked(name):
 
 @pytest.mark.parametrize("name", ["oda2_red_order_reg", "oda2_red_order_swin", "oda2_red_reg",
                                   "oda2_conv", "oda2_ksa_reg", "oda2_luna_reg", "oda2_luna_cls",
-                                  "oda2_red_luna_reg"])
+                                  "oda2_red_luna_reg", "oda2_red_order_swin2"])
 def test_sibling_bn_momentum_reaches_every_batchnorm(name):
     """A config's ``bn_momentum`` (torch's convention) reaches every
     BatchNorm of the model, as the JAX builds read it."""

@@ -4,8 +4,10 @@
 
 Runs this checkout's ``chip_smoke.py`` phase functions (K1 fwd and bwd
 at the flagship's stages 1 and 3 and at the ODA encoder's 144-token
-windows, K3 dxdw and dw, K4, K5 fwd and bwd) over each checkout's
-package, each checkout in processes of its own (its kernels built from its
+windows, K3 dxdw and dw, K4, K5 fwd and bwd; the flagship's bf16 train
+step at batch 4 without recompute and under two ``MDE_REMAT_POLICY``
+values, as host-clock ms a step, the median of 5 after 2 warm-up) over
+each checkout's package, each checkout in processes of its own (its kernels built from its
 own sources into its own ``build/kernels/``), in the order other, this,
 this, other, and prints the
 device ms of each phase per run and one JSON line of them all. OTHER_TREE
@@ -37,7 +39,9 @@ PHASES = {"K1 stage 1": "window_phase('stage 1', 512 * cs.BATCH, 128, 4, 512, Tr
           # 144 tokens did not fit a block
           "K1 ODA stage 1": "oda_window_phase(1, cs.BATCH, 192, 6, True, dev)",
           "K1 ODA stage 1 unmasked": "oda_window_phase(1, cs.BATCH, 192, 6, False, dev)",
-          "K1 ODA stage 4": "oda_window_phase(4, cs.BATCH, 1536, 48, False, dev)"}
+          "K1 ODA stage 4": "oda_window_phase(4, cs.BATCH, 1536, 48, False, dev)",
+          "step none": "step_ms(dev, None)", "step full": "step_ms(dev, 'full')",
+          "step save_sa_conv": "step_ms(dev, 'save_sa_conv')"}
 # the checkout's package comes first on the path (the command runs in it);
 # the phases are this checkout's, so that both trees are timed alike
 SETUP = f"""
@@ -50,6 +54,19 @@ kernels.build()
 dev = torch.device("cuda")
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+
+
+def step_ms(dev, policy):
+    tag = f"flagship bf16 train step, MDE_REMAT_POLICY={{policy}}"
+    with cs.remat_policy(policy or "full"):
+        _, rate, _ = cs.train_run(
+            tag, cs.TRAIN_OPT, dev, cs.REMAT_LAUNCHES[policy] if policy else cs.TRAIN_LAUNCHES,
+            warmup=2, timed=5, profile=False, use_checkpoint=policy is not None)
+    cs.free_garbage()
+    return {{"ms": 1000.0 * cs.TRAIN_BATCH / rate}}
+
+
+cs.step_ms = step_ms
 """
 
 
