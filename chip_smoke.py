@@ -65,7 +65,17 @@
    shard_map step at batch 4 with its exact launches, and the time of
    ``all_reduce_tensors`` (mean) over a gradient of the flagship's size on
    that one rank: the concatenation and the division around a collective
-   that crosses no link, not a collective's rate.
+   that crosses no link, not a collective's rate. JAX's default
+   ``train.spmd``, ``make_train_step_gspmd`` (global-batch BatchNorm,
+   dropout masks and loss): on the one NCCL rank in f32 at the check size
+   (batch 2, two microbatches, dropout 0.1) against ``make_train_step``;
+   in bf16 at batch 4 beside ``make_train_step`` on one model, each with
+   exact launches (``CHECKPOINT_LAUNCHES``) and the gspmd step with the
+   all-reduces derived from the model (``gspmd_all_reduces``), peak
+   memory, img/s in turns and one profiled step each; then on two gloo
+   ranks spawned on the one card (NCCL refuses two ranks on one device),
+   the f32 step at the check size against one process's
+   ``make_train_step`` on the whole batch.
 5. The flagship at KITTI's test shape: the f32 forward of one 352x1216
    image (resized to 448x1536, where every Swin stage pads its token grid
    to whole windows) on the card against the CPU, fed the card's index
@@ -1537,6 +1547,149 @@ def remat_runs(dev, card: str, plain: tuple) -> dict:
     return runs
 
 
+def gspmd_all_reduces(model, num_accum: int = 1) -> int:
+    """The all-reduces of one ``make_train_step_gspmd`` step of the
+    flagship ``model``, derived from the code: in each microbatch every
+    BatchNorm sums its statistics over the ranks in the forward and their
+    gradients in the backward, and those of a recomputed block (the
+    ordered head's repeats, with ``use_checkpoint``) sum them again in its
+    replay; the loss's SILog term of each map (the head's repeats and its
+    last map, per image) sums in the forward and the backward; then one
+    all-reduce averages the (f32) gradients."""
+    from mde_tpu_torch.models.oda2.red_order_swin2 import OrderedSwinRegHead
+    from mde_tpu_torch.ops.tnn import BatchNorm
+    norms = sum(isinstance(m, BatchNorm) for m in model.modules())
+    heads = [m for m in model.modules() if isinstance(m, OrderedSwinRegHead)]
+    replayed = sum(isinstance(m, BatchNorm) for h in heads if h.use_checkpoint
+                   for m in h.attn_layers.modules())
+    maps = sum(len(h.attn_layers) + 1 for h in heads)
+    return num_accum * (2 * norms + replayed + 2 * maps) + 1
+
+
+def gspmd_turns(dev, mesh, card: str) -> dict:
+    """The flagship's bf16 recomputing train step at batch 4 (352x704
+    resized to 448x896, ``MDE_REMAT_POLICY`` the default) by
+    ``make_train_step`` and by ``make_train_step_gspmd`` on the one rank
+    of ``mesh``, one model and state: a counted step of each (K1-K3
+    launches exactly ``CHECKPOINT_LAUNCHES``, the gspmd step's all-reduces
+    exactly ``gspmd_all_reduces``, none for the plain step; peak memory),
+    then img/s in turns (plain, gspmd, gspmd, plain; 2 timed steps after a
+    warm-up each, host clock), then one profiled gspmd step: busy ms, idle
+    share and NCCL's kernels (the plain step's profile is the recompute
+    phase's under ``save_sa_conv``). Returns the gspmd step's launches."""
+    from mde_tpu_torch.core import dist
+    from mde_tpu_torch.models import build_model
+    from mde_tpu_torch.ops import kernels
+    from mde_tpu_torch.train.state import TrainState
+    from mde_tpu_torch.train.step import make_train_step, make_train_step_gspmd
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in train_batch(TRAIN_BATCH, 3).items()}
+    model = build_model(FLAGSHIP, 0.001, 80.0, device=dev, seed=0, dtype=torch.bfloat16)
+    state = TrainState.create(model, TRAIN_OPT, TRAIN_TOTAL_STEPS)
+    generator = torch.Generator(device=dev).manual_seed(0)
+    steps = {"make_train_step": make_train_step(TRAIN_OPT, 0.001, 80.0),
+             "gspmd": make_train_step_gspmd(TRAIN_OPT, 0.001, 80.0, mesh)}
+    derived = gspmd_all_reduces(model)
+    tag = f"flagship bf16 train step batch {TRAIN_BATCH} (resized to 448x896, use_checkpoint)"
+    counts, peaks = {}, {}
+    for name, step in steps.items():
+        torch.cuda.synchronize()
+        free_garbage()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        dist.reset_collective_counts()
+        _, logs = step(state, batch, generator)
+        torch.cuda.synchronize()
+        counts[name] = dict(kernels.launch_counts)
+        reduces = dist.collective_counts["all_reduce"]
+        peaks[name] = torch.cuda.max_memory_allocated()
+        logs = {k: float(v) for k, v in logs.items()}
+        log(f"data parallel: {tag} by {name}: launches {counts[name]}, all-reduces {reduces} "
+            f"(derived {derived if name == 'gspmd' else 0}), peak memory "
+            f"{peaks[name] / 2 ** 30:.2f} GiB, logs {logs}")
+        expect = dict(dict.fromkeys(kernels.KERNELS, 0), **CHECKPOINT_LAUNCHES)
+        if (counts[name] != expect or kernels.entry_counts
+                or reduces != (derived if name == "gspmd" else 0)
+                or not all(np.isfinite(v) for v in logs.values())):
+            raise RuntimeError(f"{tag} by {name}: expected {expect} launches and "
+                               f"{derived if name == 'gspmd' else 0} all-reduces, got "
+                               f"{counts[name]} ({kernels.entry_counts}) and {reduces}; "
+                               f"logs {logs}")
+    times = {name: [] for name in steps}
+    for name in ("make_train_step", "gspmd", "gspmd", "make_train_step"):
+        for i in range(3):
+            t0 = time.perf_counter()
+            steps[name](state, batch, generator)
+            torch.cuda.synchronize()
+            if i:
+                times[name].append(time.perf_counter() - t0)
+    for name, ts in times.items():
+        log(f"data parallel: {tag} by {name} in turns: "
+            f"{TRAIN_BATCH / float(np.median(ts)):.2f} img/s (median of {len(ts)} steps, "
+            f"{[round(t * 1e3, 2) for t in ts]} ms) ({card})")
+    busy, wall, rows = profile_call(lambda: steps["gspmd"](state, batch, generator))
+    nccl = [(ms, n) for ms, n, key in rows if "nccl" in key.lower()]
+    log(f"data parallel: {tag} by gspmd: device busy {busy:.2f} ms of {wall:.2f} ms, NCCL "
+        f"kernels {sum(ms for ms, _ in nccl):.3f} ms in {sum(n for _, n in nccl)} ({card})")
+    del state, model
+    free_garbage()
+    return counts["gspmd"]
+
+
+def gloo_rank(rank: int, root: str, batch: dict, opt: dict) -> None:
+    """Rank ``rank`` of a two-rank gloo group on the one card (a
+    ``FileStore`` in ``root``): the f32 ``make_train_step_gspmd`` step of
+    ``one_train_step`` (weights from seed 0 on both ranks, stochastic depth
+    from a generator of seed 13) on the whole ``batch``, saved to
+    ``root/rank{rank}.pt``."""
+    import torch.distributed as tdist
+    from mde_tpu_torch.parallel.mesh import make_mesh
+    from mde_tpu_torch.train.step import make_train_step_gspmd
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tdist.init_process_group("gloo", store=tdist.FileStore(os.path.join(root, "store"), 2),
+                             rank=rank, world_size=2)
+    try:
+        mesh = make_mesh(torch.device("cuda"))
+        out = one_train_step(mesh.device, batch, opt, encoder_kwargs=SHALLOW, seed=13,
+                             make_step=lambda o, lo, hi, **kw: make_train_step_gspmd(
+                                 o, lo, hi, mesh, **kw))
+        torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+    finally:
+        tdist.destroy_process_group()
+
+
+def gloo_pair_run(dev, timeout: float = 300.0) -> None:
+    """Two gloo ranks on the one card (NCCL refuses two ranks on one
+    device), spawned: the f32 gspmd step at the check size (batch 2 at
+    224x448, one image a rank, ``SHALLOW``, ``ONE_REPEAT``, stochastic
+    depth 0.2, dropout 0.1) on each, against one process's
+    ``make_train_step`` on the whole batch from the same weights and
+    generator; the ranks' states the same."""
+    import torch.multiprocessing as mp
+    batch = train_batch(2, 5, hw=(224, 448))
+    opt = dict(TRAIN_OPT, model=dict(FLAGSHIP, **ONE_REPEAT, drop_prob=0.1))
+    ref = one_train_step(dev, batch, opt, encoder_kwargs=SHALLOW, seed=13)
+    with tempfile.TemporaryDirectory() as root:
+        ctx = mp.start_processes(gloo_rank, args=(root, batch, opt), nprocs=2, join=False,
+                                 start_method="spawn")
+        deadline = time.perf_counter() + timeout
+        while not ctx.join(timeout=5):
+            if time.perf_counter() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                    p.join(10)
+                raise RuntimeError(f"the gloo ranks were still running after {timeout} s")
+        ranks = [torch.load(os.path.join(root, f"rank{r}.pt")) for r in range(2)]
+    for r, step in enumerate(ranks):
+        compare_steps(f"flagship f32 train step batch 2 at 224x448: make_train_step_gspmd on "
+                      f"gloo rank {r} of 2 on one card against make_train_step", step, ref,
+                      ("gspmd", "make_train_step"))
+    (logs0, _, weights0), (logs1, _, weights1) = ranks
+    if logs0 != logs1 or not all(torch.equal(weights0[k], weights1[k]) for k in weights0):
+        raise RuntimeError("the two gloo ranks ended with different states")
+    log("data parallel: the two gloo ranks ended with the same logs and state")
+
+
 def data_parallel_run(dev, card: str) -> dict:
     """A one-rank NCCL data group (``parallel.mesh.make_mesh`` with a
     ``FileStore`` in a temporary directory), destroyed before the script
@@ -1548,12 +1701,16 @@ def data_parallel_run(dev, card: str) -> dict:
     (``CHECKPOINT_LAUNCHES``), and the time of ``all_reduce_tensors``
     (mean) over a gradient the flagship's size (every parameter's, f32) on
     one rank: the concatenation and division it adds, with no link crossed.
-    Returns the counted launches."""
+    Then ``make_train_step_gspmd``: in f32 at the check size with two
+    microbatches of one image and dropout 0.1 on, against
+    ``make_train_step``; in bf16 (``gspmd_turns``); and on two gloo ranks
+    (``gloo_pair_run``). Returns the gspmd step's counted launches."""
     import torch.distributed as tdist
     from mde_tpu_torch.core import dist
     from mde_tpu_torch.models import build_model
     from mde_tpu_torch.parallel.mesh import make_mesh
-    from mde_tpu_torch.train.step import make_train_step_shard_map
+    from mde_tpu_torch.train.step import (make_train_step, make_train_step_gspmd,
+                                          make_train_step_shard_map)
     with tempfile.TemporaryDirectory() as root:
         mesh = make_mesh(dev, rank=0, world_size=1,
                          store=tdist.FileStore(os.path.join(root, "store"), 1))
@@ -1585,9 +1742,28 @@ def data_parallel_run(dev, card: str) -> dict:
                 f"{len(grads)} tensors on one rank: {ms:.3f} ms of concatenation and "
                 f"division, no link crossed, not a collective's rate ({card})")
             del grads
+
+            def accum(make):
+                return lambda o, lo, hi, **kw: make(o, lo, hi, num_accum=2, **kw)
+
+            batch = train_batch(2, 2, hw=(224, 448))
+            opt = dict(TRAIN_OPT, model=dict(FLAGSHIP, **ONE_REPEAT, drop_prob=0.1))
+            ref = one_train_step(dev, batch, opt, encoder_kwargs=SHALLOW, seed=11,
+                                 make_step=accum(make_train_step))
+            step = one_train_step(dev, batch, opt, encoder_kwargs=SHALLOW, seed=11,
+                                  make_step=accum(lambda o, lo, hi, **kw: make_train_step_gspmd(
+                                      o, lo, hi, mesh, **kw)))
+            compare_steps("flagship f32 train step batch 2 at 224x448, 2 microbatches, dropout "
+                          "0.1: make_train_step_gspmd on one NCCL rank against make_train_step",
+                          step, ref, ("gspmd", "make_train_step"))
+            with timed("gspmd bf16 step in turns"):
+                counts = gspmd_turns(dev, mesh, card)
         finally:
             tdist.destroy_process_group()
         free_garbage()
+    with timed("gspmd on two gloo ranks"):
+        gloo_pair_run(dev)
+    free_garbage()
     return counts
 
 
@@ -2713,11 +2889,12 @@ def newcrfs_driver_run(dev, card: str, bare_rate: float) -> dict:
         return counts
 
 
-def profile_call(call) -> None:
+def profile_call(call) -> tuple:
     """Device time by kernel over one profiled call, and the device's busy
     share of that call's host-clock time. The profiler records the card's
     activity alone: the host's ops, which nothing here reads, took 3-4x as
-    long to sum up and lengthened the profiled call itself (PERF.md)."""
+    long to sum up and lengthened the profiled call itself (PERF.md).
+    Returns (busy ms, host-clock ms, [(ms, count, name)] by kernel)."""
     from torch.profiler import ProfilerActivity, profile
     t_start = time.perf_counter()
     torch.cuda.synchronize()
@@ -2741,7 +2918,7 @@ def profile_call(call) -> None:
     OVERHEAD["profiles"][1] += time.perf_counter() - t_start
     if busy_ms == 0:
         log("profile: the profiler recorded no device time (not measured)")
-        return
+        return busy_ms, wall_ms, rows
     log(f"profile of one call: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms host clock "
         f"(idle share {1 - busy_ms / wall_ms:.3f}, profiler on, the card's activity only)")
     # the 25 largest, and the port's own kernels wherever they rank
@@ -2749,6 +2926,7 @@ def profile_call(call) -> None:
     for i, (ms, count, key) in enumerate(sorted(rows, reverse=True)):
         if i < 25 or any(name in key for name in ours):
             log(f"  {ms:9.3f} ms {100 * ms / busy_ms:5.1f}% x{count:<4d} {key[:110]}")
+    return busy_ms, wall_ms, rows
 
 
 def ptxas_entries(report: str) -> list:

@@ -8,16 +8,55 @@ across the processes of ``group`` (the default group where it is None)
 and is the identity where no process group is live, so that every code
 path runs in one process. A collective leaves its input as it is, as
 JAX's do.
+
+JAX's GSPMD step computes on global arrays: a BatchNorm's statistics, a
+loss's means and a dropout mask are those of the whole batch, whatever
+device holds each row. The port's ``train.spmd`` ``"gspmd"`` step opens a
+global-batch scope (``parallel.mesh.gspmd_scope``) around its forward and
+backward passes: inside it, :func:`global_batch` names this rank's place
+in the data group, and the modules take their batch-wide sums through
+:func:`sum_over_ranks`, whose backward sums the gradients over the ranks
+too. ``collective_counts`` counts this process's all-reduce launches.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import TYPE_CHECKING, Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as tdist
 
+if TYPE_CHECKING:
+    from ..parallel.mesh import Mesh
+
 _OPS = {"sum": "SUM", "mean": "SUM", "max": "MAX", "min": "MIN", "product": "PRODUCT"}
+
+# all-reduce launches of this process since the last reset
+collective_counts = {"all_reduce": 0}
+
+
+def reset_collective_counts() -> None:
+    collective_counts["all_reduce"] = 0
+
+
+# the data group of the open global-batch scope; not thread-local, as the
+# backward pass (and the recompute in it) of CUDA tensors runs in
+# autograd's own threads
+_global_batch: List[Optional["Mesh"]] = [None]
+
+
+def global_batch() -> Optional["Mesh"]:
+    """While a global-batch scope is open (``parallel.mesh.gspmd_scope``),
+    the data group whose ranks' rows, in rank order, make the global
+    batch: this rank's ``rank`` of ``size``; else None."""
+    return _global_batch[0]
+
+
+def set_global_batch(mesh: Optional["Mesh"]) -> Optional["Mesh"]:
+    """Open the global-batch scope of ``mesh`` (close it, given None);
+    returns the group of the scope it replaces."""
+    old, _global_batch[0] = _global_batch[0], mesh
+    return old
 
 
 def live() -> bool:
@@ -54,6 +93,7 @@ def all_reduce_tensors(tensors: Sequence[torch.Tensor], op: str = "sum",
         idx = [i for i, t in enumerate(tensors) if t.dtype == dtype]
         flat = torch.cat([tensors[i].reshape(-1) for i in idx])
         tdist.all_reduce(flat, op=reduce_op, group=group)
+        collective_counts["all_reduce"] += 1
         if op == "mean":
             flat = flat / n
         for i, part in zip(idx, flat.split([tensors[i].numel() for i in idx])):
@@ -65,6 +105,33 @@ def all_reduce_tensor(x: torch.Tensor, op: str = "sum", group=None) -> torch.Ten
     """Reduction across the group's processes: sum, mean, max, min or
     product (reference ``all_reduce_tensor``, ``dist_utils.py:49-64``)."""
     return all_reduce_tensors([x], op, group)[0]
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """``all_reduce_tensors`` (sum) whose backward sums each output's
+    gradient over the ranks, in one collective a dtype too."""
+
+    @staticmethod
+    def forward(ctx, group, *tensors):
+        ctx.group = group
+        return tuple(all_reduce_tensors(tensors, "sum", group))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *all_reduce_tensors(grads, "sum", ctx.group))
+
+
+def sum_over_ranks(tensors: Sequence[torch.Tensor], group=None) -> List[torch.Tensor]:
+    """The sum over the group's ranks of each tensor, in one collective a
+    dtype (a live group of one included), differentiable: the gradient of
+    each input is the sum over the ranks of its output's gradient. Where
+    every rank backpropagates the same loss, as in the GSPMD step, each
+    rank's input so gets the gradient that all ranks' uses of the sum give
+    it (torch's ``SyncBatchNorm`` convention). The identity where no
+    process group is live."""
+    if not live():
+        return list(tensors)
+    return list(_SumOverRanks.apply(group, *tensors))
 
 
 def _scalar_device(group=None) -> torch.device:

@@ -82,7 +82,8 @@ class MultiHeadAttention(nn.Module):
         q = q / torch.tensor(math.sqrt(e // nh), dtype=x.dtype)
         attn = torch.einsum("bqhd,bkhd->bhqk", q, k).softmax(dim=-1)
         if self.training and self.attn_drop_prob > 0:
-            keep = drop._keep_mask((1, 1, s, s), self.attn_drop_prob, generator, x.device)
+            # no batch dimension: the same mask on every rank of a global batch
+            keep = drop._keep_mask((1, 1, s, s), self.attn_drop_prob, generator, x.device, False)
             keep_prob = torch.tensor(1.0 - self.attn_drop_prob, dtype=x.dtype, device=x.device)
             attn = attn * (keep.to(x.dtype) / keep_prob)
         return self.out_proj(torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(b, s, e))

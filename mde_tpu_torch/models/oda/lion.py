@@ -225,7 +225,7 @@ class ODALionDecoder(nn.Module):
         self.grid = (int(grid[0]), int(grid[1]))
         self.pe = nn.Parameter(torch.zeros(*self.grid, c))
         self.ppm = PyramidPoolingModuleV2(enc_dims[3], ppm_proj, c)
-        self.pe_drop = Dropout(drop_prob)
+        self.pe_drop = Dropout(drop_prob, batched=False)  # (1, h, w, c): no batch
         for i, level in enumerate((32, 16, 8, 4)):
             setattr(self, f"lion{level}",
                     LionLayer(c >> i, enc_dims[3 - i], level == 4, attn_drop_prob, drop_prob))

@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core import dist
+
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact-erf GELU, or its tanh form for bf16 input (``tnn.gelu``)."""
@@ -63,7 +65,15 @@ class BatchNorm(nn.BatchNorm2d):
     while ``frozen`` (:func:`bn_freeze_scope`). While ``replaying`` (the
     recompute of a checkpointed block, ``ops/remat.py``) batch statistics
     normalise but the running ones are not updated a second time.
-    ``num_batches_tracked`` is kept for the state dict and never read."""
+    ``num_batches_tracked`` is kept for the state dict and never read.
+
+    Inside a global-batch scope (``parallel.mesh.gspmd_scope``) the batch
+    statistics are those of the global batch, as under JAX's GSPMD step
+    (SyncBN): the f32 per-channel sums of x and x^2 and the row count are
+    summed over the ranks in one collective (``core.dist.sum_over_ranks``,
+    whose backward carries the gradient through every rank's rows), and
+    the running averages, updated from them, come out the same on every
+    rank. A replay sums the same values again."""
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__(num_features, eps=eps, momentum=momentum)
@@ -76,8 +86,15 @@ class BatchNorm(nn.BatchNorm2d):
         else:
             x32 = x.float()
             dims = tuple(range(x.dim() - 1))
-            mean = x32.mean(dim=dims)
-            var = ((x32 * x32).mean(dim=dims) - mean * mean).clamp_min(0.0)
+            if dist.global_batch() is None:
+                mean = x32.mean(dim=dims)
+                var = ((x32 * x32).mean(dim=dims) - mean * mean).clamp_min(0.0)
+            else:
+                rows = torch.full((1,), float(x32.numel() // x32.shape[-1]), device=x.device)
+                s1, s2, n = dist.sum_over_ranks([x32.sum(dim=dims), (x32 * x32).sum(dim=dims),
+                                                 rows])
+                mean = s1 / n
+                var = (s2 / n - mean * mean).clamp_min(0.0)
             if not self.replaying:
                 m = 1.0 - self.momentum
                 with torch.no_grad():

@@ -10,11 +10,17 @@ joins the processes on CUDA, gloo on the CPU. Where no process group is
 started, the group is this one process and every collective
 (``core/dist.py``) is the identity.
 
+Under ``train.spmd`` ``"gspmd"`` the ranks' rows make one global batch:
+each rank takes its rows of every microbatch (:func:`microbatch_rows`),
+and inside :func:`gspmd_scope` the modules compute what JAX computes on
+the global arrays (BatchNorm statistics, dropout masks, the loss).
+
     torchrun --nproc_per_node 4 -m mde_tpu_torch.train.driver --opt x.json --bf16
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from dataclasses import dataclass
 from typing import Optional, Union
@@ -76,6 +82,42 @@ def shard_batch(mesh: Mesh, batch):
         raise ValueError(f"a batch of {b} does not split over {mesh.size} ranks")
     n = b // mesh.size
     return batch[mesh.rank * n:(mesh.rank + 1) * n]
+
+
+def microbatch_rows(mesh: Mesh, batch_size: int, num_accum: int, index: int) -> slice:
+    """This rank's rows of microbatch ``index`` of a step batch of
+    ``batch_size`` rows: JAX's GSPMD step splits the global batch into
+    ``num_accum`` consecutive microbatches (``mde_tpu/train/step.py:164-166``)
+    and its data axis each microbatch into ``mesh.size`` consecutive parts,
+    the ``mesh.rank``-th of which is this rank's. Raises where the batch
+    does not split into the microbatches, or a microbatch over the ranks."""
+    if batch_size % num_accum:
+        raise ValueError(f"batch {batch_size} does not split into {num_accum} microbatches")
+    micro = batch_size // num_accum
+    if micro % mesh.size:
+        raise ValueError(f"a microbatch of {micro} images (batch {batch_size} in {num_accum}) "
+                         f"does not split over {mesh.size} ranks")
+    n = micro // mesh.size
+    start = index * micro + mesh.rank * n
+    return slice(start, start + n)
+
+
+@contextlib.contextmanager
+def gspmd_scope(mesh: Mesh):
+    """While active, and where a process group is live, the modules treat
+    each tensor's rows as this rank's part of a global batch (JAX's GSPMD
+    arrays): BatchNorm takes its statistics over the global batch
+    (``ops/tnn.py``), a dropout or stochastic-depth mask is this rank's
+    rows of the global mask drawn from the same generator (``ops/drop.py``)
+    and the losses are the global batch's (``train/loss.py``). The
+    forward, the backward and every recompute in it must run inside the
+    scope, on every rank alike: each rank launches the same collectives in
+    the same order. Without a live group it changes nothing."""
+    old = dist.set_global_batch(mesh if dist.live() else None)
+    try:
+        yield
+    finally:
+        dist.set_global_batch(old)
 
 
 @torch.no_grad()

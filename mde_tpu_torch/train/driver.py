@@ -13,10 +13,14 @@ loop keeps each step's logs on the card and reads them back only every
 ``print_freq`` steps, so it adds no per-step wait for the card.
 
 Data parallelism: under ``torchrun`` (or in processes that joined a data
-group, ``parallel/mesh.py``) every rank builds the same model and loaders,
-takes its rows of each batch and runs ``train.spmd``'s step: ``shard_map``
-(``make_train_step_shard_map``: gradients, BatchNorm statistics and logs
-averaged over the ranks). Rank 0 alone prints, logs and checkpoints.
+group, ``parallel/mesh.py``) every rank builds the same model and loaders
+and runs ``train.spmd``'s step: ``gspmd``, the default
+(``make_train_step_gspmd``: each rank its rows of every microbatch, with
+the global batch's BatchNorm statistics, dropout masks and loss; a loader
+batch, which is one microbatch, must split over the ranks), or
+``shard_map`` (``make_train_step_shard_map``: each rank its rows of the
+step batch, gradients, BatchNorm statistics and logs averaged over the
+ranks). Rank 0 alone prints, logs and checkpoints.
 
     torchrun --nproc_per_node 4 -m mde_tpu_torch.train.driver --opt x.json --bf16
 """
@@ -42,7 +46,7 @@ from ..parallel.mesh import make_mesh, replicate, shard_batch
 from ..serve import Predictor
 from ..utils.wandb_utils import set_wandb
 from .state import TrainState
-from .step import make_eval_step, make_train_step, make_train_step_shard_map
+from .step import make_eval_step, make_train_step_gspmd, make_train_step_shard_map
 
 SPMD_MODES = ("gspmd", "shard_map")
 
@@ -101,9 +105,9 @@ class Trainer:
     """The driver's state: loaders, model, train state, best value, step.
     Builds on the card unless ``device`` asks for another (raises where
     CUDA is missing); the model's weights are drawn from ``seed``. Joins
-    the data group (``parallel.mesh.make_mesh``): across several ranks
-    ``train.spmd`` must be ``shard_map`` and each optimizer step's batch
-    must split over the ranks."""
+    the data group (``parallel.mesh.make_mesh``). Across several ranks a
+    ``gspmd`` step's loader batch (one microbatch), or a ``shard_map``
+    step's batch, must split over the ranks."""
 
     def __init__(self, opt: Config, dtype=torch.float32, model_overrides=None,
                  device: Optional[Union[str, torch.device]] = None, seed: int = 0):
@@ -114,18 +118,16 @@ class Trainer:
         self.spmd = t.get("spmd", "gspmd")
         if self.spmd not in SPMD_MODES:
             raise ValueError(f"train.spmd {self.spmd!r}: expected one of {SPMD_MODES}")
-        if self.mesh.size > 1 and self.spmd != "shard_map":
-            raise NotImplementedError(
-                f"train.spmd {self.spmd!r} across {self.mesh.size} ranks needs global-batch "
-                f"BatchNorm statistics and dropout draws (JAX's GSPMD step), which the port "
-                f"has not yet (ROADMAP.md, Queue 1a); train.spmd 'shard_map' trains across "
-                f"ranks")
-        (self.train_loader, self.test_loader, self.model, self.min_depth, self.max_depth,
-         self.total_steps) = build_all(opt, dtype, model_overrides, self.device, seed)
         self.num_accum = int(t.get("num_accum", 1))
-        rows = self.train_loader.batch_size * self.num_accum
+        batch_size = int(opt.get("dataloader", {}).get("batch_size", 8))
+        if self.spmd == "gspmd" and batch_size % self.mesh.size:
+            raise ValueError(f"a microbatch of {batch_size} images (dataloader.batch_size) "
+                             f"does not split over {self.mesh.size} ranks")
+        rows = batch_size * self.num_accum
         if rows % self.mesh.size:
             raise ValueError(f"a step's {rows} images do not split over {self.mesh.size} ranks")
+        (self.train_loader, self.test_loader, self.model, self.min_depth, self.max_depth,
+         self.total_steps) = build_all(opt, dtype, model_overrides, self.device, seed)
         self.run, self.run_dir = set_wandb(opt)
 
         self.print_freq = int(t.get("print_freq", 25))
@@ -151,12 +153,9 @@ class Trainer:
         if freeze_bn not in self._steps:
             kw = dict(num_accum=self.num_accum, freeze_bn=freeze_bn,
                       freeze_encoder_bn=self.freeze_encoder_bn)
-            if self.spmd == "shard_map":
-                self._steps[freeze_bn] = make_train_step_shard_map(
-                    self.opt, self.min_depth, self.max_depth, self.mesh, **kw)
-            else:
-                self._steps[freeze_bn] = make_train_step(
-                    self.opt, self.min_depth, self.max_depth, **kw)
+            make = make_train_step_shard_map if self.spmd == "shard_map" else make_train_step_gspmd
+            self._steps[freeze_bn] = make(self.opt, self.min_depth, self.max_depth, self.mesh,
+                                          **kw)
         return self._steps[freeze_bn]
 
     def init_state(self) -> TrainState:
@@ -270,7 +269,10 @@ class Trainer:
                 else:
                     batch = {k: torch.cat([b[k] for b in accum_buf]) for k in ("image", "depth")}
                 accum_buf = []
-                self.state, logs = step_fn(self.state, shard_batch(self.mesh, batch), generator)
+                # a gspmd step takes each rank's rows of each microbatch itself
+                if self.spmd == "shard_map":
+                    batch = shard_batch(self.mesh, batch)
+                self.state, logs = step_fn(self.state, batch, generator)
                 self.global_step += 1
                 log_buf.append(logs)
 

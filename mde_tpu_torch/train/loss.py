@@ -2,24 +2,41 @@
 the log-depth gradient term, the chamfer bin loss, and ``DepthLoss``, which
 combines them as the config's ``loss`` section says.
 
-Masked means over static shapes, as the JAX versions compute them.
+Masked means over static shapes, as the JAX versions compute them. Inside
+a global-batch scope (``parallel.mesh.gspmd_scope``) every mean over the
+batch is the global batch's, as JAX's GSPMD step computes it: each rank
+sums its rows, the sums go over the ranks in one collective a term
+(``core.dist.sum_over_ranks``), and every rank holds the global value.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..core import dist
 from ..ops.resize import resize_bilinear
 
 _EPS = 1e-7
 
 
-def _masked_mean(x: torch.Tensor, mask: torch.Tensor, dim=None) -> torch.Tensor:
+def _batch_sums(*sums: torch.Tensor) -> List[torch.Tensor]:
+    """Sums over this rank's rows -> sums over the global batch's."""
+    return dist.sum_over_ranks(sums) if dist.global_batch() is not None else list(sums)
+
+
+def _batch_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean of (B,) per-image values over the (global) batch."""
+    scope = dist.global_batch()
+    if scope is None:
+        return x.mean()
+    (total,) = dist.sum_over_ranks([x.sum()])
+    return total / (x.shape[0] * scope.size)
+
+
+def _masked_mean(x: torch.Tensor, mask: torch.Tensor, dim: int) -> torch.Tensor:
     m = mask.to(x.dtype)
-    if dim is None:
-        return (x * m).sum() / m.sum().clamp_min(1.0)
     return (x * m).sum(dim=dim) / m.sum(dim=dim).clamp_min(1.0)
 
 
@@ -33,11 +50,14 @@ def silog_loss(pred: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor,
     pred = pred.clamp_min(_EPS)
     gt_safe = torch.where(mask, gt, torch.ones_like(gt))
     d = torch.where(mask, torch.log(pred) - torch.log(gt_safe), torch.zeros_like(pred))
-    dim = 1 if per_image else None
-    d2 = _masked_mean(d ** 2, mask, dim)
-    d1 = _masked_mean(d, mask, dim)
-    val = torch.sqrt((d2 - beta * d1 ** 2).clamp_min(_EPS))
-    return alpha * val.mean() if per_image else alpha * val
+    if per_image:
+        d2 = _masked_mean(d ** 2, mask, 1)
+        d1 = _masked_mean(d, mask, 1)
+        return alpha * _batch_mean(torch.sqrt((d2 - beta * d1 ** 2).clamp_min(_EPS)))
+    m = mask.to(d.dtype)
+    s2, s1, n = _batch_sums((d ** 2 * m).sum(), (d * m).sum(), m.sum())
+    n = n.clamp_min(1.0)
+    return alpha * torch.sqrt((s2 / n - beta * (s1 / n) ** 2).clamp_min(_EPS))
 
 
 def sog_loss(pred: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -51,7 +71,10 @@ def sog_loss(pred: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor) -> torch.
     mx = mask[:, :, 1:] & mask[:, :, :-1]
     gy = (lp[:, 1:, :] - lp[:, :-1, :]) - (lg[:, 1:, :] - lg[:, :-1, :])
     my = mask[:, 1:, :] & mask[:, :-1, :]
-    return _masked_mean(gx.abs(), mx) + _masked_mean(gy.abs(), my)
+    mx, my = mx.to(gx.dtype), my.to(gy.dtype)
+    sx, nx, sy, ny = _batch_sums((gx.abs() * mx).sum(), mx.sum(), (gy.abs() * my).sum(),
+                                 my.sum())
+    return sx / nx.clamp_min(1.0) + sy / ny.clamp_min(1.0)
 
 
 def chamfer_bin_loss(bin_centers: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor,
@@ -80,7 +103,7 @@ def chamfer_bin_loss(bin_centers: torch.Tensor, gt: torch.Tensor, mask: torch.Te
     zero = torch.zeros((), dtype=torch.float32, device=gt.device)
     loss_gt = torch.where(any_valid, sum_dgt / cnt.clamp_min(1.0), zero)
     loss_bin = torch.where(any_valid, min_dbin.mean(dim=1), zero)
-    return (loss_gt + loss_bin).mean()
+    return _batch_mean(loss_gt + loss_bin)
 
 
 class DepthLoss:

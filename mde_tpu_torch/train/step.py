@@ -4,10 +4,12 @@ One train step: forward in training mode, loss, backward, gradient
 accumulation over ``num_accum`` microbatches, the global clip and the AdamW
 update, on the device the model lies on. BatchNorm statistics carry from
 one microbatch to the next, and the gradients are averaged, as the JAX
-step's scan does (``:155-192``). The data-parallel step
-(``make_train_step_shard_map``) runs the same on each rank's rows of the
-batch and averages the gradients, the BatchNorm statistics and the logs
-over the ranks before the update.
+step's scan does (``:155-192``). Two data-parallel steps run it across
+the ranks of a data group: ``make_train_step_shard_map`` on each rank's
+rows of the batch, averaging the gradients, the BatchNorm statistics and
+the logs over the ranks before the update; ``make_train_step_gspmd`` on
+the global batch, each rank its rows of every microbatch, with the
+global batch's BatchNorm statistics, dropout masks and loss.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from ..core import dist
 from ..core import metrics as M
 from ..ops.resize import resize_bilinear
 from ..ops.tnn import BatchNorm, bn_freeze_scope, encoder_only
+from ..parallel.mesh import gspmd_scope, microbatch_rows
 from .loss import DepthLoss
 from .optim import global_norm
 from .state import TrainState
@@ -102,9 +105,11 @@ def make_train_step(opt, min_depth: float, max_depth: float,
 
 
 def _make_step(opt, min_depth: float, max_depth: float, adapter: Optional[ModelAdapter],
-               num_accum: int, freeze_bn: bool, freeze_encoder_bn: bool, mesh=None):
+               num_accum: int, freeze_bn: bool, freeze_encoder_bn: bool, mesh=None,
+               spmd: Optional[str] = None):
     """The train step; given the data group ``mesh``, the step of one of
-    its ranks (``make_train_step_shard_map``)."""
+    its ranks under ``spmd``: ``"shard_map"`` (``make_train_step_shard_map``)
+    or ``"gspmd"`` (``make_train_step_gspmd``)."""
     if adapter is None:
         adapter = make_adapter(opt.get("model", {}).get("name", ""))
     depth_loss = DepthLoss(opt["loss"], min_depth, max_depth)
@@ -115,23 +120,28 @@ def _make_step(opt, min_depth: float, max_depth: float, adapter: Optional[ModelA
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         model = state.model
         device = _model_device(model)
-        if mesh is not None:
+        if spmd == "shard_map":
             generator = _rank_generator(generator, mesh.rank, state.step)
         images = torch.as_tensor(batch["image"], dtype=torch.float32, device=device)
         depths = torch.as_tensor(batch["depth"], dtype=torch.float32, device=device)
         b = images.shape[0]
-        if b % num_accum:
+        if spmd == "gspmd":
+            parts = [microbatch_rows(mesh, b, num_accum, m) for m in range(num_accum)]
+        elif b % num_accum:
             raise ValueError(f"batch {b} does not split into {num_accum} microbatches")
-        micro = b // num_accum
+        else:
+            micro = b // num_accum
+            parts = [slice(m * micro, (m + 1) * micro) for m in range(num_accum)]
         model.train()
         params = dict(model.named_parameters())
         for p in params.values():
             p.grad = None
         sums: Dict[str, torch.Tensor] = {}
         # the backward pass, and any recompute in it, runs inside the freeze
-        with (bn_freeze_scope(model, predicate) if predicate else contextlib.nullcontext()):
-            for m in range(num_accum):
-                part = slice(m * micro, (m + 1) * micro)
+        # and the global batch
+        with (bn_freeze_scope(model, predicate) if predicate else contextlib.nullcontext()), \
+                (gspmd_scope(mesh) if spmd == "gspmd" else contextlib.nullcontext()):
+            for part in parts:
                 outs, centers = adapter(model(images[part], generator=generator))
                 loss, logs = depth_loss(outs, depths[part], bin_centers=centers)
                 loss.backward()
@@ -144,8 +154,13 @@ def _make_step(opt, min_depth: float, max_depth: float, adapter: Optional[ModelA
         if num_accum > 1:
             grads = {n: g / num_accum for n, g in grads.items()}
         logs = {key: value / num_accum for key, value in sums.items()}
-        if mesh is not None:
+        if spmd == "shard_map":
             grads, logs = _rank_mean(model, grads, logs)
+        elif spmd == "gspmd":
+            # each rank's gradient is the ranks' number times its rows' part
+            # (every rank backpropagates the global loss, and each sum over
+            # the ranks sums the gradients back): the mean is the gradient
+            grads = dict(zip(grads, dist.all_reduce_tensors(list(grads.values()), "mean")))
         logs["grad_norm"] = global_norm(list(grads.values()))
         state.optimizer.update(grads)
         logs["param_norm"] = global_norm(list(params.values()))
@@ -205,7 +220,36 @@ def make_train_step_shard_map(opt, min_depth: float, max_depth: float, mesh,
     freezes act as in ``make_train_step``. With one rank it is
     ``make_train_step``."""
     return _make_step(opt, min_depth, max_depth, adapter, num_accum, freeze_bn,
-                      freeze_encoder_bn, mesh)
+                      freeze_encoder_bn, mesh, "shard_map")
+
+
+def make_train_step_gspmd(opt, min_depth: float, max_depth: float, mesh,
+                          adapter: Optional[ModelAdapter] = None, num_accum: int = 1,
+                          freeze_bn: bool = False, freeze_encoder_bn: bool = False):
+    """JAX's default data-parallel train step (``train.spmd`` ``"gspmd"``,
+    ``mde_tpu/train/step.py:81-194`` on global arrays over a data mesh):
+    ``step(state, batch, generator=None) -> (state, logs)`` on every rank
+    of ``mesh`` (``parallel.mesh.make_mesh``), ``batch`` the whole step
+    batch on every rank and ``state`` the same on every rank
+    (``parallel.mesh.replicate``).
+
+    Its numbers are ``make_train_step``'s on the global batch, up to the
+    order of sums. The batch splits into ``num_accum`` microbatches of
+    consecutive rows and each microbatch over the ranks
+    (``parallel.mesh.microbatch_rows``; raises where one does not split);
+    each rank runs its rows inside ``parallel.mesh.gspmd_scope``: BatchNorm
+    normalises with the global batch's statistics, from which every rank
+    updates the same running statistics; each dropout and stochastic-depth
+    mask is the rank's rows of the global mask, drawn from ``generator`` in
+    the same state on every rank; the losses and logs are the global
+    batch's. Every rank backpropagates the global loss, each collective's
+    backward sums the gradients over the ranks, and the parameters'
+    gradients are averaged over the ranks before the same clipped AdamW
+    update on every rank. ``grad_norm`` is the averaged gradient's norm,
+    ``param_norm`` the new parameters'. With one process and no group it
+    is ``make_train_step``."""
+    return _make_step(opt, min_depth, max_depth, adapter, num_accum, freeze_bn,
+                      freeze_encoder_bn, mesh, "gspmd")
 
 
 def make_eval_step(model: nn.Module, opt, min_depth_eval: float, max_depth_eval: float,

@@ -66,6 +66,20 @@ def test_all_reduce_tensors_reduce_each_dtype(port):
     assert [r["process_index"] for r in port] == list(range(WORLD))
 
 
+def test_sum_over_ranks_sums_values_and_gradients(port):
+    """``sum_over_ranks``: the sum of every rank's tensors, and each
+    input's gradient the sum over the ranks of its output's (rank r's loss
+    is (r + 1) * sum(s1) + s2, so x's gradient is the sum of r + 1 over
+    the ranks, plus the ranks' number), two collectives in all."""
+    total = sum(range(1, WORLD + 1))
+    for r in port:
+        s1, s2, grad, launched = r["sum_over_ranks"]
+        np.testing.assert_array_equal(s1, np.array([1.0, 2.0], np.float32) * total)
+        assert s2 == 3.0 * total
+        np.testing.assert_array_equal(grad, np.full(2, total + WORLD, np.float32))
+        assert launched == 2
+
+
 def test_identity_without_a_process_group():
     """No process group: every collective gives its input (JAX's outside a
     mapped axis, ``tests/test_dist.py::test_identity_fallback_outside_mesh``)."""
@@ -77,5 +91,11 @@ def test_identity_without_a_process_group():
     assert torch.equal(dist.all_gather_tensor(x), x)
     assert dist.all_reduce_dict({"a": x})["a"] is x
     assert dist.process_index() == 0 and dist.process_count() == 1 and dist.is_primary()
+    y = x.clone().requires_grad_(True)
+    (s,) = dist.sum_over_ranks([y])
+    assert s is y
+    from mde_tpu_torch.parallel.mesh import gspmd_scope, make_mesh
+    with gspmd_scope(make_mesh("cpu")):  # no group: no global batch
+        assert dist.global_batch() is None
     with pytest.raises(ValueError, match="Unsupported reduce op"):
         dist.all_reduce_tensor(x, "median")

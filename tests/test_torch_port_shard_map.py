@@ -16,8 +16,8 @@ in f32.
 - The driver: ``Trainer.fit(max_steps=2)`` with ``train.spmd`` 'shard_map'
   on two ranks over a synthetic KITTI tree, one validation at step 2: only
   rank 0 saves the checkpoint and writes ``Trainer.predict``'s PNGs, and
-  both ranks end with the same parameters; a 'gspmd' ``Trainer`` across
-  the two ranks raises.
+  both ranks end with the same parameters. The 'gspmd' step and driver
+  across ranks: ``test_torch_port_gspmd.py``, ``test_torch_port_gspmd_step.py``.
 """
 
 import jax
@@ -124,8 +124,8 @@ def test_shard_map_step_matches_jax(jax_model, port, freeze_encoder_bn):
 
 def test_trainer_fit_shard_map_on_two_ranks(port):
     root, ((_, fit0), (_, fit1)) = port
-    (_, saved0, steps0, metrics0, params0, written0), \
-        (_, saved1, steps1, metrics1, params1, written1) = fit0, fit1
+    (saved0, steps0, metrics0, params0, written0), \
+        (saved1, steps1, metrics1, params1, written1) = fit0, fit1
     assert steps0 == steps1 == 2
     assert saved0 == [2] and saved1 == []
     assert sorted(p.name for p in (root / "run" / "checkpoints").iterdir()) == ["step_2"]
@@ -134,9 +134,3 @@ def test_trainer_fit_shard_map_on_two_ranks(port):
     assert len(metrics0) == 9 and all(np.isfinite(v) for v in metrics0.values())
     assert metrics0 == metrics1
     assert all(np.array_equal(params0[n], params1[n]) for n in params0)
-
-
-def test_gspmd_across_ranks_raises(port):
-    _, results = port
-    for _, (refused, *_) in results:
-        assert refused is not None and "shard_map" in refused and "ROADMAP" in refused
