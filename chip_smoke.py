@@ -172,7 +172,8 @@
    384x768; decoder_channels 1024, 256 aux tokens of 256, 8 heads, 256
    bins), and v6, v7 and v8 (hidden 512, 8 heads, 256 aux tokens, v7 the
    1/32 grid's 242, 256 bins). For each: the f32 forward at batch 1 card
-   against CPU (ODA at 384x384, v6-v8 at 352x704: the depth, the bins, the
+   against CPU (ODA at 384x384, the encoder at depths ``SHALLOW`` from PR 18,
+   K1 8; v6-v8 at 352x704: the depth, the bins, the
    aux tokens and every Luna weight); bf16 serving at batch 8 on 352x704
    through ``Predictor`` and the bf16 train step at batch 4, timed and
    profiled with peak memory, with exact launches: ODA K1 24 serving and
@@ -187,12 +188,28 @@
    position embedding taking that 1/32 grid), ``oda_lime`` (256 channels,
    16 layers over a 2048-wide memory; resized by the model; depth at 1/4)
    and ``oda_jeju`` (2048, 128 aux tokens, 64 heads; grouped 5x5 FFs). Each
-   as in 12: the f32 forward at batch 1 on 384x384 card against CPU (the
+   as in 12: the f32 forward at batch 1 on 384x384 card against CPU
+   (``SHALLOW``; the
    depth, every weight, Jeju's aux tokens), bf16 serving at batch 8 and the
    bf16 train step at batch 4 on 352x704 (resized to 384x768), timed and
    profiled with peak memory, K1 24 serving and 24 + 24 backward a step,
    the loss taking the depth map in every step (J1: JAX's adapter would
    hand it Lion's weights).
+
+14. The rest of the JAX package's surface: each forward kernel's operator
+   (``torch.ops.mde.*``: K1 fused qkv and q|k + v, K2, K3, K4, K5) against
+   its direct launch at its main-path shape, bit-equal, with device and host
+   ms a launch of both; the flagship's forward FLOPs (``utils/flops``) beside
+   the serving img/s; the serving model exported (``tools/torch_export.py``:
+   bf16, batch 8 at 352x704), loaded in a fresh process and run there (K1
+   24, K2 6, K3 6, bit-equal to the eager call; its time to the first output
+   against building the model), and in f32 at batch 2 against its eager
+   call; the same model with ``return_weights`` (K1 24, K2 0, K3 6, six f32
+   weights); and tensor-parallel FFs on a (data=1, model=2) grid of the
+   two gloo ranks of the data-parallel phase (``tp_check``: f32 and bf16
+   recomputing steps at batch 4 on 224x448 against one process, each
+   rank's K3 on 1024 channels, the all-reduces as derived, each rank's
+   peak memory).
 
 Each phase group logs its seconds ("seconds: <group> <s>"), and before the
 result lines one line sums them, with the model builds' and the profiled
@@ -438,6 +455,9 @@ DEPTHFORMERS = {
 # v6-v8 launch no kernel
 ODA_LUNA = {"decoder_channels": 1024, "num_aux": 256, "aux_dim": 256, "num_heads": 8}
 ODA_SERVE_LAUNCHES = {"window_attention": 24}
+# the ODA models' f32 card-vs-CPU forwards run their encoder at depths
+# SHALLOW: one launch a block
+ODA_F32_LAUNCHES = {"window_attention": 8}
 ODA_TRAIN_LAUNCHES = {"window_attention": 24, "window_attention_bwd": 24}
 LUNA_FAMILY = {
     "oda_conv": (dict(name="oda_conv", decoder_channels=1024), (384, 384), ODA_SERVE_LAUNCHES,
@@ -473,8 +493,9 @@ ODA_LAST = {
 # the depth map's scale of the (resized) input where it is not 1/2
 DEPTH_SCALE = {"oda_lime": 4}
 # the earlier paths' f32 CPU references (the flagship at 352x1216, the siblings'
-# and the ODA2 Luna models' forwards and train steps) run a Swin-B of depths
-# (2, 2, 2, 2) on both devices: full width, cut depth, to keep the CPU side short
+# and the ODA2 Luna models' forwards and train steps, from PR 18 the ODA models'
+# forwards) run a Swin of depths (2, 2, 2, 2) on both devices: full width, cut
+# depth, to keep the CPU side short
 SHALLOW = {"depths": (2, 2, 2, 2)}
 # the ordered heads' f32 references at 352x1216 and in the flagship's and the
 # ordered siblings' f32 train steps run one repeat of three (full width, cut
@@ -1140,19 +1161,23 @@ def sized(name: str, hw: tuple) -> dict:
 
 def luna_family_f32_check(dev, name: str, seed: int) -> dict:
     """An ODA (``LUNA_FAMILY``, ``ODA_LAST``) or Depthformer v6-v8 model's
-    full-width f32 forward at batch 1 (the ODA models at 384x384, v6-v8 at
-    352x704): the card against the CPU, the depth map and the bin centers
-    or edges in metres, the aux tokens at WEIGHTS_TOL of their size, the
-    attention weights as probabilities. Returns the card's launches."""
+    full-width f32 forward at batch 1 (the ODA models at 384x384, their
+    Swin-L encoder at depths ``SHALLOW``, K1 8; v6-v8 at 352x704): the card
+    against the CPU, the depth map and the bin centers or edges in metres,
+    the aux tokens at WEIGHTS_TOL of their size, the attention weights as
+    probabilities. Returns the card's launches."""
     from mde_tpu_torch.models import build_model
     from mde_tpu_torch.ops import kernels
     cfg, hw, serving, _, rest_count = {**LUNA_FAMILY, **ODA_LAST}[name]
+    # the ODA models (those that run K1) at cut depth, as the other f32 checks
+    shallow = {"encoder_kwargs": SHALLOW} if serving else {}
+    expect = ODA_F32_LAUNCHES if serving else {}
     scale = DEPTH_SCALE.get(name, 2)
     x = torch.from_numpy(np.random.RandomState(seed).rand(1, *hw, 3).astype(np.float32))
     outs = []
     # one build, moved to the card and back: build_model draws the weights
     # on the CPU whatever the device
-    model = build_model(cfg, 0.001, 80.0, device="cpu", seed=0, **sized(name, hw))
+    model = build_model(cfg, 0.001, 80.0, device="cpu", seed=0, **sized(name, hw), **shallow)
     for device in (dev, torch.device("cpu")):
         model.to(device)
         kernels.reset_launch_counts()
@@ -1182,7 +1207,7 @@ def luna_family_f32_check(dev, name: str, seed: int) -> dict:
         f"(tolerances: bins in m {MODEL_F32_TOL}, aux tokens {WEIGHTS_TOL} of their size, "
         f"weights {WEIGHTS_TOL})")
     if (tuple(depth.shape) != (1, hw[0] // scale, hw[1] // scale, 1) or err > MODEL_F32_TOL
-            or counts != dict(dict.fromkeys(kernels.KERNELS, 0), **serving)
+            or counts != dict(dict.fromkeys(kernels.KERNELS, 0), **expect)
             or len(rest) != rest_count
             or [t.shape for t in rest] != [t.shape for t in ref_rest]
             or not all(torch.isfinite(t).all() for t in [depth] + rest)
@@ -1319,10 +1344,13 @@ def serve_run(tag, predictor, images, expect, entries=None) -> tuple:
     return rate, counts
 
 
-def model_bf16_run(dev) -> dict:
-    """Full-width bf16 serving at batch 8: the default FFs, then the six FFs
-    fused (K4), each counted, timed and profiled. Returns the fused run's
-    launch counts."""
+def model_bf16_run(dev, card: str) -> dict:
+    """Full-width bf16 serving at batch 8: the default FFs, with the
+    forward's FLOPs a second (``utils/flops``); the same model exported and
+    loaded again (``export_round_trip``) and with ``return_weights``
+    (``weights_serve_run``); then the six FFs fused (K4), each counted,
+    timed and profiled. Returns the fused run's launch counts."""
+    from mde_tpu_torch.utils.flops import flagship_forward_flops
     from mde_tpu_torch.models import build_model
     from mde_tpu_torch.serve import Predictor
     model = build_model(FLAGSHIP, 0.001, 80.0, device=dev, seed=0, dtype=torch.bfloat16,
@@ -1333,11 +1361,22 @@ def model_bf16_run(dev) -> dict:
     default, _ = serve_run(f"flagship bf16 batch {BATCH} (resized to 448x896)", predictor,
                            images, dict(window_attention=24, ordered_attention=6,
                                         depthwise_conv2d=6))
+    flops = flagship_forward_flops(352, 704)
+    log(f"flagship forward: {flops / 1e12:.4f} TFLOP an image (utils/flops, 352x704 resized to "
+        f"448x896): {flops * default / 1e12:.2f} TFLOP/s at {default:.2f} img/s ({card})")
+    with timed("flagship export round trip"):
+        export_round_trip(dev, model, images, card)
+    with torch.no_grad():
+        plain_out = model(images)[0]
+    with timed("flagship return_weights serving"):
+        weights_serve_run(dev, model, images, plain_out)
+    del plain_out
+    free_garbage()
     fuse_ffs(model)
     fused, counts = serve_run(f"flagship bf16 batch {BATCH} with fused FFs (K4)", predictor,
                               images, FUSED_SERVE_LAUNCHES)
     log(f"flagship bf16 batch {BATCH} serving: fused FFs {fused:.2f} img/s against the default "
-        f"{default:.2f} img/s in this run")
+        f"{default:.2f} img/s in this run; {flops * fused / 1e12:.2f} TFLOP/s fused")
     return counts
 
 
@@ -1635,12 +1674,15 @@ def gspmd_turns(dev, mesh, card: str) -> dict:
     return counts["gspmd"]
 
 
-def gloo_rank(rank: int, root: str, batch: dict, opt: dict) -> None:
+def gloo_rank(rank: int, root: str, batch: dict, opt: dict, tp_batch: dict,
+              tp_opt: dict) -> None:
     """Rank ``rank`` of a two-rank gloo group on the one card (a
     ``FileStore`` in ``root``): the f32 ``make_train_step_gspmd`` step of
     ``one_train_step`` (weights from seed 0 on both ranks, stochastic depth
     from a generator of seed 13) on the whole ``batch``, saved to
-    ``root/rank{rank}.pt``."""
+    ``root/rank{rank}.pt``; then, on the (data=1, model=2) grid of the same
+    two ranks, the tensor-parallel steps of ``tp_steps`` on ``tp_batch``,
+    saved to ``root/tp_rank{rank}.pt``."""
     import torch.distributed as tdist
     from mde_tpu_torch.parallel.mesh import make_mesh
     from mde_tpu_torch.train.step import make_train_step_gspmd
@@ -1654,24 +1696,29 @@ def gloo_rank(rank: int, root: str, batch: dict, opt: dict) -> None:
                              make_step=lambda o, lo, hi, **kw: make_train_step_gspmd(
                                  o, lo, hi, mesh, **kw))
         torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+        del out
+        free_garbage()
+        torch.save(tp_steps(tp_batch, tp_opt), os.path.join(root, f"tp_rank{rank}.pt"))
     finally:
         tdist.destroy_process_group()
 
 
-def gloo_pair_run(dev, timeout: float = 300.0) -> None:
+def gloo_pair_run(dev, card: str, timeout: float = 300.0) -> None:
     """Two gloo ranks on the one card (NCCL refuses two ranks on one
-    device), spawned: the f32 gspmd step at the check size (batch 2 at
-    224x448, one image a rank, ``SHALLOW``, ``ONE_REPEAT``, stochastic
-    depth 0.2, dropout 0.1) on each, against one process's
-    ``make_train_step`` on the whole batch from the same weights and
-    generator; the ranks' states the same."""
+    device), spawned once for two phases. The data-parallel one: the f32
+    gspmd step at the check size (batch 2 at 224x448, one image a rank,
+    ``SHALLOW``, ``ONE_REPEAT``, stochastic depth 0.2, dropout 0.1) on
+    each, against one process's ``make_train_step`` on the whole batch from
+    the same weights and generator; the ranks' states the same. Then the
+    tensor-parallel one (``tp_steps``, ``tp_check``)."""
     import torch.multiprocessing as mp
     batch = train_batch(2, 5, hw=(224, 448))
     opt = dict(TRAIN_OPT, model=dict(FLAGSHIP, **ONE_REPEAT, drop_prob=0.1))
     ref = one_train_step(dev, batch, opt, encoder_kwargs=SHALLOW, seed=13)
+    tp_batch, tp_opt, tp_refs = tp_references(dev)
     with tempfile.TemporaryDirectory() as root:
-        ctx = mp.start_processes(gloo_rank, args=(root, batch, opt), nprocs=2, join=False,
-                                 start_method="spawn")
+        ctx = mp.start_processes(gloo_rank, args=(root, batch, opt, tp_batch, tp_opt),
+                                 nprocs=2, join=False, start_method="spawn")
         deadline = time.perf_counter() + timeout
         while not ctx.join(timeout=5):
             if time.perf_counter() > deadline:
@@ -1680,6 +1727,7 @@ def gloo_pair_run(dev, timeout: float = 300.0) -> None:
                     p.join(10)
                 raise RuntimeError(f"the gloo ranks were still running after {timeout} s")
         ranks = [torch.load(os.path.join(root, f"rank{r}.pt")) for r in range(2)]
+        tp_ranks = [torch.load(os.path.join(root, f"tp_rank{r}.pt")) for r in range(2)]
     for r, step in enumerate(ranks):
         compare_steps(f"flagship f32 train step batch 2 at 224x448: make_train_step_gspmd on "
                       f"gloo rank {r} of 2 on one card against make_train_step", step, ref,
@@ -1688,6 +1736,7 @@ def gloo_pair_run(dev, timeout: float = 300.0) -> None:
     if logs0 != logs1 or not all(torch.equal(weights0[k], weights1[k]) for k in weights0):
         raise RuntimeError("the two gloo ranks ended with different states")
     log("data parallel: the two gloo ranks ended with the same logs and state")
+    tp_check(tp_ranks, tp_refs, card)
 
 
 def data_parallel_run(dev, card: str) -> dict:
@@ -1703,8 +1752,9 @@ def data_parallel_run(dev, card: str) -> dict:
     one rank: the concatenation and division it adds, with no link crossed.
     Then ``make_train_step_gspmd``: in f32 at the check size with two
     microbatches of one image and dropout 0.1 on, against
-    ``make_train_step``; in bf16 (``gspmd_turns``); and on two gloo ranks
-    (``gloo_pair_run``). Returns the gspmd step's counted launches."""
+    ``make_train_step``; and in bf16 (``gspmd_turns``); on two gloo ranks
+    it runs in ``gloo_pair_run``. Returns the gspmd step's counted
+    launches."""
     import torch.distributed as tdist
     from mde_tpu_torch.core import dist
     from mde_tpu_torch.models import build_model
@@ -1761,9 +1811,6 @@ def data_parallel_run(dev, card: str) -> dict:
         finally:
             tdist.destroy_process_group()
         free_garbage()
-    with timed("gspmd on two gloo ranks"):
-        gloo_pair_run(dev)
-    free_garbage()
     return counts
 
 
@@ -2895,10 +2942,10 @@ def profile_call(call) -> tuple:
     activity alone: the host's ops, which nothing here reads, took 3-4x as
     long to sum up and lengthened the profiled call itself (PERF.md).
     Returns (busy ms, host-clock ms, [(ms, count, name)] by kernel)."""
-    from torch.profiler import ProfilerActivity, profile
+    from mde_tpu_torch.utils.profiling import profiler
     t_start = time.perf_counter()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profiler(host=False) as prof:
         t0 = time.perf_counter()
         call()
         torch.cuda.synchronize()
@@ -2999,6 +3046,370 @@ def build_report(kernels) -> dict:
     return out
 
 
+# -- PR 18: the kernels as operators, the exported serving forward,
+#    return_weights, tensor-parallel FFs ------------------------------------
+
+# the forward entries that are operators of the mde namespace, the kernel
+# each launches, and its binding in the kernels line
+# (the module under mde_tpu_torch/ops/kernels/, the kernel it launches)
+OPS = {"window_attention": ("window_attention", "window_attention"),
+       "window_attention_qk_v": ("window_attention", "window_attention"),
+       "ordered_attention": ("ordered_attention", "ordered_attention"),
+       "depthwise_conv2d": ("depthwise", "depthwise_conv2d"),
+       "glu_ff": ("glu_ff", "glu_ff"),
+       "channel_attention": ("channel_attention", "channel_attention")}
+BINDINGS = {k: (f"custom op mde.{k}" if k in OPS else "ctypes") for k in SOURCES}
+BINDINGS["window_attention"] = ("custom ops mde.window_attention and "
+                                "mde.window_attention_qk_v")
+# a flagship serving call with return_weights: the ordered SAs on JAX's
+# einsum path, which K2 does not serve (it computes no weights)
+WEIGHTS_SERVE_LAUNCHES = {"window_attention": 24, "depthwise_conv2d": 6}
+# the tensor-parallel steps: (data=1, model=2) on two gloo ranks on the one
+# card, at the check size with every head repeat
+TP_MODEL = dict(FLAGSHIP, tp_axis="model")
+TP_HW = (224, 448)
+TP_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def op_inputs(dev) -> dict:
+    """Each operator's bf16 inputs at its main-path shape: K1 at the
+    flagship's stage 1 (masked) and NewCRFs' crf0, K2 with the table, K3
+    and K4 at the flagship's FF, K5 at the KSA decoder's stage 0."""
+    g = torch.Generator(device=dev).manual_seed(18)
+
+    def rand(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    def mask(nw, n):
+        return torch.where(torch.rand((nw, n, n), generator=g, device=dev) < 0.2, -100.0, 0.0)
+
+    idx = torch.randint(0, 128, (3136, 64), generator=g, device=dev, dtype=torch.int32)
+    return {
+        "window_attention": (rand(512 * BATCH, 49, 384), rand(4, 49, 49, dtype=torch.float32),
+                             mask(512, 49), 4, 32 ** -0.5),
+        "window_attention_qk_v": (rand(572 * NEWCRFS_BATCH, 49, 256),
+                                  rand(572 * NEWCRFS_BATCH, 49, 128),
+                                  rand(4, 49, 49, dtype=torch.float32), mask(572, 49), 4,
+                                  32 ** -0.5),
+        "ordered_attention": (rand(3136, 64, 512), rand(3136, 64, 512), rand(3136, 64, 512),
+                              idx, rand(255, 8, scale=0.1, dtype=torch.float32), 8, 64 ** -0.5,
+                              128),
+        "depthwise_conv2d": (rand(BATCH, 112, 224, 2048), rand(5, 5, 2048, scale=0.2)),
+        "glu_ff": (rand(BATCH, 112, 224, 4096), rand(5, 5, 2048, scale=0.2),
+                   rand(2048, dtype=torch.float32), rand(2048, dtype=torch.float32)),
+        "channel_attention": (rand(512 * BATCH, 49, 64), rand(512 * BATCH, 49, 128), 4, 0.25),
+    }
+
+
+def custom_op_phase(dev, card: str) -> dict:
+    """Each forward operator (``torch.ops.mde.*``) against its direct
+    launch (``direct_*``, the same check and launch without the
+    dispatcher) on the same inputs: bit-equal, one launch each; then
+    device ms per launch (queued) and host ms per launch (after a
+    synchronisation) of both. Returns {op: (op device ms, op host ms,
+    direct host ms)}."""
+    import importlib
+    from mde_tpu_torch.ops import kernels
+    inputs = op_inputs(dev)
+    out = {}
+    for name, (module_name, kernel) in OPS.items():
+        module = importlib.import_module(f"mde_tpu_torch.ops.kernels.{module_name}")
+        op, direct = getattr(torch.ops.mde, name), getattr(module, f"direct_{name}")
+        args = inputs[name]
+        kernels.reset_launch_counts()
+        a = op(*args)
+        b = direct(*args)
+        torch.cuda.synchronize()
+        launched = kernels.launch_counts[kernel]
+        if not torch.equal(a, b) or launched != 2:
+            raise RuntimeError(f"mde.{name}: the operator's output differs from the direct "
+                               f"launch's (max {(a.float() - b.float()).abs().max().item()}) "
+                               f"or {launched} launches of {kernel} for the two calls")
+        ms = time_ms(lambda: op(*args))
+        host = time_ms(lambda: op(*args), queued=False)
+        direct_ms = time_ms(lambda: direct(*args))
+        direct_host = time_ms(lambda: direct(*args), queued=False)
+        out[name] = (ms, host, direct_host)
+        log(f"custom op mde.{name} {tuple(args[0].shape)} bf16: bit-equal to its direct launch; "
+            f"device {ms:.4f} ms (direct {direct_ms:.4f}), host {host:.4f} ms a launch "
+            f"(direct {direct_host:.4f}; the dispatch {1e3 * (host - direct_host):.1f} us) "
+            f"({card})")
+    del inputs
+    torch.cuda.empty_cache()
+    return out
+
+
+def set_return_weights(model, flag: bool) -> None:
+    """``return_weights`` on the flagship and each of its modules that
+    takes it (the head, its blocks, their ordered SAs)."""
+    for m in model.modules():
+        if hasattr(m, "return_weights"):
+            m.return_weights = flag
+
+
+def weights_serve_run(dev, model, images, plain_out) -> None:
+    """The serving model with ``return_weights``: one counted call (K1 24,
+    K2 0, K3 6: the ordered SAs take the einsum path), six f32 (B * 392, 8,
+    64, 64) weights whose rows sum to 1, and the depth map against the
+    default call's (K2). The two paths round the attention differently, so
+    the maps are not the same bits: in bf16 the sigmoid's maps are bf16,
+    whose step near 1 is 2^-8 (0.3125 m at 80 m), and the map is held
+    within two of them; in f32 (batch 2, the same model) within the
+    card-vs-CPU tolerance."""
+    from mde_tpu_torch.ops import kernels
+    from mde_tpu_torch.train.step import default_adapter
+    set_return_weights(model, True)
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            result = model(images)
+        torch.cuda.synchronize()
+        counts = dict(kernels.launch_counts)
+        model.dtype = torch.float32
+        with torch.no_grad():
+            f32_out = model(images[:2])[0]
+        set_return_weights(model, False)
+        with torch.no_grad():
+            f32_diff = (model(images[:2])[0] - f32_out).abs().max().item()
+    finally:
+        set_return_weights(model, False)
+        model.dtype = torch.bfloat16
+    out, outs, weights = result
+    expect = dict(dict.fromkeys(kernels.KERNELS, 0), **WEIGHTS_SERVE_LAUNCHES)
+    shape = (BATCH * 392, 8, 64, 64)
+    rows = max((w.sum(-1) - 1).abs().max().item() for w in weights)
+    diff = (out - plain_out).abs().max().item()
+    moved = int((out != plain_out).sum())
+    log(f"flagship bf16 batch {BATCH} with return_weights: launches {counts}; weights "
+        f"{len(weights)} x {tuple(weights[0].shape)} {weights[0].dtype}, rows sum to 1 within "
+        f"{rows:.2e}; depth map against the default call's (K2): {diff:.4f} m at most, "
+        f"{moved} of {out.numel()} pixels differ; in f32 at batch 2 {f32_diff:.3e} m")
+    maps, _ = default_adapter(result)
+    if (counts != expect or len(weights) != 6 or any(tuple(w.shape) != shape
+                                                     or w.dtype != torch.float32
+                                                     for w in weights)
+            or rows > 1e-5 or diff > 2 * 80.0 * 2 ** -8 or f32_diff > MODEL_F32_TOL
+            or len(maps) != 4 or any(m is not o for m, o in zip(maps, outs))):
+        raise RuntimeError(f"return_weights serving call: expected {expect} launches and six "
+                           f"{shape} f32 weights, the adapter taking the maps; got {counts}, "
+                           f"{[tuple(w.shape) for w in weights]}, depth {diff}")
+    del result, weights
+
+
+EXPORT_CHILD = """
+import json, sys, time
+t0 = time.perf_counter()
+sys.path[:0] = ["tools", "."]
+import torch
+import torch_export
+from mde_tpu_torch.ops import kernels
+images = torch.load(sys.argv[2])
+t1 = time.perf_counter()
+module = torch_export.load(sys.argv[1])
+t2 = time.perf_counter()
+kernels.reset_launch_counts()
+with torch.no_grad():
+    pred = module(images.cuda())
+torch.cuda.synchronize()
+t3 = time.perf_counter()
+counts = dict(kernels.launch_counts)
+torch.save(pred.cpu(), sys.argv[3])
+from mde_tpu_torch.models import build_model
+from mde_tpu_torch.serve import Predictor
+t4 = time.perf_counter()
+model = build_model(json.loads(sys.argv[4]), 0.001, 80.0, seed=0, dtype=torch.bfloat16,
+                    use_checkpoint=False)
+with torch.no_grad():
+    model.eval()(images.cuda())
+torch.cuda.synchronize()
+t5 = time.perf_counter()
+print(json.dumps({"launches": counts, "start_s": t1 - t0, "load_s": t2 - t1,
+                  "first_call_s": t3 - t2, "build_and_first_call_s": t5 - t4}))
+"""
+
+
+def export_round_trip(dev, model, images, card: str) -> None:
+    """``tools/torch_export.py`` on the serving model (bf16, batch 8 at
+    352x704, the default FFs): export and save, then load the program in a
+    fresh process and run it on the same images, with its launches (K1
+    24, K2 6, K3 6), its output bit-equal to the eager call's, and its time
+    to the first output against building and initialising the model in
+    that process. Then the same model in f32 (batch 2), exported and run
+    here, against its eager call."""
+    root_dir = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root_dir, "tools"))
+    import torch_export
+    with torch.no_grad():
+        eager = model(images)[0]
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        torch_export.export(os.path.join(root, "bf16"), "train", BATCH, "base", model=model)
+        export_s = time.perf_counter() - t0
+        paths = [os.path.join(root, n) for n in ("bf16", "images.pt", "pred.pt")]
+        torch.save(images.cpu(), paths[1])
+        child = subprocess.run([sys.executable, "-c", EXPORT_CHILD, *paths,
+                                json.dumps(FLAGSHIP)], capture_output=True, text=True,
+                               timeout=300, cwd=root_dir)
+        if child.returncode != 0:
+            raise RuntimeError(f"loading the exported program failed:\n{child.stderr[-4000:]}")
+        report = json.loads(child.stdout.strip().splitlines()[-1])
+        pred = torch.load(paths[2]).to(dev)
+        with open(os.path.join(paths[0], "meta.json")) as f:
+            meta = json.load(f)
+        size = os.path.getsize(os.path.join(paths[0], "flagship_train.pt2"))
+        log(f"export: flagship bf16 batch {BATCH} at 352x704 exported and saved in "
+            f"{export_s:.1f} s ({size / 2 ** 20:.0f} MiB); meta {meta}")
+        expect = dict(dict.fromkeys(report["launches"], 0), window_attention=24,
+                      ordered_attention=6, depthwise_conv2d=6)
+        diff = (pred - eager).abs().max().item()
+        same = "bit-equal" if torch.equal(pred, eager) else "not bit-equal"
+        log(f"export: the loaded program in a fresh process: launches {report['launches']}, "
+            f"against the eager call max |d| {diff:.3e} m ({same}); process start and "
+            f"imports {report['start_s']:.1f} s, load {report['load_s']:.1f} s, first output "
+            f"{report['first_call_s']:.2f} s after the load; building and initialising the "
+            f"model and its first output {report['build_and_first_call_s']:.1f} s ({card})")
+        if report["launches"] != expect or not torch.equal(pred, eager):
+            raise RuntimeError(f"the loaded program launched {report['launches']} (expected "
+                               f"{expect}) or differs from the eager call by {diff}")
+    # f32: the same model exported at batch 2 and run here, not saved
+    model.dtype = torch.float32
+    try:
+        x = images[:2]
+        with torch.no_grad():
+            eager32 = model(x)[0]
+            t0 = time.perf_counter()
+            program = torch.export.export(torch_export.ServingForward(model), (x,))
+            f32_s = time.perf_counter() - t0
+            pred32 = program.module()(x)
+    finally:
+        model.dtype = torch.bfloat16
+    diff32 = (pred32 - eager32).abs().max().item()
+    log(f"export: flagship f32 batch 2 exported in {f32_s:.1f} s and run here: against the "
+        f"eager call max |d| {diff32:.3e} m")
+    if diff32 > 1e-4:
+        raise RuntimeError(f"the f32 exported program differs from the eager call by {diff32}")
+    del eager, pred
+    free_garbage()
+
+
+def tp_all_reduces(model, num_accum: int = 1) -> int:
+    """The all-reduces of one GSPMD step of the flagship ``model`` whose
+    FFs split over a model axis of more than one rank: those of
+    ``gspmd_all_reduces``, and in each microbatch for each FF its partial
+    products summed in the forward, its input's gradient summed in the
+    backward and its partial products summed again in its block's replay;
+    the gradient then takes two (the replicated parameters' mean, the
+    slices' sum) and the slices' running statistics one."""
+    from mde_tpu_torch.ops.mlp import PreNormDWConvFF
+    ffs = sum(isinstance(m, PreNormDWConvFF) for m in model.modules())
+    return gspmd_all_reduces(model, num_accum) + num_accum * 3 * ffs + 2
+
+
+def tp_steps(batch: dict, opt: dict) -> list:
+    """On a rank of the two gloo ranks of ``gloo_rank``, as the (data=1,
+    model=2) grid: one recomputing GSPMD step of the flagship with
+    ``tp_axis`` in f32, then one in bf16 (each a fresh model, weights from
+    seed 0, stochastic depth from a generator of seed 17) on the whole
+    ``batch``. Returns for each (logs, gradients, state, launches, the
+    channels of each K3 forward and dxdw launch, all-reduces, peak bytes,
+    the rank's place)."""
+    from mde_tpu_torch.core import dist
+    from mde_tpu_torch.ops import kernels
+    from mde_tpu_torch.ops.kernels import depthwise
+    from mde_tpu_torch.parallel.mesh import make_mesh
+    from mde_tpu_torch.train.step import make_train_step_gspmd
+    channels = {"fwd": [], "dxdw": []}
+    for key, name in (("fwd", "direct_depthwise_conv2d"), ("dxdw", "depthwise_dxdw")):
+        real = getattr(depthwise, name)
+
+        def record(x, *args, real=real, key=key):
+            channels[key].append(x.shape[-1])
+            return real(x, *args)
+
+        setattr(depthwise, name, record)
+    mesh = make_mesh(torch.device("cuda"), n_model=2)
+
+    def make_step(o, lo, hi, **kw):
+        return make_train_step_gspmd(o, lo, hi, mesh, **kw)
+
+    results = []
+    for dtype in TP_DTYPES:
+        for v in channels.values():
+            v.clear()
+        free_garbage()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        dist.reset_collective_counts()
+        out = one_train_step(mesh.device, batch, opt, encoder_kwargs=SHALLOW, seed=17,
+                             dtype=dtype, make_step=make_step)
+        torch.cuda.synchronize()
+        results.append((*out, dict(kernels.launch_counts),
+                        {k: list(v) for k, v in channels.items()},
+                        dist.collective_counts["all_reduce"],
+                        torch.cuda.max_memory_allocated(), (mesh.rank, mesh.model_rank)))
+    return results
+
+
+def tp_references(dev) -> tuple:
+    """The tensor-parallel phase's batch (4 at 224x448), config (the
+    flagship with ``tp_axis``) and one process's ``make_train_step`` of each
+    of ``TP_DTYPES`` on it (``one_train_step``, seed 17)."""
+    # as the ranks: f32 convolutions without TF32 (cuDNN's default)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    batch = train_batch(TRAIN_BATCH, 19, hw=TP_HW)
+    opt = dict(TRAIN_OPT, model=TP_MODEL)
+    refs = []
+    for dtype in TP_DTYPES:
+        refs.append(one_train_step(dev, batch, opt, encoder_kwargs=SHALLOW, seed=17,
+                                   dtype=dtype))
+        free_garbage()
+    return batch, opt, refs
+
+
+def tp_check(ranks: list, refs: list, card: str) -> None:
+    """Tensor-parallel FFs on a (data=1, model=2) grid of two gloo ranks on
+    the one card (``tp_steps``): the flagship's recomputing GSPMD step
+    (``tp_axis`` "model", ``save_sa_conv``) at batch 4 on 224x448 (encoder
+    ``SHALLOW``, 3 repeats, stochastic depth 0.2), in f32 and in bf16,
+    each rank's FFs on 1024 of the 2048 hidden channels, against one
+    process's ``make_train_step`` on the whole batch from the same weights
+    and generator (``tp_references``): f32 within ``compare_steps``'
+    tolerances, bf16 the logs within 2e-2 of their size (the partial
+    products are summed in bf16); the ranks' states bit-equal, the
+    all-reduces as derived (``tp_all_reduces``), each rank's K3 launches
+    and peak memory."""
+    from mde_tpu_torch.models import build_model
+    derived = tp_all_reduces(build_model(TP_MODEL, 0.001, 80.0, device="cpu",
+                                         encoder_kwargs=SHALLOW))
+    for i, (dtype, ref) in enumerate(zip(TP_DTYPES, refs)):
+        tag = (f"flagship {dtype} recomputing train step batch {TRAIN_BATCH} at "
+               f"{TP_HW[0]}x{TP_HW[1]}, tp_axis on (data=1, model=2)")
+        for r in range(2):
+            logs, grads, state, counts, channels, reduces, peak, place = ranks[r][i]
+            log(f"tensor parallel: {tag}, rank {r} at {place}: K3 forward launches at "
+                f"{channels['fwd']} channels, K3 dxdw at {channels['dxdw']}; launches {counts}; "
+                f"all-reduces {reduces} (derived {derived}); peak memory "
+                f"{peak / 2 ** 30:.2f} GiB ({card})")
+            if (reduces != derived or channels["fwd"] != [1024] * 6
+                    or channels["dxdw"] != [1024] * 6):
+                raise RuntimeError(f"{tag}, rank {r}: {reduces} all-reduces (derived "
+                                   f"{derived}), K3 channels {channels}")
+            if dtype == torch.float32:
+                compare_steps(f"{tag}, rank {r} against one process's make_train_step",
+                              (logs, grads, state), ref, ("TP rank", "make_train_step"))
+            else:
+                bad = {k: (logs[k], ref[0][k]) for k in ("loss", "loss_si", "grad_norm")
+                       if abs(logs[k] - ref[0][k]) > 2e-2 * max(1.0, abs(ref[0][k]))}
+                log(f"{tag}, rank {r}: logs {logs}, one process {ref[0]}")
+                if bad:
+                    raise RuntimeError(f"{tag}: the logs differ from one process's: {bad}")
+        (logs0, _, state0, *_), (logs1, _, state1, *_) = ranks[0][i], ranks[1][i]
+        if logs0 != logs1 or not all(torch.equal(state0[k], state1[k]) for k in state0):
+            raise RuntimeError(f"{tag}: the two ranks ended with different states")
+        log(f"tensor parallel: {tag}: the two ranks ended with the same logs and state")
+
 def kernel_phases(kernels, dev) -> tuple:
     """Build the kernels, log their registers and shared memory, and run
     every kernel phase. Returns (the main phases, the other shapes by
@@ -3098,12 +3509,14 @@ def main() -> int:
     count_builds()
     with timed("kernel phases", group=True):
         phases, more, build = kernel_phases(kernels, dev)
+    with timed("custom ops", group=True):
+        op_times = custom_op_phase(dev, card)
     with timed("flagship", group=True):
         with timed("flagship f32 forward"):
             model_f32_check(dev)
         torch.cuda.empty_cache()
         with timed("flagship serving"):
-            fused_counts = model_bf16_run(dev)
+            fused_counts = model_bf16_run(dev, card)
         torch.cuda.empty_cache()
         with timed("flagship f32 train step"):
             train_f32_check(dev)
@@ -3116,6 +3529,9 @@ def main() -> int:
             bare_rate = remat["save_sa_conv"][1]
         with timed("flagship data parallel"):
             data_parallel_run(dev, card)
+        with timed("flagship data and tensor parallel on two gloo ranks"):
+            gloo_pair_run(dev, card)
+        free_garbage()
         with timed("flagship f32 at 352x1216"):
             eval_shape_f32_check(dev)
         torch.cuda.empty_cache()
@@ -3200,7 +3616,9 @@ def main() -> int:
         "replaces": SOURCES[name][1], "launches": paths[name][1][name],
         "path": paths[name][0], "max_abs_err": p["max_abs_err_bf16"], "ms": p["ms"],
         "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
-        "library_ms": p["library_ms"], "host_ms": p["host_ms"]},
+        "library_ms": p["library_ms"], "host_ms": p["host_ms"], "binding": BINDINGS[name]},
+        **({"custom_op": {"ms": op_times[name][0], "host_ms": op_times[name][1],
+                          "direct_host_ms": op_times[name][2]}} if name in op_times else {}),
         **{k: p[k] for k in ("library", "unfused_chain_ms", "one_bucket_ms", "body") if k in p},
         **build.get(name, {}),
         **({"newcrfs_launches": newcrfs[name]} if name in newcrfs else {}),

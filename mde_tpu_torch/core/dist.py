@@ -17,6 +17,14 @@ backward passes: inside it, :func:`global_batch` names this rank's place
 in the data group, and the modules take their batch-wide sums through
 :func:`sum_over_ranks`, whose backward sums the gradients over the ranks
 too. ``collective_counts`` counts this process's all-reduce launches.
+
+Under a (data, model) mesh (``parallel.mesh.make_mesh(..., n_model=n)``)
+the batch-wide sums go over the data group (``Mesh.data_group``), and a
+tensor-parallel feed-forward (``ops/mlp.PreNormDWConvFF`` with
+``tp_axis``) joins its channel slices over the model group:
+:func:`copy_to_model` at its input (its backward sums the slices'
+gradients) and :func:`sum_over_model` at its output (the partial products
+summed; its backward hands each rank the whole gradient).
 """
 
 from __future__ import annotations
@@ -175,3 +183,45 @@ def dprint(*args, force: bool = False, **kwargs) -> None:
     """Print on the primary process only (reference ``utils/common_utils.py:55-57``)."""
     if force or is_primary():
         print(*args, **kwargs)
+
+
+class _SumOverModel(torch.autograd.Function):
+    """The sum over the model group; backward the identity: every rank of
+    the group uses the whole sum and backpropagates the same gradient,
+    which is each rank's partial's gradient."""
+
+    @staticmethod
+    def forward(ctx, group, x):
+        return all_reduce_tensors([x], "sum", group)[0]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, grad
+
+
+class _CopyToModel(torch.autograd.Function):
+    """The identity; backward the sum over the model group of the
+    gradients, one from each rank's channel slice."""
+
+    @staticmethod
+    def forward(ctx, group, x):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, all_reduce_tensors([grad], "sum", ctx.group)[0]
+
+
+def sum_over_model(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over the model group of each rank's partial ``x`` (one
+    collective), whose gradient is handed back whole to every rank's
+    partial (Megatron's row-parallel output)."""
+    return _SumOverModel.apply(group, x)
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` as it is, whose gradient is summed over the model group (one
+    collective in the backward pass): the input of a layer each rank of
+    the group computes a slice of (Megatron's column-parallel input)."""
+    return _CopyToModel.apply(group, x)

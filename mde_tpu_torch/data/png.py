@@ -139,7 +139,7 @@ def encode_png(image: np.ndarray) -> bytes:
     """PNG bytes of an (H, W) uint8 or uint16 gray image, or an (H, W, 3) or
     (H, W, 4) uint8 RGB or RGBA one; every row Up-filtered, deflated at
     zlib's default level."""
-    image = np.asarray(image)
+    image = np.ascontiguousarray(image)
     channels = 1 if image.ndim == 2 else image.shape[-1] if image.ndim == 3 else 0
     if image.dtype == np.uint16 and channels == 1:
         depth, rows = 16, image.astype(">u2").view(np.uint8)

@@ -17,7 +17,7 @@ unrolled layout only.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -38,19 +38,23 @@ class OrderedSwinBlock(nn.Module):
     DWConv-GLU FF] + Linear + LN. ``attn_drop_prob`` and ``drop_prob`` go
     to both SAs, ``drop_prob`` and ``bn_momentum`` to both FFs
     (``mde_tpu/models/oda2/red_order_swin2.py:50-71``); dropout draws from
-    the ``generator`` given to ``forward``."""
+    the ``generator`` given to ``forward``. ``return_weights``: ``forward``
+    returns ``(x, (weights of sa1, weights of sa2))``. ``tp_axis`` goes to
+    both FFs (``ops/mlp.PreNormDWConvFF``)."""
 
     def __init__(self, dim: int, num_heads: int, num_emb: int, window_size: int = 8,
                  feedforward_dims: Optional[int] = None, bias_type: str = "depth",
                  bias_init: str = "linear", bn_eps: float = 1e-5,
                  attn_drop_prob: float = 0.0, drop_prob: float = 0.0,
-                 bn_momentum: float = 0.1):
+                 bn_momentum: float = 0.1, return_weights: bool = False,
+                 tp_axis: Optional[str] = None):
         super().__init__()
+        self.return_weights = return_weights
         sa = dict(num_heads=num_heads, num_emb=num_emb, window_size=window_size,
                   bias_type=bias_type, bias_init=bias_init, attn_drop_prob=attn_drop_prob,
-                  drop_prob=drop_prob)
+                  drop_prob=drop_prob, return_weights=return_weights)
         ff = dict(feedforward_dims=feedforward_dims, bn_eps=bn_eps, drop_prob=drop_prob,
-                  bn_momentum=bn_momentum)
+                  bn_momentum=bn_momentum, tp_axis=tp_axis)
         self.sa1 = PreNormOrderedSwinSA(dim, shift_size=0, **sa)
         self.ff1 = PreNormDWConvFF(dim, **ff)
         self.sa2 = PreNormOrderedSwinSA(dim, shift_size=window_size // 2, **sa)
@@ -63,10 +67,16 @@ class OrderedSwinBlock(nn.Module):
         return self.training and (self.sa1.attn_drop.rate > 0 or self.sa1.drop.rate > 0)
 
     def forward(self, x: torch.Tensor, indices: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        x = self.ff1(self.sa1(x, indices, generator), generator)
-        x = self.ff2(self.sa2(x, indices, generator), generator)
-        return self.norm(self.linear(x))
+                generator: Optional[torch.Generator] = None):
+        weights = []
+        for sa, ff in ((self.sa1, self.ff1), (self.sa2, self.ff2)):
+            x = sa(x, indices, generator)
+            if self.return_weights:
+                x, w = x
+                weights.append(w)
+            x = ff(x, generator)
+        x = self.norm(self.linear(x))
+        return (x, tuple(weights)) if self.return_weights else x
 
 
 def _quantize_logit(logit: torch.Tensor, num_emb: int) -> torch.Tensor:
@@ -96,16 +106,22 @@ class OrderedSwinRegHead(nn.Module):
     ``use_checkpoint`` recomputes each repeat's ``OrderedSwinBlock`` in the
     backward pass under the recompute policy (``ops/remat.py``;
     ``mde_tpu/models/oda2/red_order_swin2.py:237-242``), its dropout masks
-    drawn again from the same generator state."""
+    drawn again from the same generator state. ``return_weights``:
+    ``forward`` returns ``(maps, weights)``, the two ordered SAs' f32
+    weights of each repeat in order; the blocks are then not recomputed
+    (a checkpointed block returns one tensor), which changes the memory a
+    training step holds and none of its numbers."""
 
     def __init__(self, in_dims: int, num_heads: int, num_repeats: int, num_emb: int = 128,
                  window_size: int = 8, feedforward_dims: Optional[int] = None,
                  output_scale: int = 4, bias_type: str = "depth", bias_init: str = "linear",
                  bn_eps: float = 1e-5, use_checkpoint: bool = False,
                  attn_drop_prob: float = 0.0, drop_prob: float = 0.0,
-                 bn_momentum: float = 0.1):
+                 bn_momentum: float = 0.1, return_weights: bool = False,
+                 tp_axis: Optional[str] = None):
         super().__init__()
         self.use_checkpoint = use_checkpoint
+        self.return_weights = return_weights
         if output_scale not in (2, 4):
             raise ValueError(f"output_scale must be 2 or 4, got {output_scale}")
         self.num_emb = num_emb
@@ -115,35 +131,40 @@ class OrderedSwinRegHead(nn.Module):
         self.attn_layers = nn.ModuleList(
             OrderedSwinBlock(in_dims, num_heads, num_emb, window_size, feedforward_dims,
                              bias_type, bias_init, bn_eps, attn_drop_prob, drop_prob,
-                             bn_momentum) for _ in range(num_repeats))
+                             bn_momentum, return_weights, tp_axis)
+            for _ in range(num_repeats))
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
-                ) -> Tuple[torch.Tensor, ...]:
-        outs = []
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
+        outs, weights = [], ()
         for conv, attn in zip(self.conv_layers, self.attn_layers):
             logit = conv(x)
             outs.append(torch.sigmoid(logit))
             idx = _quantize_logit(logit, self.num_emb)
-            if self.use_checkpoint and torch.is_grad_enabled():
+            if self.return_weights:
+                x, aws = attn(x, idx, generator)
+                weights += aws
+            elif self.use_checkpoint and torch.is_grad_enabled():
                 x = checkpoint(attn, x, idx, generator=generator if attn.drops() else None)
             else:
                 x = attn(x, idx, generator)
         outs.append(torch.sigmoid(self.conv_layers[-1](x)))
-        return tuple(outs)
+        return (tuple(outs), weights) if self.return_weights else tuple(outs)
 
 
 class OrderedSwin2RegDecoder(nn.Module):
     """Neck (red / fpn / segformer / red33 / red33r / red33res) + ordered
     head, over encoder features of ``enc_dims`` channels at strides
     4/8/16/32. ``bn_momentum`` reaches every BatchNorm, the dropout rates
-    every ordered block (``mde_tpu/models/oda2/red_order_swin2.py:284-392``)."""
+    every ordered block (``mde_tpu/models/oda2/red_order_swin2.py:284-392``).
+    ``return_weights`` as the head's; ``tp_axis`` goes to every FF."""
 
     def __init__(self, enc_dims: Sequence[int], dec_dim: int = 512, num_heads: int = 8,
                  num_repeats: int = 3, num_emb: int = 128, window_size: int = 8,
                  output_scale: int = 4, bias_type: str = "depth", bias_init: str = "linear",
                  neck_type: str = "red", bn_eps: float = 1e-5, use_checkpoint: bool = False,
                  attn_drop_prob: float = 0.0, drop_prob: float = 0.0,
-                 bn_momentum: float = 0.1):
+                 bn_momentum: float = 0.1, return_weights: bool = False,
+                 tp_axis: Optional[str] = None):
         super().__init__()
         if neck_type not in NECK_TYPES:
             raise ValueError(f"Unsupported neck type {neck_type}.")
@@ -184,10 +205,11 @@ class OrderedSwin2RegDecoder(nn.Module):
                                           bias_init=bias_init, bn_eps=bn_eps,
                                           use_checkpoint=use_checkpoint,
                                           attn_drop_prob=attn_drop_prob, drop_prob=drop_prob,
-                                          bn_momentum=bn_momentum)
+                                          bn_momentum=bn_momentum,
+                                          return_weights=return_weights, tp_axis=tp_axis)
 
     def forward(self, features: Sequence[torch.Tensor],
-                generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, ...]:
+                generator: Optional[torch.Generator] = None):
         e4, e8, e16, e32 = features
         feats = (("32", e32, 8), ("16", e16, 4), ("8", e8, 2), ("4", e4, 1))
         if self.neck_type == "red":
@@ -220,7 +242,12 @@ class ODA2OrderedSwin2RegModel(SwinDepthModel):
     decoder BatchNorm. ``use_checkpoint`` recomputes each Swin block and
     each head repeat's ordered block in the backward pass; it is on by
     default, as in the JAX model, so that one config trains the same way on
-    both."""
+    both. ``return_weights``: ``forward`` returns ``(out, outs,
+    attn_weights)``, the f32 (B*nW, heads, N, N) weights of the two ordered
+    SAs of each repeat (``mde_tpu/models/oda2/red_order_swin2.py:425,471``),
+    the SAs on JAX's einsum path in place of K2. ``tp_axis`` (``"model"``)
+    splits every FF's hidden channels over the model axis of a mesh
+    (``ops/mlp.PreNormDWConvFF``, ``parallel.mesh``)."""
 
     def __init__(self, dec_dim: int, min_depth: float, max_depth: float, num_heads: int,
                  num_repeats: int, num_emb: int, window_size: int = 8,
@@ -230,19 +257,22 @@ class ODA2OrderedSwin2RegModel(SwinDepthModel):
                  dtype: torch.dtype = torch.float32, resize_to_multiple: bool = True,
                  encoder_kwargs: Optional[dict] = None, use_checkpoint: bool = True,
                  drop_prob: float = 0.0, attn_drop_prob: float = 0.0,
-                 bn_momentum: float = 0.1):
+                 bn_momentum: float = 0.1, return_weights: bool = False,
+                 tp_axis: Optional[str] = None):
         super().__init__(min_depth, max_depth, encoder_type, path_drop_prob, use_checkpoint,
                          dtype, resize_to_multiple, encoder_kwargs)
+        self.return_weights = return_weights
         self.decoder = OrderedSwin2RegDecoder(
             self.encoder.num_features, dec_dim, num_heads, num_repeats, num_emb, window_size,
             output_scale, bias_type, bias_init, neck_type, bn_eps, use_checkpoint,
-            attn_drop_prob, drop_prob, bn_momentum)
+            attn_drop_prob, drop_prob, bn_momentum, return_weights, tp_axis)
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
-                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> tuple:
         outs = self.decoder(self.features(x, generator), generator)
+        if self.return_weights:
+            outs, weights = outs
         outs = tuple(o.float() * self.max_depth for o in outs)
-        return outs[-1], outs
+        return (outs[-1], outs, weights) if self.return_weights else (outs[-1], outs)
 
     @classmethod
     def build(cls, opt, min_depth: float, max_depth: float, **overrides):
@@ -260,6 +290,7 @@ class ODA2OrderedSwin2RegModel(SwinDepthModel):
             bias_type=opt.get("bias_type", "depth"),
             bias_init=opt.get("bias_init", "linear"),
             neck_type=opt.get("neck_type", "red"),
-            bn_momentum=opt.get("bn_momentum", 0.1), bn_eps=opt.get("bn_eps", 1e-5))
+            bn_momentum=opt.get("bn_momentum", 0.1), bn_eps=opt.get("bn_eps", 1e-5),
+            tp_axis=opt.get("tp_axis"))
         kwargs.update(overrides)
         return cls(**kwargs)

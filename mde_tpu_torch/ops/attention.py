@@ -87,3 +87,45 @@ class WindowAttention(nn.Module):
         else:
             out = window_attention(qkv, bias, mask, nh, (c // nh) ** -0.5)
         return self.proj_drop(self.proj(out), generator)
+
+
+class MultiHeadAttention(nn.Module):
+    """Plain MHA over separate query, key and value tokens (..., N, C)
+    (``mde_tpu/ops/attention.py:124-178``): ``q_proj``, ``k_proj`` to
+    ``key_query_dim`` (default C) and ``v_proj``, ``o_proj`` to ``out_dim``
+    (default C), split into ``num_heads``; the logits of q * (head dim)^-0.5
+    and k in the activation dtype, the softmax in f32, its cast back,
+    dropout (``attn_drop_prob``), P . v, ``o_proj`` and its dropout
+    (``drop_prob``). ``return_weights``: ``forward`` returns ``(out,
+    weights)``, the f32 softmax (..., heads, Nq, Nk)."""
+
+    def __init__(self, dim: int, num_heads: int, out_dim: Optional[int] = None,
+                 key_query_dim: Optional[int] = None, qkv_bias: bool = True,
+                 attn_drop_prob: float = 0.0, drop_prob: float = 0.0,
+                 return_weights: bool = False):
+        super().__init__()
+        out_dim = out_dim or dim
+        kq_dim = key_query_dim or dim
+        if kq_dim % num_heads or out_dim % num_heads:
+            raise ValueError(f"{kq_dim} and {out_dim} channels over {num_heads} heads")
+        self.num_heads = num_heads
+        self.return_weights = return_weights
+        self.q_proj = Linear(dim, kq_dim, bias=qkv_bias)
+        self.k_proj = Linear(dim, kq_dim, bias=qkv_bias)
+        self.v_proj = Linear(dim, out_dim, bias=qkv_bias)
+        self.o_proj = Linear(out_dim, out_dim, bias=qkv_bias)
+        self.attn_drop = Dropout(attn_drop_prob)
+        self.drop = Dropout(drop_prob)
+
+    def forward(self, q_in: torch.Tensor, k_in: torch.Tensor, v_in: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
+        nh = self.num_heads
+        q, k, v = self.q_proj(q_in), self.k_proj(k_in), self.v_proj(v_in)
+        scale = (q.shape[-1] // nh) ** -0.5
+        q, k, v = (t.reshape(*t.shape[:-1], nh, t.shape[-1] // nh) for t in (q, k, v))
+        attn = torch.einsum("...qhd,...khd->...hqk", q * torch.tensor(scale, dtype=q.dtype), k)
+        weights = attn.float().softmax(dim=-1)
+        attn = self.attn_drop(weights.to(v.dtype), generator)
+        out = torch.einsum("...hqk,...khd->...qhd", attn, v)
+        out = self.drop(self.o_proj(out.reshape(*out.shape[:-2], -1)), generator)
+        return (out, weights) if self.return_weights else out

@@ -10,6 +10,15 @@ Dispatch is by device and nothing else: a tensor on the CPU takes the plain
 version, a CUDA tensor launches the kernel or raises. There is no override
 and no fallback: a failed build or launch is an error.
 
+The forward entry of every kernel is also an operator of the ``mde``
+namespace (``torch.library.custom_op``: ``torch.ops.mde.window_attention``,
+``window_attention_qk_v``, ``ordered_attention``, ``depthwise_conv2d``,
+``glu_ff``, ``channel_attention``), registered when its module is
+imported, so that ``torch.export`` records one node a call
+(``tools/torch_export.py``); its fake gives only the output's shape and
+dtype. The backward entries stay plain ``ctypes`` calls inside the
+``autograd.Function``s.
+
 The kernels are compiled at first use, never at import: every
 ``csrc/*.cu`` goes through its own ``nvcc`` (all started together) for
 ``sm_90a``, and the objects are linked into one shared library under
@@ -100,16 +109,22 @@ def _nvcc() -> str:
     return path
 
 
+def library_digest() -> str:
+    """The hash that names the kernel library: of the compiler flags and
+    every source under ``csrc/``."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu*")):
+        digest.update(path.name.encode() + path.read_bytes())
+    return digest.hexdigest()[:16]
+
+
 def build() -> Path:
     """Compile ``csrc/*.cu`` into one shared library (reused while the
     sources are unchanged) and return its path. The ``-Xptxas -v`` report
     of every source (registers, shared memory, spills) is written beside it
     as ``.ptxas.txt``."""
     sources = sorted(CSRC.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(CSRC.glob("*.cu*")):
-        digest.update(path.name.encode() + path.read_bytes())
-    lib = BUILD_DIR / f"libmde_kernels_{digest.hexdigest()[:16]}.so"
+    lib = BUILD_DIR / f"libmde_kernels_{library_digest()}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

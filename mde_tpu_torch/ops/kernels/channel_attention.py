@@ -11,7 +11,9 @@ tensor cores at windows of up to 128 tokens and head dims that are
 multiples of 8 up to 128, f32 and the other shapes on the CUDA cores (the
 rule ``channel_mma`` in ``csrc/attention_mma.cuh``); the backward follows
 the same rule (``csrc/channel_attention_bwd.cu``). bf16 tensors that do not
-start on 16 bytes are refused, in the backward dout too.
+start on 16 bytes are refused, in the backward dout too. The forward is
+the operator ``torch.ops.mde.channel_attention`` (``torch.library.custom_op``);
+the backward is called through ``ctypes``.
 """
 
 from __future__ import annotations
@@ -115,22 +117,45 @@ def channel_attention_bwd(q: torch.Tensor, kv: torch.Tensor, dout: torch.Tensor,
     return dq, dkv
 
 
+def direct_channel_attention(q: torch.Tensor, kv: torch.Tensor, num_heads: int,
+                             scale: float) -> torch.Tensor:
+    """The forward kernel on CUDA tensors, checked and launched without the
+    operator's dispatch."""
+    bw, n, c, ec = _check_inputs(q, kv, num_heads)
+    out = torch.empty_like(q)
+    launch("channel_attention", "mde_channel_attention", q.device, ptr(q), ptr(kv),
+           ptr(out), bw, n, c, ec, num_heads, float(scale), dtype_code(q))
+    return out
+
+
+@torch.library.custom_op("mde::channel_attention", mutates_args=())
+def channel_attention_op(q: torch.Tensor, kv: torch.Tensor, num_heads: int,
+                         scale: float) -> torch.Tensor:
+    """K5's forward as an operator of its own (``torch.ops.mde.channel_attention``),
+    so that ``torch.export`` records it as one node: the plain version for
+    CPU tensors, the kernel for CUDA tensors."""
+    if is_plain(q):
+        ec = kv.shape[-1] // 2
+        return plain_channel_attention(q, kv[..., :ec], kv[..., ec:], num_heads, scale)
+    return direct_channel_attention(q, kv, num_heads, scale)
+
+
+@channel_attention_op.register_fake
+def _(q, kv, num_heads, scale):
+    is_plain(q)  # tracing takes CPU and CUDA tensors; the rest raise
+    return torch.empty_like(q)
+
+
 class ChannelAttentionFn(torch.autograd.Function):
-    """K5 forward and backward over q and the fused (BW, N, 2 EC) kv
-    projection; kv's gradient comes back in the same fused layout."""
+    """K5 forward (``torch.ops.mde.channel_attention``) and backward over q
+    and the fused (BW, N, 2 EC) kv projection; kv's gradient comes back in
+    the same fused layout."""
 
     @staticmethod
     def forward(ctx, q, kv, num_heads, scale):
         ctx.num_heads, ctx.scale = num_heads, scale
         ctx.save_for_backward(q, kv)
-        ec = kv.shape[-1] // 2
-        if is_plain(q):
-            return plain_channel_attention(q, kv[..., :ec], kv[..., ec:], num_heads, scale)
-        bw, n, c, ec = _check_inputs(q, kv, num_heads)
-        out = torch.empty_like(q)
-        launch("channel_attention", "mde_channel_attention", q.device, ptr(q), ptr(kv),
-               ptr(out), bw, n, c, ec, num_heads, float(scale), dtype_code(q))
-        return out
+        return channel_attention_op(q, kv, num_heads, float(scale))
 
     @staticmethod
     def backward(ctx, dout):

@@ -21,7 +21,9 @@ dw bits) for square 3x3, 5x5 and 7x7 kernels on C in whole 16-byte vectors
 with 16-byte aligned tensors, and for the rest (odd non-square kernels,
 other C, misaligned views) the forward's column body and the backward's
 gather body (``csrc/depthwise_bwd.cuh``). Both are kernels; nothing falls
-back from one to the other.
+back from one to the other. The forward is the operator
+``torch.ops.mde.depthwise_conv2d`` (``torch.library.custom_op``); the
+backward entries are called through ``ctypes``.
 """
 
 from __future__ import annotations
@@ -147,31 +149,52 @@ def depthwise_dw(x: torch.Tensor, g: torch.Tensor, w: torch.Tensor) -> torch.Ten
     return dw
 
 
+def direct_depthwise_conv2d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The forward kernel on CUDA tensors, checked and launched without the
+    operator's dispatch."""
+    if x.dim() != 4 or w.dim() != 3:
+        raise ValueError(f"depthwise_conv2d: x (B, H, W, C) and w (kh, kw, C), got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    b, h, wd, c = x.shape
+    kh, kw, _ = w.shape
+    if kh % 2 == 0 or kw % 2 == 0:
+        raise ValueError(f"depthwise_conv2d: kernel {kh}x{kw} must have odd sides")
+    check("x", x, (b, h, wd, c), x.dtype, x.device)
+    check("w", w, (kh, kw, c), x.dtype, x.device)
+    out = torch.empty_like(x)
+    vec = 16 // x.element_size()
+    vec16 = int(c % vec == 0 and all(t.data_ptr() % 16 == 0 for t in (x, w, out)))
+    launch("depthwise_conv2d", "mde_depthwise_conv2d", x.device,
+           ptr(x), ptr(w), ptr(out), b, h, wd, c, kh, kw, vec16, dtype_code(x))
+    return out
+
+
+@torch.library.custom_op("mde::depthwise_conv2d", mutates_args=())
+def depthwise_conv2d_op(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """K3's forward as an operator of its own (``torch.ops.mde.depthwise_conv2d``),
+    so that ``torch.export`` records it as one node: the plain version for
+    CPU tensors, the kernel for CUDA tensors."""
+    if is_plain(x):
+        return plain_depthwise_conv2d(x, w)
+    return direct_depthwise_conv2d(x, w)
+
+
+@depthwise_conv2d_op.register_fake
+def _(x, w):
+    is_plain(x)  # tracing takes CPU and CUDA tensors; the rest raise
+    return torch.empty_like(x)
+
+
 class DepthwiseConv2dFn(torch.autograd.Function):
-    """K3 forward; backward by dxdw when x needs a gradient (always in the
-    train step), by dw alone when only w does. dw is computed in f32 and
-    cast to w's dtype, as ``mde_tpu/ops/pallas/depthwise.py:486-488`` does."""
+    """K3 forward (``torch.ops.mde.depthwise_conv2d``); backward by dxdw
+    when x needs a gradient (always in the train step), by dw alone when
+    only w does. dw is computed in f32 and cast to w's dtype, as
+    ``mde_tpu/ops/pallas/depthwise.py:486-488`` does."""
 
     @staticmethod
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
-        if is_plain(x):
-            return plain_depthwise_conv2d(x, w)
-        if x.dim() != 4 or w.dim() != 3:
-            raise ValueError(f"depthwise_conv2d: x (B, H, W, C) and w (kh, kw, C), got "
-                             f"{tuple(x.shape)} and {tuple(w.shape)}")
-        b, h, wd, c = x.shape
-        kh, kw, _ = w.shape
-        if kh % 2 == 0 or kw % 2 == 0:
-            raise ValueError(f"depthwise_conv2d: kernel {kh}x{kw} must have odd sides")
-        check("x", x, (b, h, wd, c), x.dtype, x.device)
-        check("w", w, (kh, kw, c), x.dtype, x.device)
-        out = torch.empty_like(x)
-        vec = 16 // x.element_size()
-        vec16 = int(c % vec == 0 and all(t.data_ptr() % 16 == 0 for t in (x, w, out)))
-        launch("depthwise_conv2d", "mde_depthwise_conv2d", x.device,
-               ptr(x), ptr(w), ptr(out), b, h, wd, c, kh, kw, vec16, dtype_code(x))
-        return out
+        return depthwise_conv2d_op(x, w)
 
     @staticmethod
     def backward(ctx, g):

@@ -12,7 +12,8 @@ The JAX wrapper sends ``C > 128 and C % 128 != 0`` to XLA (:254), a guard of
 the TPU's tiling; the CUDA kernel takes any C. Square 3x3, 5x5 and 7x7
 kernels on C in whole 16-byte vectors with 16-byte aligned tensors take its
 tiled body (K3's tile with the gate staged once), the rest its column body;
-the two give the same bits.
+the two give the same bits. The kernel is the operator
+``torch.ops.mde.glu_ff`` (``torch.library.custom_op``).
 """
 
 from __future__ import annotations
@@ -49,33 +50,55 @@ def _composite(ab, w, s, t):
     return _epilogue(depthwise_conv2d(_gate(ab), w), s, t, ab.dtype)
 
 
+def direct_glu_ff(ab: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
+                  t: torch.Tensor) -> torch.Tensor:
+    """The kernel on CUDA tensors, checked and launched without the
+    operator's dispatch."""
+    if ab.dim() != 4 or w.dim() != 3 or ab.shape[-1] % 2:
+        raise ValueError(f"glu_ff: ab (B, H, W, 2C) and w (kh, kw, C), got "
+                         f"{tuple(ab.shape)} and {tuple(w.shape)}")
+    b, h, wd, c2 = ab.shape
+    c = c2 // 2
+    kh, kw, _ = w.shape
+    if kh % 2 == 0 or kw % 2 == 0:
+        raise ValueError(f"glu_ff: kernel {kh}x{kw} must have odd sides")
+    check("ab", ab, (b, h, wd, c2), ab.dtype, ab.device)
+    check("w", w, (kh, kw, c), ab.dtype, ab.device)
+    check("s", s, (c,), torch.float32, ab.device)
+    check("t", t, (c,), torch.float32, ab.device)
+    out = torch.empty((b, h, wd, c), dtype=ab.dtype, device=ab.device)
+    vec = 16 // ab.element_size()
+    vec16 = int(c % vec == 0 and all(x.data_ptr() % 16 == 0 for x in (ab, w, out)))
+    launch("glu_ff", "mde_glu_ff", ab.device, ptr(ab), ptr(w), ptr(s), ptr(t), ptr(out),
+           b, h, wd, c, kh, kw, vec16, dtype_code(ab))
+    return out
+
+
+@torch.library.custom_op("mde::glu_ff", mutates_args=())
+def glu_ff_op(ab: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
+              t: torch.Tensor) -> torch.Tensor:
+    """K4 as an operator of its own (``torch.ops.mde.glu_ff``), so that
+    ``torch.export`` records it as one node: the plain version for CPU
+    tensors, the kernel for CUDA tensors."""
+    if is_plain(ab):
+        return plain_glu_ff(ab, w, s, t)
+    return direct_glu_ff(ab, w, s, t)
+
+
+@glu_ff_op.register_fake
+def _(ab, w, s, t):
+    is_plain(ab)  # tracing takes CPU and CUDA tensors; the rest raise
+    return ab.new_empty((*ab.shape[:-1], ab.shape[-1] // 2))
+
+
 class GluFFFn(torch.autograd.Function):
-    """K4 forward; backward by autograd through the recomputed composite,
-    with gradients for ab, w, s and t."""
+    """K4 forward (``torch.ops.mde.glu_ff``); backward by autograd through
+    the recomputed composite, with gradients for ab, w, s and t."""
 
     @staticmethod
     def forward(ctx, ab, w, s, t):
         ctx.save_for_backward(ab, w, s, t)
-        if is_plain(ab):
-            return plain_glu_ff(ab, w, s, t)
-        if ab.dim() != 4 or w.dim() != 3 or ab.shape[-1] % 2:
-            raise ValueError(f"glu_ff: ab (B, H, W, 2C) and w (kh, kw, C), got "
-                             f"{tuple(ab.shape)} and {tuple(w.shape)}")
-        b, h, wd, c2 = ab.shape
-        c = c2 // 2
-        kh, kw, _ = w.shape
-        if kh % 2 == 0 or kw % 2 == 0:
-            raise ValueError(f"glu_ff: kernel {kh}x{kw} must have odd sides")
-        check("ab", ab, (b, h, wd, c2), ab.dtype, ab.device)
-        check("w", w, (kh, kw, c), ab.dtype, ab.device)
-        check("s", s, (c,), torch.float32, ab.device)
-        check("t", t, (c,), torch.float32, ab.device)
-        out = torch.empty((b, h, wd, c), dtype=ab.dtype, device=ab.device)
-        vec = 16 // ab.element_size()
-        vec16 = int(c % vec == 0 and all(x.data_ptr() % 16 == 0 for x in (ab, w, out)))
-        launch("glu_ff", "mde_glu_ff", ab.device, ptr(ab), ptr(w), ptr(s), ptr(t), ptr(out),
-               b, h, wd, c, kh, kw, vec16, dtype_code(ab))
-        return out
+        return glu_ff_op(ab, w, s, t)
 
     @staticmethod
     def backward(ctx, g):

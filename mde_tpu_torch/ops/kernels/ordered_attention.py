@@ -6,7 +6,9 @@ The CUDA kernels are ``csrc/ordered_attention.cu`` and
 ``csrc/ordered_attention_bwd.cu``, joined by one ``torch.autograd.Function``;
 ``plain_ordered_attention`` mirrors ``xla_ordered_attention`` (:83) and
 ``plain_ordered_attention_bwd`` the backward kernel body (``_bwd_kernel``,
-:299) with its table fold (:461-466).
+:299) with its table fold (:461-466). The forward is the operator
+``torch.ops.mde.ordered_attention`` (``torch.library.custom_op``); the
+backward is called through ``ctypes``.
 """
 
 from __future__ import annotations
@@ -143,23 +145,47 @@ def ordered_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv, dtable
 
 
+def direct_ordered_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             idx: Optional[torch.Tensor], table: Optional[torch.Tensor],
+                             num_heads: int, scale: float, num_emb: int) -> torch.Tensor:
+    """The forward kernel on CUDA tensors, checked and launched without the
+    operator's dispatch."""
+    _check_inputs(q, k, v, idx, table, num_heads, num_emb)
+    bw, n, c = q.shape
+    out = torch.empty((bw, n, c), dtype=q.dtype, device=q.device)
+    launch("ordered_attention", "mde_ordered_attention", q.device,
+           ptr(q), ptr(k), ptr(v), None if table is None else ptr(idx), ptr(table),
+           ptr(out), bw, n, c, num_heads, num_emb, float(scale), dtype_code(q))
+    return out
+
+
+@torch.library.custom_op("mde::ordered_attention", mutates_args=())
+def ordered_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         idx: Optional[torch.Tensor], table: Optional[torch.Tensor],
+                         num_heads: int, scale: float, num_emb: int) -> torch.Tensor:
+    """K2's forward as an operator of its own (``torch.ops.mde.ordered_attention``),
+    so that ``torch.export`` records it as one node: the plain version for
+    CPU tensors, the kernel for CUDA tensors."""
+    if is_plain(q):
+        return plain_ordered_attention(q, k, v, idx, table, num_heads, scale, num_emb)
+    return direct_ordered_attention(q, k, v, idx, table, num_heads, scale, num_emb)
+
+
+@ordered_attention_op.register_fake
+def _(q, k, v, idx, table, num_heads, scale, num_emb):
+    is_plain(q)  # tracing takes CPU and CUDA tensors; the rest raise
+    return torch.empty_like(q)
+
+
 class OrderedAttentionFn(torch.autograd.Function):
-    """K2 forward and backward: gradients for q, k, v and the table; the
-    indices get none."""
+    """K2 forward (``torch.ops.mde.ordered_attention``) and backward:
+    gradients for q, k, v and the table; the indices get none."""
 
     @staticmethod
     def forward(ctx, q, k, v, idx, table, num_heads, scale, num_emb):
         ctx.num_heads, ctx.scale, ctx.num_emb = num_heads, scale, num_emb
         ctx.save_for_backward(q, k, v, idx, table)
-        if is_plain(q):
-            return plain_ordered_attention(q, k, v, idx, table, num_heads, scale, num_emb)
-        _check_inputs(q, k, v, idx, table, num_heads, num_emb)
-        bw, n, c = q.shape
-        out = torch.empty((bw, n, c), dtype=q.dtype, device=q.device)
-        launch("ordered_attention", "mde_ordered_attention", q.device,
-               ptr(q), ptr(k), ptr(v), None if table is None else ptr(idx), ptr(table),
-               ptr(out), bw, n, c, num_heads, num_emb, float(scale), dtype_code(q))
-        return out
+        return ordered_attention_op(q, k, v, idx, table, num_heads, float(scale), num_emb)
 
     @staticmethod
     def backward(ctx, dout):

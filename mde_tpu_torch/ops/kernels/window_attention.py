@@ -10,7 +10,11 @@ one over the NewCRFs blocks' fused (B*nW, N, 2C) qk projection and separate
 (B*nW, N, C) v (:func:`window_attention_qk_v`); neither copies a slice or
 concatenates. ``plain_window_attention`` mirrors ``xla_window_attention`` (:77) and
 ``plain_window_attention_bwd`` the backward kernel body (``_bwd_kernel``,
-:180). bf16 windows of up to 128 tokens at head dims that are multiples of
+:180). Each forward entry is an operator of its own in the ``mde``
+namespace (``torch.library.custom_op``, with a fake that gives only the
+output's shape and dtype), which ``torch.export`` records as one node; the
+backward entries are called through ``ctypes`` from the
+``autograd.Function``s. bf16 windows of up to 128 tokens at head dims that are multiples of
 8 up to 128, and of up to 144 tokens (the ODA encoder's 12 x 12 windows) at
 head dims that are multiples of 8 up to 32, run on the tensor cores; f32,
 and bf16 beyond those shapes, on the CUDA cores (the rule
@@ -216,21 +220,79 @@ def _contiguous_grad(dout: torch.Tensor) -> torch.Tensor:
     return dout
 
 
+def direct_window_attention(qkv: torch.Tensor, bias: Optional[torch.Tensor],
+                            mask: Optional[torch.Tensor], num_heads: int,
+                            scale: float) -> torch.Tensor:
+    """The forward kernel over the fused qkv projection of CUDA tensors,
+    checked and launched without the operator's dispatch."""
+    c = qkv.shape[-1] // 3
+    nw = _check_inputs("window_attention", _fused_views(qkv, c), c, bias, mask, num_heads)
+    return _forward(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:], 3 * c, 3 * c, bias,
+                    mask, num_heads, scale, nw)
+
+
+def direct_window_attention_qk_v(qk: torch.Tensor, v: torch.Tensor,
+                                 bias: Optional[torch.Tensor], mask: Optional[torch.Tensor],
+                                 num_heads: int, scale: float) -> torch.Tensor:
+    """The forward kernel over a fused qk projection and a separate v of
+    CUDA tensors, checked and launched without the operator's dispatch."""
+    c = v.shape[-1]
+    nw = _check_inputs("window_attention_qk_v", _qk_v_views(qk, v), c, bias, mask, num_heads,
+                       strides=True)
+    return _forward(qk[..., :c], qk[..., c:], v, 2 * c, c, bias, mask, num_heads, scale, nw,
+                    entry="window_attention_qk_v")
+
+
+@torch.library.custom_op("mde::window_attention", mutates_args=())
+def window_attention_op(qkv: torch.Tensor, bias: Optional[torch.Tensor],
+                        mask: Optional[torch.Tensor], num_heads: int,
+                        scale: float) -> torch.Tensor:
+    """K1's forward over the fused qkv projection as an operator of its own
+    (``torch.ops.mde.window_attention``), so that ``torch.export`` records
+    it as one node: the plain version for CPU tensors, the kernel for CUDA
+    tensors."""
+    if is_plain(qkv):
+        c = qkv.shape[-1] // 3
+        return plain_window_attention(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:], bias,
+                                      mask, num_heads, scale)
+    return direct_window_attention(qkv, bias, mask, num_heads, scale)
+
+
+@window_attention_op.register_fake
+def _(qkv, bias, mask, num_heads, scale):
+    is_plain(qkv)  # tracing takes CPU and CUDA tensors; the rest raise
+    return qkv.new_empty((*qkv.shape[:2], qkv.shape[-1] // 3))
+
+
+@torch.library.custom_op("mde::window_attention_qk_v", mutates_args=())
+def window_attention_qk_v_op(qk: torch.Tensor, v: torch.Tensor, bias: Optional[torch.Tensor],
+                             mask: Optional[torch.Tensor], num_heads: int,
+                             scale: float) -> torch.Tensor:
+    """K1's forward over the fused qk projection and a separate v
+    (``torch.ops.mde.window_attention_qk_v``)."""
+    if is_plain(qk):
+        c = v.shape[-1]
+        return plain_window_attention(qk[..., :c], qk[..., c:], v, bias, mask, num_heads, scale)
+    return direct_window_attention_qk_v(qk, v, bias, mask, num_heads, scale)
+
+
+@window_attention_qk_v_op.register_fake
+def _(qk, v, bias, mask, num_heads, scale):
+    is_plain(qk)  # tracing takes CPU and CUDA tensors; the rest raise
+    return torch.empty_like(v)
+
+
 class WindowAttentionFn(torch.autograd.Function):
-    """K1 forward and backward over the fused (B*nW, N, 3C) qkv projection;
-    the gradient comes back in the same fused layout, so autograd adds no
-    slice copies. The mask is a constant and gets no gradient."""
+    """K1 forward (``torch.ops.mde.window_attention``) and backward over the
+    fused (B*nW, N, 3C) qkv projection; the gradient comes back in the same
+    fused layout, so autograd adds no slice copies. The mask is a constant
+    and gets no gradient."""
 
     @staticmethod
     def forward(ctx, qkv, bias, mask, num_heads, scale):
         ctx.num_heads, ctx.scale = num_heads, scale
         ctx.save_for_backward(qkv, bias, mask)
-        c = qkv.shape[-1] // 3
-        q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
-        if is_plain(qkv):
-            return plain_window_attention(q, k, v, bias, mask, num_heads, scale)
-        nw = _check_inputs("window_attention", _fused_views(qkv, c), c, bias, mask, num_heads)
-        return _forward(q, k, v, 3 * c, 3 * c, bias, mask, num_heads, scale, nw)
+        return window_attention_op(qkv, bias, mask, num_heads, float(scale))
 
     @staticmethod
     def backward(ctx, dout):
@@ -241,23 +303,17 @@ class WindowAttentionFn(torch.autograd.Function):
 
 
 class WindowAttentionQkVFn(torch.autograd.Function):
-    """K1 forward and backward over a fused (B*nW, N, 2C) qk projection and
-    a separate (B*nW, N, C) v; the gradients come back as a fused dqk and a
-    dv, so autograd adds no slice or concatenation copies. The mask is a
-    constant and gets no gradient."""
+    """K1 forward (``torch.ops.mde.window_attention_qk_v``) and backward
+    over a fused (B*nW, N, 2C) qk projection and a separate (B*nW, N, C) v;
+    the gradients come back as a fused dqk and a dv, so autograd adds no
+    slice or concatenation copies. The mask is a constant and gets no
+    gradient."""
 
     @staticmethod
     def forward(ctx, qk, v, bias, mask, num_heads, scale):
         ctx.num_heads, ctx.scale = num_heads, scale
         ctx.save_for_backward(qk, v, bias, mask)
-        c = v.shape[-1]
-        q, k = qk[..., :c], qk[..., c:]
-        if is_plain(qk):
-            return plain_window_attention(q, k, v, bias, mask, num_heads, scale)
-        nw = _check_inputs("window_attention_qk_v", _qk_v_views(qk, v), c, bias, mask,
-                           num_heads, strides=True)
-        return _forward(q, k, v, 2 * c, c, bias, mask, num_heads, scale, nw,
-                        entry="window_attention_qk_v")
+        return window_attention_qk_v_op(qk, v, bias, mask, num_heads, float(scale))
 
     @staticmethod
     def backward(ctx, dout):

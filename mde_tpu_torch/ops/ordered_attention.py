@@ -29,12 +29,19 @@ class PreNormOrderedSwinSA(nn.Module):
     With ``attn_drop_prob`` > 0 in training the attention runs JAX's einsum
     path instead of the kernel, as JAX's module does (``:126-143``); there
     the reference drops the scaled **logits**, before the depth bias and
-    the f32 softmax, where the other attentions drop probabilities."""
+    the f32 softmax, where the other attentions drop probabilities.
+
+    ``return_weights``: ``forward`` returns ``(out, weights)``, the f32
+    softmax (B*nW, heads, N, N) of every window, and the attention takes
+    the einsum path, as JAX's module does (``:113``): K2 computes no
+    weights."""
 
     def __init__(self, dim: int, num_heads: int, num_emb: int, window_size: int = 8,
                  shift_size: int = 0, bias_type: str = "depth", bias_init: str = "linear",
-                 attn_drop_prob: float = 0.0, drop_prob: float = 0.0):
+                 attn_drop_prob: float = 0.0, drop_prob: float = 0.0,
+                 return_weights: bool = False):
         super().__init__()
+        self.return_weights = return_weights
         if bias_type not in ("depth", "none"):
             raise NotImplementedError(f"bias_type {bias_type!r}")
         self.attn_drop = Dropout(attn_drop_prob)
@@ -70,20 +77,22 @@ class PreNormOrderedSwinSA(nn.Module):
             indices = cyclic_shift(indices[..., None], s)
             idx = window_partition(indices.to(torch.int32), r)[..., 0].contiguous()
         scale = (c // self.num_heads) ** -0.5
-        if self.training and self.attn_drop.rate > 0:
-            out = self._dropout_attention(q, k, v, idx, scale, generator)
+        if self.return_weights or (self.training and self.attn_drop.rate > 0):
+            out, weights = self._dropout_attention(q, k, v, idx, scale, generator)
         else:
             out = ordered_attention(q, k, v, idx, self.depth_embedding, self.num_heads, scale,
                                     self.num_emb)
         out = window_reverse(self.drop(self.o_proj(out), generator), r, h, w)
         # kept by a recomputing block under the save_sa policies (ops/remat.py)
-        return tag_sa(cyclic_unshift(out, s) + identity)
+        out = tag_sa(cyclic_unshift(out, s) + identity)
+        return (out, weights) if self.return_weights else out
 
     def _dropout_attention(self, q, k, v, idx, scale, generator) -> torch.Tensor:
         """JAX's einsum path over (BW, n, C) windows: the logits q . k times
-        the scale in the activation dtype, dropped, plus the gathered depth
-        bias ``table[i_q - i_k + E - 1]`` (none without a table), softmax in
-        f32, cast back, then P . v."""
+        the scale in the activation dtype, dropped (in training), plus the
+        gathered depth bias ``table[i_q - i_k + E - 1]`` (none without a
+        table), softmax in f32, cast back, then P . v. Returns (the output,
+        the f32 softmax (BW, heads, n, n))."""
         bw, n, c = q.shape
         nh = self.num_heads
         q, k, v = (t.reshape(bw, n, nh, c // nh) for t in (q, k, v))
@@ -92,5 +101,6 @@ class PreNormOrderedSwinSA(nn.Module):
         if self.depth_embedding is not None:
             rel = (idx[:, :, None] - idx[:, None, :] + (self.num_emb - 1)).long()
             attn = attn + self.depth_embedding[rel].permute(0, 3, 1, 2).to(attn.dtype)
-        attn = attn.float().softmax(dim=-1).to(v.dtype)
-        return torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(bw, n, c)
+        weights = attn.float().softmax(dim=-1)
+        out = torch.einsum("bhqk,bkhd->bqhd", weights.to(v.dtype), v).reshape(bw, n, c)
+        return out, weights

@@ -75,11 +75,15 @@ class PreNormReductionSA(nn.Module):
     """Pre-norm residual reduction SA of ``oda2_red_reg``
     (``mde_tpu/ops/reduction.py:103-156``): the whole map is rolled before
     the norm, K and V come from the block means of the normed map, and the
-    output is rolled back after ``o_proj`` and its dropout."""
+    output is rolled back after ``o_proj`` and its dropout.
+    ``return_weights``: ``forward`` returns ``(out, weights)``, the f32
+    softmax (B, heads, HW, HW / r^2) (``:156``)."""
 
     def __init__(self, dim: int, num_heads: int, reduction_ratio: int = 2,
-                 shift_size: int = 0, attn_drop_prob: float = 0.0, drop_prob: float = 0.0):
+                 shift_size: int = 0, attn_drop_prob: float = 0.0, drop_prob: float = 0.0,
+                 return_weights: bool = False):
         super().__init__()
+        self.return_weights = return_weights
         if reduction_ratio % 2 or dim % num_heads:
             raise ValueError(f"reduction ratio {reduction_ratio} (even) and {dim} channels "
                              f"over {num_heads} heads")
@@ -99,10 +103,11 @@ class PreNormReductionSA(nn.Module):
         b, h, w, c = x.shape
         xn = self.norm(cyclic_shift(x, self.shift_size))
         red = block_mean(xn, self.reduction_ratio).reshape(b, -1, c)
-        out, _ = attend(self.q_proj(xn).reshape(b, h * w, c), self.k_proj(red),
-                        self.v_proj(red), self.num_heads, self.attn_drop, generator)
+        out, weights = attend(self.q_proj(xn).reshape(b, h * w, c), self.k_proj(red),
+                              self.v_proj(red), self.num_heads, self.attn_drop, generator)
         out = self.drop(self.o_proj(out.reshape(b, h, w, c)), generator)
-        return cyclic_unshift(out, self.shift_size) + x
+        out = cyclic_unshift(out, self.shift_size) + x
+        return (out, weights) if self.return_weights else out
 
 
 class PreNormOrderedReductionSA(PreNormReductionSA):
@@ -111,12 +116,13 @@ class PreNormOrderedReductionSA(PreNormReductionSA):
     from ``mean_proj`` and ``mean_norm`` of the block means of the
     unnormed, optionally rolled map; no roll of the output. ``de`` is
     taken and unused, as in JAX (the reference's active code path does not
-    mix it in)."""
+    mix it in). ``return_weights`` as the plain SA's (``:100``)."""
 
     def __init__(self, dim: int, num_heads: int, reduction_ratio: int = 8,
-                 shift_size: int = 0, attn_drop_prob: float = 0.0, drop_prob: float = 0.0):
+                 shift_size: int = 0, attn_drop_prob: float = 0.0, drop_prob: float = 0.0,
+                 return_weights: bool = False):
         super().__init__(dim, num_heads, reduction_ratio, shift_size, attn_drop_prob,
-                         drop_prob)
+                         drop_prob, return_weights)
         self.mean_proj = Linear(dim, dim, bias=False)
         self.mean_norm = LayerNorm(dim)
 
@@ -126,6 +132,7 @@ class PreNormOrderedReductionSA(PreNormReductionSA):
         q = self.q_proj(self.norm(x)).reshape(b, h * w, c)
         red = block_mean(cyclic_shift(x, self.shift_size), self.reduction_ratio)
         red = self.mean_norm(self.mean_proj(red)).reshape(b, -1, c)
-        out, _ = attend(q, self.k_proj(red), self.v_proj(red), self.num_heads, self.attn_drop,
-                        generator)
-        return self.drop(self.o_proj(out.reshape(b, h, w, c)), generator) + x
+        out, weights = attend(q, self.k_proj(red), self.v_proj(red), self.num_heads,
+                              self.attn_drop, generator)
+        out = self.drop(self.o_proj(out.reshape(b, h, w, c)), generator) + x
+        return (out, weights) if self.return_weights else out

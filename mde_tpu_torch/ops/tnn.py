@@ -73,35 +73,42 @@ class BatchNorm(nn.BatchNorm2d):
     summed over the ranks in one collective (``core.dist.sum_over_ranks``,
     whose backward carries the gradient through every rank's rows), and
     the running averages, updated from them, come out the same on every
-    rank. A replay sums the same values again."""
+    rank. A replay sums the same values again. Under a (data, model) mesh
+    the sums go over the data group, whose ranks hold the other rows.
+
+    ``channels`` (a slice) normalises x as those channels of the layer:
+    a tensor-parallel feed-forward's slice of its hidden channels
+    (``ops/mlp.py``); only their running statistics are updated."""
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__(num_features, eps=eps, momentum=momentum)
         self.frozen = False
         self.replaying = False
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, channels: slice = slice(None)) -> torch.Tensor:
+        running_mean, running_var = self.running_mean[channels], self.running_var[channels]
         if bn_use_running_average(self):
-            mean, var = self.running_mean, self.running_var
+            mean, var = running_mean, running_var
         else:
             x32 = x.float()
             dims = tuple(range(x.dim() - 1))
-            if dist.global_batch() is None:
+            scope = dist.global_batch()
+            if scope is None:
                 mean = x32.mean(dim=dims)
                 var = ((x32 * x32).mean(dim=dims) - mean * mean).clamp_min(0.0)
             else:
                 rows = torch.full((1,), float(x32.numel() // x32.shape[-1]), device=x.device)
                 s1, s2, n = dist.sum_over_ranks([x32.sum(dim=dims), (x32 * x32).sum(dim=dims),
-                                                 rows])
+                                                 rows], scope.data_group)
                 mean = s1 / n
                 var = (s2 / n - mean * mean).clamp_min(0.0)
             if not self.replaying:
                 m = 1.0 - self.momentum
                 with torch.no_grad():
-                    self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
-                    self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        return ((x.float() - mean) * mul + self.bias).to(x.dtype)
+                    running_mean.copy_(m * running_mean + (1.0 - m) * mean)
+                    running_var.copy_(m * running_var + (1.0 - m) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight[channels]
+        return ((x.float() - mean) * mul + self.bias[channels]).to(x.dtype)
 
 
 class GroupNorm(nn.GroupNorm):

@@ -15,6 +15,16 @@ each rank takes its rows of every microbatch (:func:`microbatch_rows`),
 and inside :func:`gspmd_scope` the modules compute what JAX computes on
 the global arrays (BatchNorm statistics, dropout masks, the loss).
 
+A model axis (``make_mesh(..., n_model=n)``, JAX's ``(data, model)`` mesh,
+``mde_tpu/parallel/mesh.py:23-30``) splits the processes into groups of
+``n`` that hold the same rows: process ``r`` is ``(r // n, r % n)`` on the
+``(data, model)`` grid, as JAX lays the devices out. Under the GSPMD
+step a feed-forward built with ``tp_axis="model"`` then computes on each
+rank of a model group its slice of the hidden channels
+(``ops/mlp.PreNormDWConvFF``); the parameters stay replicated, and every
+rank ends the step with the same state. With ``n_model=1`` the mesh is the
+data group alone.
+
     torchrun --nproc_per_node 4 -m mde_tpu_torch.train.driver --opt x.json --bf16
 """
 
@@ -32,25 +42,39 @@ import torch.distributed as tdist
 from ..core import dist
 
 
+# the name of the model axis a tensor-parallel layer's ``tp_axis`` takes
+MODEL_AXIS = "model"
+
+
 @dataclass(frozen=True)
 class Mesh:
-    """This process's place in the data group: ``rank`` of ``size``
-    processes, computing on ``device``."""
+    """This process's place on the ``(data, model)`` grid: ``rank`` of
+    ``size`` along the data axis (the rows it takes), ``model_rank`` of
+    ``model_size`` along the model axis, computing on ``device``.
+    ``data_group`` and ``model_group`` are its processes along each axis
+    (None: the default group, where the model axis is 1)."""
 
     rank: int
     size: int
     device: torch.device
+    model_rank: int = 0
+    model_size: int = 1
+    data_group: Optional[tdist.ProcessGroup] = None
+    model_group: Optional[tdist.ProcessGroup] = None
 
 
 def make_mesh(device: Optional[Union[str, torch.device]] = None, rank: Optional[int] = None,
-              world_size: Optional[int] = None, store: Optional[tdist.Store] = None) -> Mesh:
-    """The data group of this process. Where no process group is live,
-    one is started: from ``rank``, ``world_size`` and ``store`` where they
-    are given, else from ``torchrun``'s environment (``WORLD_SIZE``,
-    ``RANK``, ``MASTER_ADDR``, ``MASTER_PORT``), else none (a group of
-    one). ``device`` (default CUDA) is this process's card (under
-    ``torchrun`` the one of ``LOCAL_RANK`` where no index is given) or the
-    CPU."""
+              world_size: Optional[int] = None, store: Optional[tdist.Store] = None,
+              n_model: int = 1) -> Mesh:
+    """This process's mesh. Where no process group is live, one is
+    started: from ``rank``, ``world_size`` and ``store`` where they are
+    given, else from ``torchrun``'s environment (``WORLD_SIZE``, ``RANK``,
+    ``MASTER_ADDR``, ``MASTER_PORT``), else none (a group of one).
+    ``device`` (default CUDA) is this process's card (under ``torchrun``
+    the one of ``LOCAL_RANK`` where no index is given) or the CPU. The
+    processes make a ``(world // n_model, n_model)`` grid; with
+    ``n_model`` > 1 every process builds the grid's data and model groups
+    (each process calls this once, in the same order)."""
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and device.index is None and "LOCAL_RANK" in os.environ:
         device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
@@ -64,7 +88,24 @@ def make_mesh(device: Optional[Union[str, torch.device]] = None, rank: Optional[
             tdist.init_process_group(backend, store=store, rank=rank, world_size=world_size)
         elif "WORLD_SIZE" in os.environ:
             tdist.init_process_group(backend, init_method="env://")
-    return Mesh(dist.process_index(), dist.process_count(), device)
+    world, index = dist.process_count(), dist.process_index()
+    if n_model == 1:
+        return Mesh(index, world, device)
+    if world % n_model:
+        raise ValueError(f"{world} processes do not split into model groups of {n_model}")
+    n_data = world // n_model
+    data_group = model_group = None
+    # new_group is collective: every process creates every group, in order
+    for m in range(n_model):
+        group = tdist.new_group([d * n_model + m for d in range(n_data)])
+        if m == index % n_model:
+            data_group = group
+    for d in range(n_data):
+        group = tdist.new_group([d * n_model + m for m in range(n_model)])
+        if d == index // n_model:
+            model_group = group
+    return Mesh(index // n_model, n_data, device, index % n_model, n_model, data_group,
+                model_group)
 
 
 def shard_batch(mesh: Mesh, batch):

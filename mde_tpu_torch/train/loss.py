@@ -22,8 +22,10 @@ _EPS = 1e-7
 
 
 def _batch_sums(*sums: torch.Tensor) -> List[torch.Tensor]:
-    """Sums over this rank's rows -> sums over the global batch's."""
-    return dist.sum_over_ranks(sums) if dist.global_batch() is not None else list(sums)
+    """Sums over this rank's rows -> sums over the global batch's (over
+    the data group, whose ranks hold the other rows)."""
+    scope = dist.global_batch()
+    return list(sums) if scope is None else dist.sum_over_ranks(sums, scope.data_group)
 
 
 def _batch_mean(x: torch.Tensor) -> torch.Tensor:
@@ -31,7 +33,7 @@ def _batch_mean(x: torch.Tensor) -> torch.Tensor:
     scope = dist.global_batch()
     if scope is None:
         return x.mean()
-    (total,) = dist.sum_over_ranks([x.sum()])
+    (total,) = dist.sum_over_ranks([x.sum()], scope.data_group)
     return total / (x.shape[0] * scope.size)
 
 

@@ -23,6 +23,7 @@ from torch import nn
 
 from ..core import dist
 from ..core import metrics as M
+from ..ops.mlp import tp_gather
 from ..ops.resize import resize_bilinear
 from ..ops.tnn import BatchNorm, bn_freeze_scope, encoder_only
 from ..parallel.mesh import gspmd_scope, microbatch_rows
@@ -157,10 +158,7 @@ def _make_step(opt, min_depth: float, max_depth: float, adapter: Optional[ModelA
         if spmd == "shard_map":
             grads, logs = _rank_mean(model, grads, logs)
         elif spmd == "gspmd":
-            # each rank's gradient is the ranks' number times its rows' part
-            # (every rank backpropagates the global loss, and each sum over
-            # the ranks sums the gradients back): the mean is the gradient
-            grads = dict(zip(grads, dist.all_reduce_tensors(list(grads.values()), "mean")))
+            grads = _gspmd_mean(model, mesh, grads)
         logs["grad_norm"] = global_norm(list(grads.values()))
         state.optimizer.update(grads)
         logs["param_norm"] = global_norm(list(params.values()))
@@ -198,6 +196,26 @@ def _rank_mean(model: nn.Module, grads: Dict[str, torch.Tensor],
         for t, mean in zip(stats, dist.all_reduce_tensors(stats, "mean")):
             t.copy_(mean)
     return grads, dist.all_reduce_dict(logs, "mean")
+
+
+def _gspmd_mean(model: nn.Module, mesh, grads: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+    """The GSPMD step's gradient. Each rank's gradient is the data
+    group's size times its rows' part (every rank backpropagates the
+    global loss, and each sum over the ranks sums the gradients back):
+    the mean over the ranks is the gradient. Under a model axis the ranks
+    of a model group hold the same replicated gradients (up to the order
+    of the card's atomic sums: the mean over every rank leaves them the
+    same bits), and the tensor-parallel FFs' sliced parameters hold this
+    rank's slice (zeros elsewhere): their sum over every rank, divided by
+    the data group's size, is the gradient; the slices' running statistics
+    are put together too (``ops.mlp.tp_gather``)."""
+    sliced, whole = tp_gather(model, mesh, grads)
+    out = dict(zip(whole, dist.all_reduce_tensors([grads[n] for n in whole], "mean")))
+    if sliced:
+        summed = dist.all_reduce_tensors([grads[n] for n in sliced], "sum")
+        out.update((n, g / mesh.size) for n, g in zip(sliced, summed))
+    return {n: out[n] for n in grads}
 
 
 def make_train_step_shard_map(opt, min_depth: float, max_depth: float, mesh,

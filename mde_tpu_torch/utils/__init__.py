@@ -1,1 +1,2 @@
-"""Utilities of the port (``mde_tpu/utils``): wandb logging and depth colouring."""
+"""Utilities of the port (``mde_tpu/utils``): wandb logging, depth colouring,
+golden-image comparison, profiling and the flagship's FLOP model."""

@@ -3,13 +3,18 @@
 matplotlib. ``colorize`` maps a depth map through matplotlib's ``magma``
 colour map, whose 256 colours are stored here as the bytes matplotlib gives
 for them, so the image is the JAX package's byte for byte.
+``save_visualizations`` writes a batch of them with the port's PNG codec
+(``data/png.py``; the card's machine has no Pillow either).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
+
+from ..data.png import write_png
 
 # matplotlib's "magma" at N = 256: (lut * 255).astype(uint8), RGB, alpha 255
 _MAGMA = np.frombuffer(bytes.fromhex(
@@ -61,3 +66,15 @@ def colorize(depth: np.ndarray, vmin: Optional[float] = None,
     img[..., :3] = _CMAPS[cmap][index]
     img[invalid] = 255  # over/under-range -> white (reference behavior)
     return img
+
+
+def save_visualizations(preds: np.ndarray, paths, out_dir: str, vmin: float = 0.0,
+                        vmax: Optional[float] = None, cmap: str = "magma_r") -> None:
+    """Save the colourised predictions under ``out_dir``, at the relative
+    dataset paths (``.png`` appended where a path lacks it;
+    ``mde_tpu/utils/visualize.py:38-50``)."""
+    for pred, rel in zip(preds, paths):
+        dst = os.path.join(out_dir, rel)
+        os.makedirs(os.path.dirname(dst), exist_ok=True)
+        write_png(dst if dst.endswith(".png") else dst + ".png",
+                  colorize(pred, vmin=vmin, vmax=vmax, cmap=cmap))

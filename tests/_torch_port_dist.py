@@ -377,3 +377,16 @@ def gspmd_case(mesh, modules, step_args, fit_args):
     except ValueError as e:
         refused = str(e)
     return bn, draws, loss, step, fit, refused
+
+
+# -- tensor-parallel feed-forwards over a (data, model) mesh -------------
+
+def tp_steps(mesh, n_model, step_args, variants):
+    """``gspmd_step`` of ``step_args`` on the ``(world / n_model, n_model)``
+    mesh of this group (``make_mesh(..., n_model=)``), once for each
+    (num_accum, freeze_encoder_bn) of ``variants``: [(this rank's (data,
+    model) place, ``gspmd_step``'s result)]."""
+    from mde_tpu_torch.parallel.mesh import make_mesh
+    grid = make_mesh("cpu", n_model=n_model)
+    return [((grid.rank, grid.model_rank), gspmd_step(grid, *step_args, *variant))
+            for variant in variants]

@@ -1416,3 +1416,84 @@ def test_tiny_oda_train_step_on_card_matches_cpu(cuda, name):
         tol = 1e-4 * max(1.0, value.abs().max().item()) if "running" in n else 1e-4 / 25
         if value.is_floating_point():
             assert (weights[n] - value).abs().max().item() <= tol, n
+
+
+# -- the forward kernels as operators, the exported serving forward -------
+
+def _op_cases(cuda, dtype):
+    """Each ``torch.ops.mde`` operator's inputs at a small shape on the card:
+    (the operator's name, the kernel module it is in, its arguments)."""
+    g = torch.Generator().manual_seed(18)
+
+    def rand(*shape, dt=dtype, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to(dt).to(cuda)
+
+    mask = torch.where(torch.rand((4, 16, 16), generator=g) < 0.2, -100.0, 0.0).to(cuda)
+    idx = torch.randint(0, 16, (8, 16), generator=g, dtype=torch.int32).to(cuda)
+    f32 = torch.float32
+    return [("window_attention", "window_attention",
+             (rand(32, 16, 96), rand(2, 16, 16, dt=f32), mask, 2, 0.25)),
+            ("window_attention_qk_v", "window_attention",
+             (rand(32, 16, 64), rand(32, 16, 32), rand(2, 16, 16, dt=f32), mask, 2, 0.25)),
+            ("ordered_attention", "ordered_attention",
+             (rand(8, 16, 32), rand(8, 16, 32), rand(8, 16, 32), idx,
+              rand(31, 2, dt=f32, scale=0.1), 2, 0.25, 16)),
+            ("depthwise_conv2d", "depthwise", (rand(2, 8, 12, 16), rand(5, 5, 16))),
+            ("glu_ff", "glu_ff", (rand(2, 8, 12, 32), rand(5, 5, 16), rand(16, dt=f32),
+                                  rand(16, dt=f32))),
+            ("channel_attention", "channel_attention", (rand(8, 16, 16), rand(8, 16, 32), 2,
+                                                        0.25))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_custom_ops_match_their_direct_launches(cuda, dtype):
+    """Each forward operator against the direct launch of its kernel on the
+    same inputs: the same bits, one launch each."""
+    import importlib
+    for name, module_name, args in _op_cases(cuda, dtype):
+        module = importlib.import_module(f"mde_tpu_torch.ops.kernels.{module_name}")
+        kernel = "window_attention" if name.startswith("window") else name
+        kernels.reset_launch_counts()
+        out = getattr(torch.ops.mde, name)(*args)
+        direct = getattr(module, f"direct_{name}")(*args)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts == dict(NO_LAUNCHES, **{kernel: 2}), name
+        assert out.dtype == dtype and torch.equal(out, direct), name
+
+
+@pytest.mark.gpu
+def test_exported_tiny_flagship_launches_as_eager(cuda, tmp_path):
+    """The tiny flagship (bf16) exported on the card, loaded and run: the
+    program's launches are the eager call's (K1 6, K2 4, K3 4) and so are
+    its output's bits; with ``return_weights`` the eager call leaves K2."""
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
+    import torch_export
+    model = build_model(TINY, 0.001, 80.0, device=cuda, seed=4, use_checkpoint=False,
+                        dtype=torch.bfloat16, **TINY_KW).eval()
+    x = torch.from_numpy(np.random.RandomState(5).rand(2, 64, 96, 3).astype(np.float32))
+    x = x.to(cuda)
+    torch_export.export(str(tmp_path), "train", 2, "custom", model=model, hw=(64, 96))
+    expect = dict(NO_LAUNCHES, window_attention=6, ordered_attention=4, depthwise_conv2d=4)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        eager = model(x)[0]
+    torch.cuda.synchronize()
+    assert kernels.launch_counts == expect
+    program = torch_export.load(str(tmp_path))
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        out = program(x)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts == expect
+    assert torch.equal(out, eager)
+    for m in model.modules():
+        if hasattr(m, "return_weights"):
+            m.return_weights = True
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        _, _, weights = model(x)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts == dict(expect, ordered_attention=0)
+    assert len(weights) == 4 and all(w.shape == (48, 4, 16, 16) for w in weights)

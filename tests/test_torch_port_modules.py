@@ -6,6 +6,7 @@ JAX module, and both run on the same seeded numpy input in f32 on the CPU.
 Outputs agree at max-abs 1e-4.
 """
 
+import os
 import subprocess
 import sys
 
@@ -241,30 +242,22 @@ def test_resize_and_gelu():
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, mde_tpu_torch, mde_tpu_torch.models, mde_tpu_torch.serve, "
-            "mde_tpu_torch.convert, mde_tpu_torch.train.step, mde_tpu_torch.train.optim, "
-            "mde_tpu_torch.train.loss, mde_tpu_torch.core.metrics, mde_tpu_torch.core.config, "
-            "mde_tpu_torch.core.averages, mde_tpu_torch.core.dist, "
-            "mde_tpu_torch.core.checkpoint, mde_tpu_torch.data.splits, mde_tpu_torch.data.png, "
-            "mde_tpu_torch.data.dataset, mde_tpu_torch.data.augment, "
-            "mde_tpu_torch.data.loader, mde_tpu_torch.utils.wandb_utils, "
-            "mde_tpu_torch.utils.visualize, mde_tpu_torch.train.driver, "
-            "mde_tpu_torch.models.newcrfs, mde_tpu_torch.ops.reduction, "
-            "mde_tpu_torch.models.oda2.red_order_reg, mde_tpu_torch.models.oda2.red_order_swin, "
-            "mde_tpu_torch.models.oda2.red_reg, mde_tpu_torch.models.oda2.conv, "
-            "mde_tpu_torch.models.oda2.base, mde_tpu_torch.models.efficientnet, "
-            "mde_tpu_torch.models.adabins.model, mde_tpu_torch.models.depthformer.layers, "
-            "mde_tpu_torch.models.depthformer.model, mde_tpu_torch.models.depthformer.versions, "
-            "mde_tpu_torch.ops.luna, mde_tpu_torch.models.depthformer.luna_versions, "
-            "mde_tpu_torch.models.oda.encoder, mde_tpu_torch.models.oda.decoders, "
-            "mde_tpu_torch.models.oda.models, mde_tpu_torch.ops.ppm, "
-            "mde_tpu_torch.models.oda.lion, mde_tpu_torch.models.oda.lime, "
-            "mde_tpu_torch.models.oda.jeju, mde_tpu_torch.ops.resize\n"
+    """Every module of ``mde_tpu_torch`` (``pkgutil.walk_packages``) and the
+    port's tools import no JAX, flax, optax, orbax and nothing of
+    ``mde_tpu``."""
+    code = ("import importlib, pkgutil, runpy, sys, mde_tpu_torch\n"
+            "names = [m.name for m in pkgutil.walk_packages(mde_tpu_torch.__path__, "
+            "'mde_tpu_torch.')]\n"
+            "for name in names:\n"
+            "    importlib.import_module(name)\n"
+            "for tool in ('torch_parity_check', 'torch_export', 'torch_golden_check', "
+            "'sibling_bf16_gaps'):\n"
+            "    runpy.run_path('tools/' + tool + '.py', run_name='port_tool')\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
             "'optax', 'orbax', 'mde_tpu')]\n"
-            "print(bad)\nsys.exit(1 if bad else 0)\n")
+            "print(len(names), bad)\nsys.exit(1 if bad or len(names) < 60 else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         timeout=120)
+                         timeout=120, cwd=os.path.join(os.path.dirname(__file__), ".."))
     assert res.returncode == 0, res.stdout + res.stderr
 
 

@@ -103,34 +103,49 @@ def _module_vars(module, seed, *args, **kwargs):
     return _random_jax_variables(init, jnp.asarray(args[0]), seed)
 
 
-SA_CASES = {"ordered-shift0": ("ordered", 0), "ordered-shift2": ("ordered", 2),
-            "plain-shift0": ("plain", 0), "plain-shift2": ("plain", 2)}
+SA_CASES = {"ordered-shift0": ("ordered", 0, False), "ordered-shift2": ("ordered", 2, False),
+            "plain-shift0": ("plain", 0, False), "plain-shift2": ("plain", 2, False),
+            "ordered-shift2-weights": ("ordered", 2, True),
+            "plain-shift2-weights": ("plain", 2, True)}
 
 
 @pytest.mark.parametrize("case", list(SA_CASES))
 def test_reduction_sa_matches_jax(case):
     """Forward and gradients (input and parameters) of both reduction SAs
-    on a 2 x 8 x 12 map of 32 channels, 4 heads, reduction ratio 4."""
-    kind, shift = SA_CASES[case]
+    on a 2 x 8 x 12 map of 32 channels, 4 heads, reduction ratio 4; with
+    ``return_weights`` also the f32 weights at 1e-5, each row summing to
+    1."""
+    kind, shift, weights = SA_CASES[case]
     x, g = _input(1, 2, 8, 12, 32), _input(2, 2, 8, 12, 32)
     if kind == "ordered":
         jm = jax_reduction.PreNormOrderedReductionSA(num_heads=4, reduction_ratio=4,
-                                                     shift_size=shift)
-        mod = reduction.PreNormOrderedReductionSA(32, 4, 4, shift)
+                                                     shift_size=shift, return_weights=weights)
+        mod = reduction.PreNormOrderedReductionSA(32, 4, 4, shift, return_weights=weights)
         variables = _module_vars(jm, 3, x, None)
 
-        def apply(v, a):
-            return jm.apply(v, a, None)[0]
+        def forward(v, a):
+            return jm.apply(v, a, None)
     else:
-        jm = jax_reduction.PreNormReductionSA(num_heads=4, reduction_ratio=4, shift_size=shift)
-        mod = reduction.PreNormReductionSA(32, 4, 4, shift)
+        jm = jax_reduction.PreNormReductionSA(num_heads=4, reduction_ratio=4, shift_size=shift,
+                                              return_weights=weights)
+        mod = reduction.PreNormReductionSA(32, 4, 4, shift, return_weights=weights)
         variables = _module_vars(jm, 3, x)
 
-        def apply(v, a):
-            return jm.apply(v, a)[0]
+        def forward(v, a):
+            return jm.apply(v, a)
+
+    def apply(v, a):
+        return forward(v, a)[0]
+
     mod.load_state_dict(_port_names(variables))
     xt = torch.from_numpy(x).requires_grad_()
     out = mod(xt)
+    if weights:
+        out, w = out
+        ref_w = np.asarray(forward(variables, jnp.asarray(x))[1])
+        assert w.dtype == torch.float32 and w.shape == ref_w.shape == (2, 4, 96, 6)
+        assert float(np.max(np.abs(w.detach().numpy() - ref_w))) <= 1e-5
+        assert torch.allclose(w.sum(-1), torch.ones(()), atol=1e-6)
     ref, vjp = jax.vjp(apply, variables, jnp.asarray(x))
     assert _rel(out, ref) <= TOL
     out.backward(torch.from_numpy(g))
