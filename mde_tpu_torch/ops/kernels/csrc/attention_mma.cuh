@@ -21,6 +21,17 @@
 //   C (16 x 8):  c0 c1 (g, 2t..2t+1), c2 c3 (g+8, 2t..2t+1)
 // So the C fragments of two neighbouring 8-column tiles of S are the A
 // fragment of the 16 keys they cover.
+//
+// The wide bodies (K1 at 128 < n <= 144, window_mma_wide: the ODA
+// encoder's 12 x 12 windows) keep the same fragments and mma.sync, with a
+// warp for each of the nine 16-row tiles, and add what the last part of
+// this file holds: a FragBias tile that each warp fills for its own rows
+// (warp_bias_rows), q scaled by each warp for its own rows (scale_rows),
+// blocks of S a key
+// tile at a time (mma_block), a ring of operand stages whose cp.async
+// copies complete on mbarriers (cp_async_arrive, mbar_*), and movmatrix to
+// turn the C fragments of a 16 x 16 block into the A fragment of its
+// transpose (a_of_transpose), for the backward's per-key products.
 #pragma once
 
 #include "common.cuh"
@@ -42,10 +53,11 @@ inline bool mma_shape(int n, int hd) {
 
 // K1 also takes wider windows, up to MMA_WIDE_N tokens (the ODA encoder's
 // 12 x 12 windows, 144 tokens, nine 16-row tiles) at head dims that are
-// multiples of 8 up to MMA_WIDE_HD, with bias and mask read through L2
-// (GlobalBias) instead of a FragBias tile (window_attention*.cu).
+// multiples of 8 up to MMA_WIDE_HD, on bodies of their own
+// (window_attention*.cu): one block an SM, a warp for each 16-row tile.
 #define MMA_WIDE_N 144
 #define MMA_WIDE_HD 32
+#define MMA_WIDE_WARPS (MMA_WIDE_N / 16)
 inline bool window_mma_wide(int n, int hd) {
   return n > MMA_MAX_N && n <= MMA_WIDE_N && hd > 0 && hd % 8 == 0 && hd <= MMA_WIDE_HD;
 }
@@ -367,45 +379,12 @@ __device__ __forceinline__ void add_bias(float (&s)[2 * NT][4], int r0, int nk, 
   }
 }
 
-// The (n, n) f32 bias of one head and mask of one window slot (either may
-// be null) in device memory, row-major, read as each logit needs them:
-// every warp-wide read of one C fragment's (row, col) pairs covers 8 rows
-// of 32 contiguous bytes, whole sectors, so the reads cost L2 bandwidth
-// and no shared memory. Padded rows read 0, as in a FragBias tile.
-struct GlobalBias {
-  const float* bias;
-  const float* mask;
-};
-
-// add_bias from GlobalBias: bias + mask summed first, then added to the
-// logit, as from a FragBias tile; -inf at the padded keys.
-template <int NT>
-__device__ __forceinline__ void add_bias(float (&s)[2 * NT][4], int r0, int nk, int n,
-                                         float scale, GlobalBias b) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-#pragma unroll
-  for (int j = 0; j < 2 * NT; ++j) {
-    if (j >= 2 * nk) break;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = r0 + g + ((e >> 1) << 3), col = 8 * j + 2 * t + (e & 1);
-      float add = 0.f;
-      if (row < n && col < n) {
-        const int off = row * n + col;
-        if (b.bias) add += __ldg(b.bias + off);
-        if (b.mask) add += __ldg(b.mask + off);
-      }
-      s[j][e] = col < n ? __fmul_rn(s[j][e], scale) + add : -INFINITY;
-    }
-  }
-}
-
 // softmax(q . k^T * scale + bias(row, col)) . v for one (window, head), in
 // bf16 with f32 logits, softmax and sums; P is rounded to bf16 before P.v.
 // sq, sk, sv: staged by mma_stage, pad16(n) rows `ld` apart; each warp
 // reuses its own rows of sq to stage its output, which it writes to `out`
-// (rows `ldo` apart) in 16-byte stores. bias: a FragBias, a GlobalBias, or a
-// callable bias(row, col) (add_bias). All threads of the block call it.
+// (rows `ldo` apart) in 16-byte stores. bias: a FragBias or a callable
+// bias(row, col) (add_bias). All threads of the block call it.
 template <int NT, int DT, bool FAST_EXP = false, typename BiasFn>
 __device__ void mma_head_attention(bf16* sq, const bf16* sk, const bf16* sv, int ld,
                                    bf16* __restrict__ out, int ldo, int n, int hd, float scale,
@@ -569,22 +548,231 @@ __device__ void mma_bwd_keys(const bf16* sq, const bf16* sdo, int ld, const bf16
 }
 
 // Windows a block walks, for a grid of (bw / wpb) x heads blocks of
-// `kernel` (`threads` a block) at `smem` bytes: runs of about `target`
+// `kernel` (MMA_THREADS a block) at `smem` bytes: runs of about `target`
 // windows, sized so that
 // the grid fills whole waves of the blocks the card holds at once (a
 // block's windows run one after another, so a last wave part full leaves
 // SMs idle for a whole run). 0 on an error.
 template <typename K>
-static int balanced_windows_per_block(K kernel, size_t smem, int bw, int heads, int target,
-                                      int threads = MMA_THREADS) {
+static int balanced_windows_per_block(K kernel, size_t smem, int bw, int heads, int target) {
   int device = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&device) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem) !=
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, MMA_THREADS, smem) !=
           cudaSuccess)
     return 0;
   const long long work = (long long)bw * heads, slots = (long long)sms * max(per_sm, 1);
   const long long waves = max(1LL, (work + slots * target / 2) / (slots * target));
   const long long per_block = (work + slots * waves - 1) / (slots * waves);
   return (int)min((long long)bw, max(1LL, per_block));
+}
+
+// ---------------------------------------------------------------------------
+// The wide bodies' parts (K1 at 128 < n <= 144, window_attention*.cu).
+
+// Fill row tile rt (rows 16 rt .. 16 rt + 15) of a FragBias tile with bias +
+// mask, as mma_bias_tile fills it, by the 32 lanes of one warp: each lane
+// writes exactly the float4s that it reads in add_bias, so a warp that
+// alone reads its row tile needs no barrier before it uses it. Where n is
+// even a lane reads its two columns of a row as one float2, with no branch;
+// four float4s of the tile (16 loads, 32 registers) in flight a lane.
+__device__ __forceinline__ void warp_bias_rows(float* tile, const float* __restrict__ bias,
+                                               const float* __restrict__ mask, int n, int rt,
+                                               int lane) {
+  const int tiles = mma_pad16(n) >> 3;
+  const int row = rt * 16 + (lane >> 2), col0 = 2 * (lane & 3);
+  float4* dst = reinterpret_cast<float4*>(tile) + rt * tiles * 32 + lane;
+  if (!(n & 1)) {
+    const float2 zero = make_float2(0.f, 0.f);
+    const bool top = row < n, bot = row + 8 < n;
+    // rows of bias and mask as float2s (read only where the pointer is set)
+    auto rows_of = [&](const float* m, int r) {
+      return reinterpret_cast<const float2*>(m ? m + r * n : nullptr);
+    };
+    const float2 *b0 = rows_of(bias, row), *b1 = rows_of(bias, row + 8);
+    const float2 *m0 = rows_of(mask, row), *m1 = rows_of(mask, row + 8);
+#pragma unroll 4
+    for (int j = 0; j < tiles; ++j) {
+      const int col = 8 * j + col0, k = col >> 1;  // col even, n even: col + 1 < n too
+      const bool in = col < n;
+      const float2 bt = in && top && bias ? __ldg(b0 + k) : zero;
+      const float2 bb = in && bot && bias ? __ldg(b1 + k) : zero;
+      const float2 mt = in && top && mask ? __ldg(m0 + k) : zero;
+      const float2 mb = in && bot && mask ? __ldg(m1 + k) : zero;
+      dst[j * 32] = in ? make_float4(bt.x + mt.x, bt.y + mt.y, bb.x + mb.x, bb.y + mb.y)
+                       : make_float4(-INFINITY, -INFINITY, -INFINITY, -INFINITY);
+    }
+    return;
+  }
+#pragma unroll 4
+  for (int j = 0; j < tiles; ++j) {
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = row + ((e >> 1) << 3), cc = 8 * j + col0 + (e & 1);
+      const bool in = r < n && cc < n;
+      const float b = in && bias ? __ldg(bias + r * n + cc) : 0.f;
+      const float m = in && mask ? __ldg(mask + r * n + cc) : 0.f;
+      v[e] = cc < n ? b + m : -INFINITY;
+    }
+    dst[j * 32] = make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// s (C fragments of a warp's 16 rows, tiles 8j..) + bias from a FragBias
+// tile: add_bias with scale 1 (s * 1 is s), for logits of a q already
+// scaled.
+template <int NT>
+__device__ __forceinline__ void add_tile(float (&s)[2 * NT][4], int r0, int nk, FragBias bias) {
+  const float4* p = bias.tile + (r0 >> 4) * 2 * nk * 32 + (threadIdx.x & 31);
+#pragma unroll
+  for (int j = 0; j < 2 * NT; ++j) {
+    if (j >= 2 * nk) break;
+    const float4 b = p[j * 32];
+    s[j][0] += b.x;
+    s[j][1] += b.y;
+    s[j][2] += b.z;
+    s[j][3] += b.w;
+  }
+}
+
+// One bf16 pair multiplied by scale and rounded back to bf16, as
+// mma_scale_staged rounds it.
+__device__ __forceinline__ uint32_t scale_bf16x2(uint32_t x, float scale) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&x));
+  return pack_bf16(f.x * scale, f.y * scale);
+}
+
+// Rows r0..r0+15 of a staged operand (nd 16-column steps) times `scale`,
+// rounded to bf16 in place, by the 32 lanes of one warp (mma_scale_staged
+// for one warp's rows); the caller syncs the warp before reading them.
+__device__ __forceinline__ void scale_rows(bf16* m, int ld, int r0, int nd, int lane,
+                                           float scale) {
+  for_chunks(lane, 32, 16, nd * 2, [&](int r, int ch) {
+    uint4* p = reinterpret_cast<uint4*>(m + (r0 + r) * ld + (ch << 3));
+    uint4 x = *p;
+    x.x = scale_bf16x2(x.x, scale), x.y = scale_bf16x2(x.y, scale);
+    x.z = scale_bf16x2(x.z, scale), x.w = scale_bf16x2(x.w, scale);
+    *p = x;
+  });
+}
+
+// A fragments of rows r0..r0+15 of a staged operand, one for each of the
+// nd 16-column steps.
+template <int DT>
+__device__ __forceinline__ void load_rows(uint32_t (&fa)[DT][4], const bf16* m, int ld, int r0,
+                                          int nd, int lane) {
+#pragma unroll
+  for (int kd = 0; kd < DT; ++kd) {
+    if (kd >= nd) break;
+    ldsm_x4<false>(fa[kd], tile_a(m, ld, r0, kd * 16, lane));
+  }
+}
+
+// s (C fragments of 8-column tiles 2 kt, 2 kt + 1) = a . b^T over the nd
+// column steps, a given as A fragments and b as the B fragments of its 16
+// rows (ldsm of tile_bt): the sums of mma_rows_abt, in its order.
+template <int DT>
+__device__ __forceinline__ void mma_block(float (&s)[2][4], const uint32_t (&fa)[DT][4],
+                                          const uint32_t (&fb)[DT][4], int nd) {
+  s[0][0] = s[0][1] = s[0][2] = s[0][3] = s[1][0] = s[1][1] = s[1][2] = s[1][3] = 0.f;
+#pragma unroll
+  for (int kd = 0; kd < DT; ++kd) {
+    if (kd >= nd) break;
+    mma16816(s[0], fa[kd], fb[kd][0], fb[kd][1]);
+    mma16816(s[1], fa[kd], fb[kd][2], fb[kd][3]);
+  }
+}
+
+// B fragments of rows r0..r0+15 of a staged operand as the n side of a . m^T.
+template <int DT>
+__device__ __forceinline__ void load_bt(uint32_t (&fb)[DT][4], const bf16* m, int ld, int r0,
+                                        int nd, int lane) {
+#pragma unroll
+  for (int kd = 0; kd < DT; ++kd) {
+    if (kd >= nd) break;
+    ldsm_x4<false>(fb[kd], tile_bt(m, ld, r0, kd * 16, lane));
+  }
+}
+
+// The transpose of an 8 x 8 bf16 matrix held as one register a lane in the
+// fragment layout (lane: row lane / 4, columns 2 (lane % 4) and the next).
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
+  uint32_t y;
+  asm("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
+// The A fragment of X^T (16 x 16, bf16) from the f32 C fragments of X (two
+// 8-column tiles): X's 8 x 8 block Xhj (rows 8h.., columns 8j..) is
+// pack(c[j][2h], c[j][2h+1]) in the fragment layout, and X^T's A fragment
+// is a0 = X00^T, a1 = X01^T, a2 = X10^T, a3 = X11^T.
+__device__ __forceinline__ void a_of_transpose(uint32_t (&a)[4], const float (&c)[2][4]) {
+  a[0] = movmatrix_trans(pack_bf16(c[0][0], c[0][1]));
+  a[1] = movmatrix_trans(pack_bf16(c[1][0], c[1][1]));
+  a[2] = movmatrix_trans(pack_bf16(c[0][2], c[0][3]));
+  a[3] = movmatrix_trans(pack_bf16(c[1][2], c[1][3]));
+}
+
+// mbarriers (in shared memory, 8 bytes each).
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// Make initialised mbarriers visible before their first use; the block
+// synchronises after it.
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// Wait until the phase of parity `parity` completed. A phase that never
+// completes (a copy lost to a fault) traps after ~2^34 cycles (about 10 s)
+// instead of holding the card for ever.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done = 0;
+  long long start = 0;
+  for (;;) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) start = clock64();
+    else if (clock64() - start > (1LL << 34)) __trap();
+  }
+}
+
+// Arrive on bar once this thread's cp.async copies issued so far have
+// landed (the arrival counted in bar's expected count: .noinc).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// Windows a block of a wide body walks (one block an SM): the run length
+// that finishes a grid of ceil(bw / wpb) x heads blocks in the fewest
+// window-times, in whole waves of one block a multiprocessor, counting
+// `start` window-times a block for its first copies and bias tile. 0 on an
+// error.
+static int wide_windows_per_block(int bw, int heads, int start) {
+  int device = 0, sms = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
+    return 0;
+  long long best = 0, best_cost = -1;
+  for (int wpb = 1; wpb <= bw; ++wpb) {
+    const long long blocks = (long long)((bw + wpb - 1) / wpb) * heads;
+    const long long cost = (blocks + sms - 1) / sms * (wpb + start);
+    if (best_cost < 0 || cost < best_cost) best = wpb, best_cost = cost;
+  }
+  return (int)best;
 }

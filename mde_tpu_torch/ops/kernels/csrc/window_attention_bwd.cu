@@ -49,13 +49,21 @@
 // grid that made 2.8 M of them, skipping them saved under 2% of the
 // kernel's time (PERF.md).
 //
-// Wide windows (the ODA encoder's window 12: n = 144 at hd 32): staged as
-// above a block would need 295 KB (FragBias tile and dbias partial 83 KB
-// each, bf16 P and dS 83 KB, qs, k, v and dO 46 KB), past the 227 KB a block
-// may have. There the logits read bias and mask through L2 (GlobalBias,
-// as the forward) and the block keeps the dbias partial, P and dS and the
-// four operands: 207 KB, one block an SM, of 9 warps (bwd_threads), one
-// for each 16-row tile and then each 16-key tile.
+// Wide windows (the ODA encoder's window 12: n = 144 at hd 32). What bounds
+// them: at stage 1, batch 4 ((512, 144, 192), 6 heads) the kernel reads q,
+// k, v, dO and writes dq, dk, dv once, 199 MB, 59 us at 3.35 TB/s, against
+// 20 GFLOP (21 us on the tensor cores) and two exps a logit: bytes bind.
+// Why the first wide body ran at 16.3x that bound (H100 80GB HBM3, 700 W):
+// staged as above a block would need 295 KB (FragBias tile and dbias
+// partial 83 KB each, bf16 P and dS 83 KB, qs, k, v and dO 46 KB), so it
+// read bias and mask through L2 for every logit it recomputed and kept the
+// dbias partial, P, dS and the operands (207 KB, one block an SM of nine
+// warps at 168 registers with 28 bytes spilled), in two phases between
+// barriers with only k and v of the next window copied during the second.
+// Design: window_attention_bwd_wide_kernel below: the FragBias tile filled
+// once a mask slot, a ring of copy stages, no P or dS in shared memory
+// (recomputed a 16 x 16 block at a time for the per-key products) and the
+// dbias sums in registers.
 //
 // The CUDA-core body at that shape, with a bias, would need 324 KB (q, k,
 // v, dO, P and dP as f32, and the dbias partial). There it keeps one f32
@@ -287,18 +295,12 @@ struct DBiasSink {
 // path's n <= 64, hd <= 32 (68 KB of shared memory with the bias).
 constexpr int bwd_min_blocks(int nt, int dt) { return nt <= 4 && dt <= 2 ? 3 : 1; }
 
-// Threads a block of the bf16 kernel: MMA_THREADS, and for wide windows,
-// where a block holds 207 KB and so is alone on its SM, a warp for each of
-// the nine 16-row tiles (and, after the barrier, each of the nine key tiles).
-constexpr int bwd_threads(int nt) { return nt > MMA_MAX_N / 16 ? 32 * nt : MMA_THREADS; }
-
-// bf16 on the tensor cores: one block of bwd_threads(NT) per (run of wpb
+// bf16 on the tensor cores: one block of MMA_THREADS per (run of wpb
 // windows, head), head-fastest, windows in the forward's order (slots = nW
 // with a mask, 1 without). NT and DT bound pad16(n) / 16 and pad16(hd) / 16.
-// q, k, dq and dk rows are ldg apart, v and dv rows ldv. L2_BIAS: bias and
-// mask through L2 (GlobalBias), no FragBias tile.
-template <int NT, int DT, bool L2_BIAS>
-__global__ void __launch_bounds__(bwd_threads(NT), bwd_min_blocks(NT, DT))
+// q, k, dq and dk rows are ldg apart, v and dv rows ldv.
+template <int NT, int DT>
+__global__ void __launch_bounds__(MMA_THREADS, bwd_min_blocks(NT, DT))
     window_attention_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
                                     const float* __restrict__ bias,
@@ -312,7 +314,7 @@ __global__ void __launch_bounds__(bwd_threads(NT), bwd_min_blocks(NT, DT))
   const int hd = c / heads, np = mma_pad16(n), ld = mma_ld(hd);
   const int images = bw / slots;
   float* sb = reinterpret_cast<float*>(smem_raw);  // bias + mask, FragBias order
-  float* sdb = sb + (L2_BIAS ? 0 : np * np);         // dbias partial, the same order
+  float* sdb = sb + np * np;                        // dbias partial, the same order
   bf16* sq = reinterpret_cast<bf16*>(sdb + (dbias ? np * np : 0));  // qs, rounded to bf16
   bf16* sk = sq + np * ld;
   bf16* sv = sk + np * ld;
@@ -337,20 +339,15 @@ __global__ void __launch_bounds__(bwd_threads(NT), bwd_min_blocks(NT, DT))
     mma_stage(sq, q + base, n, np, hd, ldg, ld);
     mma_stage(sdo, dout + obase, n, np, hd, c, ld);
     cp_async_commit();
-    const float* ms = mask ? mask + (size_t)s * n * n : nullptr;
-    if (!L2_BIAS && s != slot) {  // the last window's readers of sb passed its middle barrier
+    if (s != slot) {  // the last window's readers of sb passed its middle barrier
       slot = s;
-      mma_bias_tile(sb, bh, ms, n);
+      mma_bias_tile(sb, bh, mask ? mask + (size_t)s * n * n : nullptr, n);
     }
     cp_async_wait<0>();
     mma_scale_staged(sq, np, hd, ld, scale_t);
     __syncthreads();
-    if constexpr (L2_BIAS)
-      mma_bwd_rows<NT, DT, true>(sq, sk, sv, sdo, ld, sp, sds, dq + base, ldg, n, hd, scale,
-                                 GlobalBias{bh, ms}, sink);
-    else
-      mma_bwd_rows<NT, DT, true>(sq, sk, sv, sdo, ld, sp, sds, dq + base, ldg, n, hd, scale,
-                                 FragBias{reinterpret_cast<const float4*>(sb)}, sink);
+    mma_bwd_rows<NT, DT, true>(sq, sk, sv, sdo, ld, sp, sds, dq + base, ldg, n, hd, scale,
+                               FragBias{reinterpret_cast<const float4*>(sb)}, sink);
     __syncthreads();
     if (u + 1 < u1) {
       const int s1 = (u + 1) / images, w1 = s1 + (u + 1 - s1 * images) * slots;
@@ -368,13 +365,348 @@ __global__ void __launch_bounds__(bwd_threads(NT), bwd_min_blocks(NT, DT))
     }
 }
 
-// Shared memory of the bf16 tensor-core kernel: the FragBias tile (none for
-// wide windows), with a bias the dbias partial, qs, k, v and dO in pad16(n)
-// rows of mma_ld(hd) elements, and bf16 P and dS as (pad16(n), pad16(n)).
+// Stages of the wide body's copy ring.
+#define WIDE_BWD_STAGES 2
+// Row tiles whose dbias sums a lane keeps in registers; those of the others
+// are in shared memory, a float4 for each (row tile, 8-key tile, thread).
+#define WIDE_DB_REG_TILES 4
+
+// Wide windows (window_mma_wide), bf16: one block an SM of MMA_WIDE_WARPS
+// warps per (run of wpb windows, head), in the order of the kernel above.
+// q, k, v and dO of each window arrive in a ring of R stages (cp.async, 16
+// bytes a thread, padding zero-filled), each thread's copies arriving on
+// the stage's mbarrier as they land; the copies of window i + R - 1 are
+// issued at window i's middle barrier, once every warp is done with the
+// stage they refill. A block keeps no P or dS: per window,
+//  - rows pass: warp rt scales its query rows 16 rt.. of q in place (qs,
+//    rounded to bf16) and takes them a 16-key block at a time (bias + mask
+//    from the FragBias tile), twice: once for the row maxima and the sums
+//    of exp(s - max) and of exp(s - max) * dP (rescaled as the maxima
+//    grow), which give 1 / rowsum and D = rowsum(P * dP); then for P, dP
+//    and dS = P * (dP - D) and dq = bf16(dS) . k * scale. It keeps the
+//    maxima, 1 / rowsum and D of its rows in shared memory;
+//  - keys pass, after the middle barrier: warp kt takes keys 16 kt.. and
+//    each row tile in turn, recomputes the 16 x 16 blocks of S, P (from the
+//    kept maxima and sums: the rows pass's f32 values), dP and dS, adds dS
+//    to its dbias registers (the same keys in every window) and takes
+//    dv += bf16(P)^T . dO and dk += bf16(dS)^T . qs, the transposes' A
+//    fragments from movmatrix.
+// Nine warps share an SM's four schedulers three to one, which leaves a
+// thread 168 registers, so neither pass keeps a row of S, and a lane keeps
+// the dbias sums of WIDE_DB_REG_TILES row tiles (32 of its 72) in registers
+// and the rest in its own float4s of shared memory: all 72 in registers
+// spilled 200 bytes and ran 1.1x as long (tools/k1_variants.py). When the mask slot changes, each warp fills its own
+// rows of the FragBias tile after a barrier (its rows pass reads only
+// those, and the middle barrier orders them before the keys pass); after
+// its last window each lane adds its 72 dbias sums to the head's gradient
+// by atomicAdd.
+template <int R>
+__global__ void __launch_bounds__(32 * MMA_WIDE_WARPS, 1)
+    window_attention_bwd_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                                     const float* __restrict__ bias,
+                                     const float* __restrict__ mask, bf16* __restrict__ dq,
+                                     bf16* __restrict__ dk, bf16* __restrict__ dv,
+                                     float* __restrict__ dbias, int bw, int n, int c, int heads,
+                                     int ldg, int ldv, int slots, int wpb, float scale) {
+  constexpr int NT = MMA_WIDE_N / 16, DT = MMA_WIDE_HD / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int h = blockIdx.x % heads;
+  const int u0 = (blockIdx.x / heads) * wpb, u1 = min(bw, u0 + wpb);
+  const int hd = c / heads, np = mma_pad16(n), ld = mma_ld(hd), stage = 4 * np * ld;
+  const int nk = np >> 4, nd = mma_pad16(hd) >> 4, tiles = np >> 3;
+  const int images = bw / slots;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float* sb = reinterpret_cast<float*>(smem_raw);  // bias + mask, FragBias order
+  bf16* ring = reinterpret_cast<bf16*>(sb + np * np);  // R stages of q, k, v, dO
+  float* stats = reinterpret_cast<float*>(ring + R * stage);  // 2 x (max, 1/sum, D) a row
+  // dbias sums of row tiles WIDE_DB_REG_TILES.., each thread's own float4s
+  float4* dbs = reinterpret_cast<float4*>(stats + 6 * np) + threadIdx.x;
+  constexpr int DBS = 2 * (NT - WIDE_DB_REG_TILES);
+  uint64_t* full = reinterpret_cast<uint64_t*>(dbs - threadIdx.x + DBS * blockDim.x);
+  // the copies of the window at index j of the run into stage j % R
+  auto issue = [&](int j) {
+    const int u = u0 + j, s = u / images, w = s + (u - s * images) * slots;
+    const size_t base = (size_t)w * n * ldg + (size_t)h * hd;
+    bf16* dst = ring + (j % R) * stage;
+    mma_stage(dst, q + base, n, np, hd, ldg, ld);
+    mma_stage(dst + np * ld, k + base, n, np, hd, ldg, ld);
+    mma_stage(dst + 2 * np * ld, v + (size_t)w * n * ldv + (size_t)h * hd, n, np, hd, ldv, ld);
+    mma_stage(dst + 3 * np * ld, dout + (size_t)w * n * c + (size_t)h * hd, n, np, hd, c, ld);
+    cp_async_arrive(&full[j % R]);
+  };
+  const int count = u1 - u0;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < R; ++i) mbar_init(&full[i], 32 * MMA_WIDE_WARPS);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  for (int j = 0; j < min(R - 1, count); ++j) issue(j);
+  const float* bh = bias ? bias + (size_t)h * n * n : nullptr;
+  const float scale_t = __bfloat162float(__float2bfloat16(scale));
+  const float4* tile4 = reinterpret_cast<const float4*>(sb);
+  // dbias of keys 16 warp.. and every row, summed over windows: row tiles
+  // below WIDE_DB_REG_TILES here, the others in dbs
+  float db[WIDE_DB_REG_TILES][2][4];
+#pragma unroll
+  for (int rt = 0; rt < WIDE_DB_REG_TILES; ++rt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) db[rt][0][e] = db[rt][1][e] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < DBS; ++i) dbs[i * blockDim.x] = make_float4(0.f, 0.f, 0.f, 0.f);
+  int slot = -1;
+  for (int i = 0; i < count; ++i) {
+    const int u = u0 + i, st = i % R, s = u / images, w = s + (u - s * images) * slots;
+    if (s != slot) {
+      // every warp is done with the last slot's tile; each fills its own rows,
+      // which only it reads before the middle barrier
+      if (slot >= 0) __syncthreads();
+      slot = s;
+      warp_bias_rows(sb, bh, mask ? mask + (size_t)s * n * n : nullptr, n, warp, lane);
+    }
+    mbar_wait(&full[st], (i / R) & 1);
+    bf16* sq = ring + st * stage;
+    const bf16* sk = sq + np * ld;
+    const bf16* sv = sk + np * ld;
+    const bf16* sdo = sv + np * ld;
+    float* smax = stats + (i & 1) * 3 * np;
+    float* sinv = smax + np;
+    float* sdot = sinv + np;
+    const size_t base = (size_t)w * n * ldg + (size_t)h * hd;
+    {  // rows pass: warp rt = warp
+      const int r0 = warp * 16;
+      // qs = q * scale, rounded to bf16, in place: this warp's rows, which
+      // only it reads before the middle barrier
+      scale_rows(sq, ld, r0, nd, lane, scale_t);
+      __syncwarp();
+      const float4* brow = tile4 + warp * tiles * 32 + lane;
+      uint32_t fa[DT][4], fo[DT][4];
+      load_rows<DT>(fa, sq, ld, r0, nd, lane);
+      load_rows<DT>(fo, sdo, ld, r0, nd, lane);
+      // the logits of key block kt, biased (q came scaled)
+      auto logits = [&](int kt, float (&blk)[2][4]) {
+        uint32_t fb[DT][4];
+        load_bt<DT>(fb, sk, ld, kt * 16, nd, lane);
+        mma_block<DT>(blk, fa, fb, nd);
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const float4 b = brow[(2 * kt + jj) * 32];
+          blk[jj][0] += b.x;
+          blk[jj][1] += b.y;
+          blk[jj][2] += b.z;
+          blk[jj][3] += b.w;
+        }
+      };
+      auto dp_block = [&](int kt, float (&dp)[2][4]) {
+        uint32_t fb[DT][4];
+        load_bt<DT>(fb, sv, ld, kt * 16, nd, lane);
+        mma_block<DT>(dp, fo, fb, nd);
+      };
+      // one sweep for the row maxima and the sums of exp(s - max) and of
+      // exp(s - max) * dP, rescaled as the maxima grow
+      float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, e0 = 0.f, e1 = 0.f;
+#pragma unroll 3
+      for (int kt = 0; kt < nk; ++kt) {
+        float blk[2][4], dp[2][4];
+        logits(kt, blk);
+        dp_block(kt, dp);
+        const float n0 = fmaxf(m0, quad_max(fmaxf(fmaxf(blk[0][0], blk[0][1]),
+                                                  fmaxf(blk[1][0], blk[1][1]))));
+        const float n1 = fmaxf(m1, quad_max(fmaxf(fmaxf(blk[0][2], blk[0][3]),
+                                                  fmaxf(blk[1][2], blk[1][3]))));
+        // exp(-inf) = 0 for the first block (m = -inf); n is finite
+        const float c0 = softmax_exp<true>(m0 - n0), c1 = softmax_exp<true>(m1 - n1);
+        l0 *= c0, e0 *= c0, l1 *= c1, e1 *= c1;
+        m0 = n0, m1 = n1;
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const float x0 = softmax_exp<true>(blk[jj][0] - m0);
+          const float x1 = softmax_exp<true>(blk[jj][1] - m0);
+          const float x2 = softmax_exp<true>(blk[jj][2] - m1);
+          const float x3 = softmax_exp<true>(blk[jj][3] - m1);
+          l0 += x0 + x1;
+          l1 += x2 + x3;
+          e0 = fmaf(dp[jj][0], x0, fmaf(dp[jj][1], x1, e0));
+          e1 = fmaf(dp[jj][2], x2, fmaf(dp[jj][3], x3, e1));
+        }
+      }
+      l0 = quad_sum(l0);
+      l1 = quad_sum(l1);
+      e0 = quad_sum(e0);
+      e1 = quad_sum(e1);
+      // padded rows get P = 0, so that they add nothing to dk, dv or dbias
+      const float inv0 = r0 + g < n ? 1.f / l0 : 0.f;
+      const float inv1 = r0 + g + 8 < n ? 1.f / l1 : 0.f;
+      const float dot0 = e0 * inv0, dot1 = e1 * inv1;
+      if (t == 0) {
+        smax[r0 + g] = m0, smax[r0 + g + 8] = m1;
+        sinv[r0 + g] = inv0, sinv[r0 + g + 8] = inv1;
+        sdot[r0 + g] = dot0, sdot[r0 + g + 8] = dot1;
+      }
+      float o[2 * DT][4];
+#pragma unroll
+      for (int j = 0; j < 2 * DT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+#pragma unroll 3
+      for (int kt = 0; kt < nk; ++kt) {
+        float blk[2][4], dp[2][4];
+        logits(kt, blk);
+        dp_block(kt, dp);
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float pe = softmax_exp<true>(blk[jj][e] - ((e >> 1) ? m1 : m0)) *
+                             ((e >> 1) ? inv1 : inv0);
+            dp[jj][e] = pe * (dp[jj][e] - ((e >> 1) ? dot1 : dot0));
+          }
+        }
+        const uint32_t fds[4] = {pack_bf16(dp[0][0], dp[0][1]), pack_bf16(dp[0][2], dp[0][3]),
+                                 pack_bf16(dp[1][0], dp[1][1]), pack_bf16(dp[1][2], dp[1][3])};
+#pragma unroll
+        for (int dn = 0; dn < DT; ++dn) {
+          if (dn >= nd) break;
+          uint32_t fk[4];
+          ldsm_x4<true>(fk, tile_b(sk, ld, kt * 16, dn * 16, lane));
+          mma16816(o[2 * dn], fds, fk[0], fk[1]);
+          mma16816(o[2 * dn + 1], fds, fk[2], fk[3]);
+        }
+      }
+#pragma unroll
+      for (int dn = 0; dn < 2 * DT; ++dn) {
+        if (8 * dn >= hd) break;
+        const int col = 8 * dn + 2 * t;
+        if (r0 + g < n)
+          *reinterpret_cast<uint32_t*>(dq + base + (size_t)(r0 + g) * ldg + col) =
+              pack_bf16(o[dn][0] * scale, o[dn][1] * scale);
+        if (r0 + g + 8 < n)
+          *reinterpret_cast<uint32_t*>(dq + base + (size_t)(r0 + g + 8) * ldg + col) =
+              pack_bf16(o[dn][2] * scale, o[dn][3] * scale);
+      }
+    }
+    __syncthreads();  // every warp is done with the stage of window i - 1
+    if (i + R - 1 < count) issue(i + R - 1);
+    {  // keys pass: warp kt = warp
+      const int k0 = warp * 16;
+      float gk[2 * DT][4], gv[2 * DT][4];
+#pragma unroll
+      for (int j = 0; j < 2 * DT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) gk[j][e] = gv[j][e] = 0.f;
+      }
+#pragma unroll
+      for (int rt = 0; rt < NT; ++rt) {
+        if (rt >= nk) break;
+        const int r0 = rt * 16;
+        float pb[2][4], dp[2][4];
+        {  // this warp's keys' fragments, loaded again for each row tile (16 fewer
+           // registers held across the loop)
+          uint32_t fa[DT][4], fb[DT][4];
+          load_rows<DT>(fa, sq, ld, r0, nd, lane);
+          load_bt<DT>(fb, sk, ld, k0, nd, lane);
+          mma_block<DT>(pb, fa, fb, nd);
+          load_rows<DT>(fa, sdo, ld, r0, nd, lane);
+          load_bt<DT>(fb, sv, ld, k0, nd, lane);
+          mma_block<DT>(dp, fa, fb, nd);
+        }
+        const float mx[2] = {smax[r0 + g], smax[r0 + g + 8]};
+        const float iv[2] = {sinv[r0 + g], sinv[r0 + g + 8]};
+        const float dt[2] = {sdot[r0 + g], sdot[r0 + g + 8]};
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const float4 b = tile4[(rt * tiles + 2 * warp + jj) * 32 + lane];
+          const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int hh = e >> 1;
+            // the rows pass's logit and P, bit for bit
+            pb[jj][e] = softmax_exp<true>(pb[jj][e] + bv[e] - mx[hh]) * iv[hh];
+            dp[jj][e] = pb[jj][e] * (dp[jj][e] - dt[hh]);
+          }
+          if (rt < WIDE_DB_REG_TILES) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) db[rt < WIDE_DB_REG_TILES ? rt : 0][jj][e] += dp[jj][e];
+          } else {
+            float4& a = dbs[((rt - WIDE_DB_REG_TILES) * 2 + jj) * blockDim.x];
+            a = make_float4(a.x + dp[jj][0], a.y + dp[jj][1], a.z + dp[jj][2], a.w + dp[jj][3]);
+          }
+        }
+        uint32_t ap[4], ads[4];
+        a_of_transpose(ap, pb);
+        a_of_transpose(ads, dp);
+#pragma unroll
+        for (int dn = 0; dn < DT; ++dn) {
+          if (dn >= nd) break;
+          uint32_t fb[4];
+          ldsm_x4<true>(fb, tile_b(sdo, ld, r0, dn * 16, lane));
+          mma16816(gv[2 * dn], ap, fb[0], fb[1]);
+          mma16816(gv[2 * dn + 1], ap, fb[2], fb[3]);
+          ldsm_x4<true>(fb, tile_b(sq, ld, r0, dn * 16, lane));
+          mma16816(gk[2 * dn], ads, fb[0], fb[1]);
+          mma16816(gk[2 * dn + 1], ads, fb[2], fb[3]);
+        }
+      }
+      const size_t vbase = (size_t)w * n * ldv + (size_t)h * hd;
+#pragma unroll
+      for (int dn = 0; dn < 2 * DT; ++dn) {
+        if (8 * dn >= hd) break;
+        const int col = 8 * dn + 2 * t;
+        if (k0 + g < n) {
+          const size_t r = k0 + g;
+          *reinterpret_cast<uint32_t*>(dk + base + r * ldg + col) =
+              pack_bf16(gk[dn][0], gk[dn][1]);
+          *reinterpret_cast<uint32_t*>(dv + vbase + r * ldv + col) =
+              pack_bf16(gv[dn][0], gv[dn][1]);
+        }
+        if (k0 + g + 8 < n) {
+          const size_t r = k0 + g + 8;
+          *reinterpret_cast<uint32_t*>(dk + base + r * ldg + col) =
+              pack_bf16(gk[dn][2], gk[dn][3]);
+          *reinterpret_cast<uint32_t*>(dv + vbase + r * ldv + col) =
+              pack_bf16(gv[dn][2], gv[dn][3]);
+        }
+      }
+    }
+  }
+  if (dbias) {
+    float* dh = dbias + (size_t)h * n * n;
+#pragma unroll
+    for (int rt = 0; rt < NT; ++rt) {
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        float sum[4];
+        if (rt < WIDE_DB_REG_TILES) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sum[e] = db[rt < WIDE_DB_REG_TILES ? rt : 0][jj][e];
+        } else {
+          const float4 a = dbs[((rt - WIDE_DB_REG_TILES) * 2 + jj) * blockDim.x];
+          sum[0] = a.x, sum[1] = a.y, sum[2] = a.z, sum[3] = a.w;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = rt * 16 + g + ((e >> 1) << 3);
+          const int col = warp * 16 + 8 * jj + 2 * t + (e & 1);
+          if (row < n && col < n) atomicAdd(dh + row * n + col, sum[e]);
+        }
+      }
+    }
+  }
+}
+
+// Shared memory of the bf16 tensor-core kernels. n <= MMA_MAX_N: the
+// FragBias tile, with a bias the dbias partial, qs, k, v and dO in
+// pad16(n) rows of mma_ld(hd) elements, and bf16 P and dS as (pad16(n),
+// pad16(n)). Wide windows: the FragBias tile, WIDE_BWD_STAGES stages of q,
+// k, v and dO, two sets of row maxima, sums and D, the dbias sums kept in
+// shared memory, and an mbarrier a stage.
 static size_t mma_bwd_smem(int n, int hd, bool with_dbias) {
-  const size_t np = mma_pad16(n);
-  return ((window_mma_wide(n, hd) ? 0 : 1) + (with_dbias ? 1 : 0)) * np * np * sizeof(float) +
-         (4 * np * mma_ld(hd) + 2 * np * np) * sizeof(bf16);
+  const size_t np = mma_pad16(n), ops = 4 * np * mma_ld(hd) * sizeof(bf16);
+  if (window_mma_wide(n, hd))
+    return np * np * sizeof(float) + WIDE_BWD_STAGES * (ops + sizeof(uint64_t)) +
+           6 * np * sizeof(float) +
+           2 * (MMA_WIDE_WARPS - WIDE_DB_REG_TILES) * 32 * MMA_WIDE_WARPS * sizeof(float4);
+  return (1 + (with_dbias ? 1 : 0)) * np * np * sizeof(float) + ops +
+         2 * np * np * sizeof(bf16);
 }
 
 // Shared memory of the CUDA-core kernel: window_head_attention_bwd's, and
@@ -400,11 +732,11 @@ struct BwdArgs {
   float scale;
 };
 
-template <int NT, int DT, bool L2_BIAS>
+template <int NT, int DT>
 static int launch_mma(const BwdArgs& a, cudaStream_t stream) {
   const int bw = a.bw, n = a.n, c = a.c, heads = a.heads;
   float* dbias = a.dbias;
-  auto kernel = window_attention_bwd_mma_kernel<NT, DT, L2_BIAS>;
+  auto kernel = window_attention_bwd_mma_kernel<NT, DT>;
   const size_t smem = mma_bwd_smem(n, c / heads, dbias != nullptr);
   cudaError_t err = allow_smem(kernel, smem);
   if (err == cudaSuccess)  // room for bwd_min_blocks blocks an SM
@@ -412,13 +744,32 @@ static int launch_mma(const BwdArgs& a, cudaStream_t stream) {
                                cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
   // runs of about 16 windows, so that dbias meets device memory once a run
-  const int threads = bwd_threads(NT);
-  const int wpb = balanced_windows_per_block(kernel, smem, bw, heads, 16, threads);
+  const int wpb = balanced_windows_per_block(kernel, smem, bw, heads, 16);
   if (wpb <= 0) return (int)cudaGetLastError();
   const unsigned blocks = (unsigned)((bw + wpb - 1) / wpb) * heads;
-  kernel<<<blocks, threads, smem, stream>>>(
+  kernel<<<blocks, MMA_THREADS, smem, stream>>>(
       (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v, (const bf16*)a.dout, a.bias, a.mask,
       (bf16*)a.dq, (bf16*)a.dk, (bf16*)a.dv, dbias, bw, n, c, heads, a.ld, a.ldv,
+      a.mask ? a.nw : 1, wpb, a.scale);
+  return (int)cudaGetLastError();
+}
+
+static int launch_wide(const BwdArgs& a, cudaStream_t stream) {
+  auto kernel = window_attention_bwd_wide_kernel<WIDE_BWD_STAGES>;
+  const size_t smem = mma_bwd_smem(a.n, a.c / a.heads, a.dbias != nullptr);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  // a block's start (the first window's copies, the tile) is about two
+  // windows' time
+  const int wpb = wide_windows_per_block(a.bw, a.heads, 2);
+  if (wpb <= 0) return (int)cudaGetLastError();
+  const unsigned blocks = (unsigned)((a.bw + wpb - 1) / wpb) * a.heads;
+  kernel<<<blocks, 32 * MMA_WIDE_WARPS, smem, stream>>>(
+      (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v, (const bf16*)a.dout, a.bias, a.mask,
+      (bf16*)a.dq, (bf16*)a.dk, (bf16*)a.dv, a.dbias, a.bw, a.n, a.c, a.heads, a.ld, a.ldv,
       a.mask ? a.nw : 1, wpb, a.scale);
   return (int)cudaGetLastError();
 }
@@ -478,9 +829,9 @@ extern "C" int mde_window_attention_bwd(const void* q, const void* k, const void
   if ((((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout | (uintptr_t)dq |
         (uintptr_t)dk | (uintptr_t)dv) & 15) || ld % 8 || ldv % 8)
     return (int)cudaErrorMisalignedAddress;
-  if (n <= 64 && hd <= 32) return launch_mma<4, 2, false>(a, s);
-  if (n <= MMA_MAX_N) return launch_mma<8, 8, false>(a, s);
-  return launch_mma<MMA_WIDE_N / 16, MMA_WIDE_HD / 16, true>(a, s);
+  if (n <= 64 && hd <= 32) return launch_mma<4, 2>(a, s);
+  if (n <= MMA_MAX_N) return launch_mma<8, 8>(a, s);
+  return launch_wide(a, s);
 }
 
 // Bytes of shared memory one block of mde_window_attention_bwd takes for

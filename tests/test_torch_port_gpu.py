@@ -142,35 +142,45 @@ def test_window_attention_bwd_kernel(cuda, dtype, r, shifted):
            (qkv, dout, bias, mask, nh, scale), dtype, relative=True)
 
 
-# (window side, heads, channels, images, bias, shifted): the KSA decoder's
-# head dim 16; stage 3's 16 heads at C 512; bias only, mask only, neither;
-# 144 tokens (a 12 x 12 window: the ODA encoder's), past the n <= 128
-# tensor-core bodies, on the wide ones (window_mma_wide in
-# csrc/attention_mma.cuh; bias and mask through L2) at head dim 32 with
-# both, at 16 with the mask alone, and unmasked at 48 heads of C 1536 (the
-# ODA encoder's stage 4); the f32 backward there on the lean CUDA-core body
-# (one n x n matrix, dbias by device atomics); 144 tokens at head dim 40,
-# past the wide bodies' 32 (the CUDA-core bodies); head dim 12, not a
-# multiple of 8 (both on the CUDA-core body); and 47 images of 8 windows,
-# so that a block's run of windows (2 or more here) crosses mask slots and
-# dbias sums many windows a block
+# (window side, heads, channels, images, bias, shifted[, windows an image,
+# 8 if not given]): the KSA decoder's head dim 16; stage 3's 16 heads at C
+# 512; bias only, mask only, neither; 144 tokens (a 12 x 12 window: the ODA
+# encoder's), past the n <= 128 tensor-core bodies, on the wide ones
+# (window_mma_wide in csrc/attention_mma.cuh: one block an SM, the bias
+# tile filled once a mask slot, a ring of copy stages) at head dim 32 with
+# both, at 16 with the mask alone, at 24 (columns 24-31 zero-filled), and
+# unmasked at 48 heads of C 1536 (the ODA encoder's stage 4: 8 windows, and
+# 2 windows an image at batch 1 and 8); 5 and 47 images, so that a block's
+# run of windows ends inside a mask slot's images and dbias sums many
+# blocks; the f32 backward there on the lean CUDA-core body (one n x n
+# matrix, dbias by device atomics); 144 tokens at head dim 40, past the
+# wide bodies' 32 (the CUDA-core bodies); head dim 12, not a multiple of 8
+# (both on the CUDA-core body); and 47 images of 8 windows, so that a
+# block's run of windows (2 or more here) crosses mask slots and dbias sums
+# many windows a block
 WINDOW_CASES = {"hd16": (7, 4, 64, 3, True, True), "heads16": (7, 16, 512, 3, True, True),
                 "bias_only": (7, 4, 128, 3, True, False),
                 "mask_only": (7, 4, 128, 3, False, True),
                 "neither": (7, 4, 128, 3, False, False),
                 "n144": (12, 4, 128, 3, True, True), "n144_hd16": (12, 4, 64, 3, False, True),
                 "n144_heads48": (12, 48, 1536, 1, True, False),
+                "n144_hd24": (12, 4, 96, 3, True, True),
+                "n144_stage4_batch1": (12, 48, 1536, 1, True, False, 2),
+                "n144_stage4_batch8": (12, 48, 1536, 8, True, False, 2),
+                "n144_images5": (12, 6, 192, 5, True, True),
+                "n144_images47": (12, 6, 192, 47, True, True),
                 "n144_hd40": (12, 2, 80, 1, True, True),
                 "hd12": (7, 3, 36, 3, True, True), "many_windows": (7, 4, 128, 47, True, True)}
 WINDOW_BWD_CASES = list(WINDOW_CASES)
 
 
 def _window_case_args(cuda, dtype, case, seed):
-    r, nh, c, images, with_bias, shifted = WINDOW_CASES[case]
+    r, nh, c, images, with_bias, shifted, *rest = WINDOW_CASES[case]
+    windows = rest[0] if rest else 8
     rng = np.random.RandomState(seed)
     n = r * r
     mask = shifted_window_attn_mask(2 * r, 4 * r, r, r // 2, cuda) if shifted else None
-    qkv = _randn(rng, 8 * images, n, 3 * c).to(cuda, dtype)
+    qkv = _randn(rng, windows * images, n, 3 * c).to(cuda, dtype)
     bias = _randn(rng, nh, n, n).to(cuda) if with_bias else None
     return qkv, bias, mask, nh, (c // nh) ** -0.5
 
@@ -907,18 +917,20 @@ def test_tiny_trainer_fit_on_card(cuda, tmp_path):
 
 
 # K1's q|k + separate-v entry at the NewCRFs decoder's shapes: crf0 (C 128,
-# 4 heads) and crf3 (C 1024, 32 heads), head dim 32, 7x7 windows, 3 images
-# of 8 windows, with and without the SW-MSA mask
-QK_V_CASES = {"crf0": (128, 4), "crf3": (1024, 32)}
+# 4 heads) and crf3 (C 1024, 32 heads), head dim 32, 7x7 windows; and at the
+# ODA encoder's stage 1 (C 192, 6 heads, 12x12 windows: the wide bodies);
+# 3 images of 8 windows, with and without the SW-MSA mask
+QK_V_CASES = {"crf0": (128, 4, 7), "crf3": (1024, 32, 7), "oda_n144": (192, 6, 12)}
 
 
 def _qk_v_args(cuda, dtype, case, shifted, seed):
-    c, nh = QK_V_CASES[case]
+    c, nh, r = QK_V_CASES[case]
+    n = r * r
     rng = np.random.RandomState(seed)
-    mask = shifted_window_attn_mask(14, 28, 7, 3, cuda) if shifted else None
-    qk = _randn(rng, 24, 49, 2 * c).to(cuda, dtype)
-    v = _randn(rng, 24, 49, c).to(cuda, dtype)
-    return qk, v, _randn(rng, nh, 49, 49).to(cuda), mask, nh, (c // nh) ** -0.5
+    mask = shifted_window_attn_mask(2 * r, 4 * r, r, r // 2, cuda) if shifted else None
+    qk = _randn(rng, 24, n, 2 * c).to(cuda, dtype)
+    v = _randn(rng, 24, n, c).to(cuda, dtype)
+    return qk, v, _randn(rng, nh, n, n).to(cuda), mask, nh, (c // nh) ** -0.5
 
 
 def _plain_qk_v(qk, v, bias, mask, nh, scale):

@@ -35,11 +35,11 @@ PHASES = {"K1 stage 1": "window_phase('stage 1', 512 * cs.BATCH, 128, 4, 512, Tr
           "K5 bwd stage 2": "channel_phase(dev, True, 256)",
           "K3 dxdw": "depthwise_bwd_phase(dev, True)",
           "K3 dw": "depthwise_bwd_phase(dev, False)",
-          # fwd only: before the wide tensor-core bodies, the backward at
-          # 144 tokens did not fit a block
           "K1 ODA stage 1": "oda_window_phase(1, cs.BATCH, 192, 6, True, dev)",
           "K1 ODA stage 1 unmasked": "oda_window_phase(1, cs.BATCH, 192, 6, False, dev)",
           "K1 ODA stage 4": "oda_window_phase(4, cs.BATCH, 1536, 48, False, dev)",
+          "K1 bwd ODA stage 1": "oda_window_phase(1, cs.TRAIN_BATCH, 192, 6, True, dev, "
+                                "backward=True)",
           "step none": "step_ms(dev, None)", "step full": "step_ms(dev, 'full')",
           "step save_sa_conv": "step_ms(dev, 'save_sa_conv')"}
 # the checkout's package comes first on the path (the command runs in it);
