@@ -3049,18 +3049,21 @@ def build_report(kernels) -> dict:
 # -- PR 18: the kernels as operators, the exported serving forward,
 #    return_weights, tensor-parallel FFs ------------------------------------
 
-# the forward entries that are operators of the mde namespace, the kernel
-# each launches, and its binding in the kernels line
-# (the module under mde_tpu_torch/ops/kernels/, the kernel it launches)
+# the forward entries that are operators of the mde namespace (the module
+# under mde_tpu_torch/ops/kernels/, the kernel it launches)
 OPS = {"window_attention": ("window_attention", "window_attention"),
        "window_attention_qk_v": ("window_attention", "window_attention"),
        "ordered_attention": ("ordered_attention", "ordered_attention"),
        "depthwise_conv2d": ("depthwise", "depthwise_conv2d"),
        "glu_ff": ("glu_ff", "glu_ff"),
        "channel_attention": ("channel_attention", "channel_attention")}
-BINDINGS = {k: (f"custom op mde.{k}" if k in OPS else "ctypes") for k in SOURCES}
+# each kernel's binding in the kernels line: every entry, forward and
+# backward, is an operator of the mde namespace
+BINDINGS = {k: f"custom op mde.{k}" for k in SOURCES}
 BINDINGS["window_attention"] = ("custom ops mde.window_attention and "
                                 "mde.window_attention_qk_v")
+BINDINGS["window_attention_bwd"] = ("custom ops mde.window_attention_bwd and "
+                                    "mde.window_attention_qk_v_bwd")
 # a flagship serving call with return_weights: the ordered SAs on JAX's
 # einsum path, which K2 does not serve (it computes no weights)
 WEIGHTS_SERVE_LAUNCHES = {"window_attention": 24, "depthwise_conv2d": 6}

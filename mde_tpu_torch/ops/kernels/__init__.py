@@ -10,14 +10,23 @@ Dispatch is by device and nothing else: a tensor on the CPU takes the plain
 version, a CUDA tensor launches the kernel or raises. There is no override
 and no fallback: a failed build or launch is an error.
 
-The forward entry of every kernel is also an operator of the ``mde``
-namespace (``torch.library.custom_op``: ``torch.ops.mde.window_attention``,
+Every entry, forward and backward, is also an operator of the ``mde``
+namespace (``torch.library.custom_op``), registered when its module is
+imported: the forwards ``torch.ops.mde.window_attention``,
 ``window_attention_qk_v``, ``ordered_attention``, ``depthwise_conv2d``,
-``glu_ff``, ``channel_attention``), registered when its module is
-imported, so that ``torch.export`` records one node a call
-(``tools/torch_export.py``); its fake gives only the output's shape and
-dtype. The backward entries stay plain ``ctypes`` calls inside the
-``autograd.Function``s.
+``glu_ff``, ``channel_attention``, so that ``torch.export`` records one
+node a call (``tools/torch_export.py``), and the backwards
+``window_attention_bwd``, ``window_attention_qk_v_bwd``,
+``ordered_attention_bwd``, ``depthwise_conv2d_dxdw``,
+``depthwise_conv2d_dw``, ``channel_attention_bwd``, which the
+``autograd.Function``s call. A profile records each call of an operator by
+name with its inputs' shapes, above the kernel it launches. Each fake
+gives only the outputs' shapes and dtypes. An operator cannot return
+None: a backward op returns an empty f32 tensor (:func:`absent`) for the
+gradient of an absent bias or table, and its Function returns None there.
+Each ``direct_*`` beside a forward op, and the function each backward op
+wraps (``window_attention_bwd``, ``depthwise_dxdw``, ...), is the same
+check and launch without the dispatcher.
 
 The kernels are compiled at first use, never at import: every
 ``csrc/*.cu`` goes through its own ``nvcc`` (all started together) for
@@ -206,6 +215,12 @@ def check_smem(kernel: str, n: int, hd: int, need: int) -> None:
     if need > SMEM_LIMIT:
         raise ValueError(f"{kernel}: N={n}, head dim {hd} needs {need} bytes of shared "
                          f"memory; a block has {SMEM_LIMIT}")
+
+
+def absent(like: torch.Tensor) -> torch.Tensor:
+    """What a backward op returns for the gradient of an absent input: an
+    empty f32 tensor on ``like``'s device."""
+    return like.new_empty(0, dtype=torch.float32)
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:

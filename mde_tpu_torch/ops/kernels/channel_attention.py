@@ -11,9 +11,9 @@ tensor cores at windows of up to 128 tokens and head dims that are
 multiples of 8 up to 128, f32 and the other shapes on the CUDA cores (the
 rule ``channel_mma`` in ``csrc/attention_mma.cuh``); the backward follows
 the same rule (``csrc/channel_attention_bwd.cu``). bf16 tensors that do not
-start on 16 bytes are refused, in the backward dout too. The forward is
-the operator ``torch.ops.mde.channel_attention`` (``torch.library.custom_op``);
-the backward is called through ``ctypes``.
+start on 16 bytes are refused, in the backward dout too. The forward and
+the backward are the operators ``torch.ops.mde.channel_attention`` and
+``torch.ops.mde.channel_attention_bwd`` (``torch.library.custom_op``).
 """
 
 from __future__ import annotations
@@ -146,10 +146,25 @@ def _(q, kv, num_heads, scale):
     return torch.empty_like(q)
 
 
+@torch.library.custom_op("mde::channel_attention_bwd", mutates_args=())
+def channel_attention_bwd_op(q: torch.Tensor, kv: torch.Tensor, dout: torch.Tensor,
+                             num_heads: int, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5's backward as an operator of its own
+    (``torch.ops.mde.channel_attention_bwd``): :func:`channel_attention_bwd`."""
+    return channel_attention_bwd(q, kv, dout, num_heads, scale)
+
+
+@channel_attention_bwd_op.register_fake
+def _(q, kv, dout, num_heads, scale):
+    is_plain(q)  # tracing takes CPU and CUDA tensors; the rest raise
+    return torch.empty_like(q), torch.empty_like(kv)
+
+
 class ChannelAttentionFn(torch.autograd.Function):
-    """K5 forward (``torch.ops.mde.channel_attention``) and backward over q
-    and the fused (BW, N, 2 EC) kv projection; kv's gradient comes back in
-    the same fused layout."""
+    """K5 forward (``torch.ops.mde.channel_attention``) and backward
+    (``torch.ops.mde.channel_attention_bwd``) over q and the fused
+    (BW, N, 2 EC) kv projection; kv's gradient comes back in the same fused
+    layout."""
 
     @staticmethod
     def forward(ctx, q, kv, num_heads, scale):
@@ -160,7 +175,8 @@ class ChannelAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, kv = ctx.saved_tensors
-        dq, dkv = channel_attention_bwd(q, kv, dout.contiguous(), ctx.num_heads, ctx.scale)
+        dq, dkv = channel_attention_bwd_op(q, kv, dout.contiguous(), ctx.num_heads,
+                                           float(ctx.scale))
         return dq, dkv, None, None
 
 

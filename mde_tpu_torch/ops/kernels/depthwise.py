@@ -21,9 +21,10 @@ dw bits) for square 3x3, 5x5 and 7x7 kernels on C in whole 16-byte vectors
 with 16-byte aligned tensors, and for the rest (odd non-square kernels,
 other C, misaligned views) the forward's column body and the backward's
 gather body (``csrc/depthwise_bwd.cuh``). Both are kernels; nothing falls
-back from one to the other. The forward is the operator
-``torch.ops.mde.depthwise_conv2d`` (``torch.library.custom_op``); the
-backward entries are called through ``ctypes``.
+back from one to the other. Each entry is an operator
+(``torch.library.custom_op``): the forward ``torch.ops.mde.depthwise_conv2d``,
+the backward ``torch.ops.mde.depthwise_conv2d_dxdw`` and
+``torch.ops.mde.depthwise_conv2d_dw``.
 """
 
 from __future__ import annotations
@@ -185,10 +186,39 @@ def _(x, w):
     return torch.empty_like(x)
 
 
+@torch.library.custom_op("mde::depthwise_conv2d_dxdw", mutates_args=())
+def depthwise_conv2d_dxdw_op(x: torch.Tensor, g: torch.Tensor,
+                             w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3's backward pair as an operator of its own
+    (``torch.ops.mde.depthwise_conv2d_dxdw``): :func:`depthwise_dxdw`."""
+    return depthwise_dxdw(x, g, w)
+
+
+@depthwise_conv2d_dxdw_op.register_fake
+def _(x, g, w):
+    is_plain(x)  # tracing takes CPU and CUDA tensors; the rest raise
+    return torch.empty_like(x), w.new_empty(w.shape, dtype=torch.float32)
+
+
+@torch.library.custom_op("mde::depthwise_conv2d_dw", mutates_args=())
+def depthwise_conv2d_dw_op(x: torch.Tensor, g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """K3's weight gradient alone as an operator of its own
+    (``torch.ops.mde.depthwise_conv2d_dw``): :func:`depthwise_dw`."""
+    return depthwise_dw(x, g, w)
+
+
+@depthwise_conv2d_dw_op.register_fake
+def _(x, g, w):
+    is_plain(x)  # tracing takes CPU and CUDA tensors; the rest raise
+    return w.new_empty(w.shape, dtype=torch.float32)
+
+
 class DepthwiseConv2dFn(torch.autograd.Function):
     """K3 forward (``torch.ops.mde.depthwise_conv2d``); backward by dxdw
-    when x needs a gradient (always in the train step), by dw alone when
-    only w does. dw is computed in f32 and cast to w's dtype, as
+    (``torch.ops.mde.depthwise_conv2d_dxdw``) when x needs a gradient
+    (always in the train step), by dw alone
+    (``torch.ops.mde.depthwise_conv2d_dw``) when only w does. dw is
+    computed in f32 and cast to w's dtype, as
     ``mde_tpu/ops/pallas/depthwise.py:486-488`` does."""
 
     @staticmethod
@@ -202,9 +232,9 @@ class DepthwiseConv2dFn(torch.autograd.Function):
         need_x, need_w = ctx.needs_input_grad[:2]
         g = g.contiguous()
         if need_x:
-            dx, dw = depthwise_dxdw(x, g, w)
+            dx, dw = depthwise_conv2d_dxdw_op(x, g, w)
         else:
-            dx, dw = None, depthwise_dw(x, g, w)
+            dx, dw = None, depthwise_conv2d_dw_op(x, g, w)
         return dx, dw.to(w.dtype) if need_w else None
 
 

@@ -6,9 +6,9 @@ The CUDA kernels are ``csrc/ordered_attention.cu`` and
 ``csrc/ordered_attention_bwd.cu``, joined by one ``torch.autograd.Function``;
 ``plain_ordered_attention`` mirrors ``xla_ordered_attention`` (:83) and
 ``plain_ordered_attention_bwd`` the backward kernel body (``_bwd_kernel``,
-:299) with its table fold (:461-466). The forward is the operator
-``torch.ops.mde.ordered_attention`` (``torch.library.custom_op``); the
-backward is called through ``ctypes``.
+:299) with its table fold (:461-466). The forward and the backward are
+the operators ``torch.ops.mde.ordered_attention`` and
+``torch.ops.mde.ordered_attention_bwd`` (``torch.library.custom_op``).
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import check, check_smem, dtype_code, is_plain, launch, library, ptr
+from . import absent, check, check_smem, dtype_code, is_plain, launch, library, ptr
 
 
 def _relative_index(idx: torch.Tensor, num_emb: int) -> torch.Tensor:
@@ -177,8 +177,30 @@ def _(q, k, v, idx, table, num_heads, scale, num_emb):
     return torch.empty_like(q)
 
 
+@torch.library.custom_op("mde::ordered_attention_bwd", mutates_args=())
+def ordered_attention_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             dout: torch.Tensor, idx: Optional[torch.Tensor],
+                             table: Optional[torch.Tensor], num_heads: int, scale: float,
+                             num_emb: int
+                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2's backward as an operator of its own
+    (``torch.ops.mde.ordered_attention_bwd``): :func:`ordered_attention_bwd`,
+    with an empty dtable without a table."""
+    dq, dk, dv, dtable = ordered_attention_bwd(q, k, v, dout, idx, table, num_heads, scale,
+                                               num_emb)
+    return dq, dk, dv, absent(q) if dtable is None else dtable
+
+
+@ordered_attention_bwd_op.register_fake
+def _(q, k, v, dout, idx, table, num_heads, scale, num_emb):
+    is_plain(q)  # tracing takes CPU and CUDA tensors; the rest raise
+    return (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v),
+            absent(q) if table is None else torch.empty_like(table))
+
+
 class OrderedAttentionFn(torch.autograd.Function):
-    """K2 forward (``torch.ops.mde.ordered_attention``) and backward:
+    """K2 forward (``torch.ops.mde.ordered_attention``) and backward
+    (``torch.ops.mde.ordered_attention_bwd``):
     gradients for q, k, v and the table; the indices get none."""
 
     @staticmethod
@@ -194,8 +216,8 @@ class OrderedAttentionFn(torch.autograd.Function):
         # kernel takes a contiguous one that starts on 16 bytes
         if not dout.is_contiguous() or dout.data_ptr() % 16:
             dout = dout.clone(memory_format=torch.contiguous_format)
-        dq, dk, dv, dtable = ordered_attention_bwd(q, k, v, dout, idx, table, ctx.num_heads,
-                                                   ctx.scale, ctx.num_emb)
+        dq, dk, dv, dtable = ordered_attention_bwd_op(q, k, v, dout, idx, table, ctx.num_heads,
+                                                      float(ctx.scale), ctx.num_emb)
         return dq, dk, dv, None, dtable if ctx.needs_input_grad[4] else None, None, None, None
 
 

@@ -10,11 +10,11 @@ one over the NewCRFs blocks' fused (B*nW, N, 2C) qk projection and separate
 (B*nW, N, C) v (:func:`window_attention_qk_v`); neither copies a slice or
 concatenates. ``plain_window_attention`` mirrors ``xla_window_attention`` (:77) and
 ``plain_window_attention_bwd`` the backward kernel body (``_bwd_kernel``,
-:180). Each forward entry is an operator of its own in the ``mde``
-namespace (``torch.library.custom_op``, with a fake that gives only the
-output's shape and dtype), which ``torch.export`` records as one node; the
-backward entries are called through ``ctypes`` from the
-``autograd.Function``s. bf16 windows of up to 128 tokens at head dims that are multiples of
+:180). Each entry, forward and backward, is an operator of its own in the
+``mde`` namespace (``torch.library.custom_op``, with a fake that gives
+only the outputs' shapes and dtypes): ``torch.export`` records a forward
+as one node, and a profile records each call by name with its shapes; the
+``autograd.Function``s call the backward ops. bf16 windows of up to 128 tokens at head dims that are multiples of
 8 up to 128, and of up to 144 tokens (the ODA encoder's 12 x 12 windows) at
 head dims that are multiples of 8 up to 32, run on the tensor cores; f32,
 and bf16 beyond those shapes, on the CUDA cores (the rule
@@ -28,7 +28,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import check, check_smem, dtype_code, is_plain, launch, library, ptr
+from . import absent, check, check_smem, dtype_code, is_plain, launch, library, ptr
 
 
 def plain_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -282,9 +282,46 @@ def _(qk, v, bias, mask, num_heads, scale):
     return torch.empty_like(v)
 
 
+@torch.library.custom_op("mde::window_attention_bwd", mutates_args=())
+def window_attention_bwd_op(qkv: torch.Tensor, dout: torch.Tensor,
+                            bias: Optional[torch.Tensor], mask: Optional[torch.Tensor],
+                            num_heads: int, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1's backward over the fused qkv projection as an operator of its
+    own (``torch.ops.mde.window_attention_bwd``): :func:`window_attention_bwd`,
+    with an empty dbias without a bias."""
+    dqkv, dbias = window_attention_bwd(qkv, dout, bias, mask, num_heads, scale)
+    return dqkv, absent(qkv) if dbias is None else dbias
+
+
+@window_attention_bwd_op.register_fake
+def _(qkv, dout, bias, mask, num_heads, scale):
+    is_plain(qkv)  # tracing takes CPU and CUDA tensors; the rest raise
+    return torch.empty_like(qkv), absent(qkv) if bias is None else torch.empty_like(bias)
+
+
+@torch.library.custom_op("mde::window_attention_qk_v_bwd", mutates_args=())
+def window_attention_qk_v_bwd_op(qk: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
+                                 bias: Optional[torch.Tensor], mask: Optional[torch.Tensor],
+                                 num_heads: int, scale: float
+                                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1's backward over a fused qk projection and a separate v
+    (``torch.ops.mde.window_attention_qk_v_bwd``): :func:`window_attention_qk_v_bwd`,
+    with an empty dbias without a bias."""
+    dqk, dv, dbias = window_attention_qk_v_bwd(qk, v, dout, bias, mask, num_heads, scale)
+    return dqk, dv, absent(qk) if dbias is None else dbias
+
+
+@window_attention_qk_v_bwd_op.register_fake
+def _(qk, v, dout, bias, mask, num_heads, scale):
+    is_plain(qk)  # tracing takes CPU and CUDA tensors; the rest raise
+    return (torch.empty_like(qk), torch.empty_like(v),
+            absent(qk) if bias is None else torch.empty_like(bias))
+
+
 class WindowAttentionFn(torch.autograd.Function):
-    """K1 forward (``torch.ops.mde.window_attention``) and backward over the
-    fused (B*nW, N, 3C) qkv projection; the gradient comes back in the same
+    """K1 forward (``torch.ops.mde.window_attention``) and backward
+    (``torch.ops.mde.window_attention_bwd``) over the fused (B*nW, N, 3C)
+    qkv projection; the gradient comes back in the same
     fused layout, so autograd adds no slice copies. The mask is a constant
     and gets no gradient."""
 
@@ -297,14 +334,14 @@ class WindowAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         qkv, bias, mask = ctx.saved_tensors
-        dqkv, dbias = window_attention_bwd(qkv, _contiguous_grad(dout), bias, mask,
-                                           ctx.num_heads, ctx.scale)
+        dqkv, dbias = window_attention_bwd_op(qkv, _contiguous_grad(dout), bias, mask,
+                                              ctx.num_heads, float(ctx.scale))
         return dqkv, dbias if ctx.needs_input_grad[1] else None, None, None, None
 
 
 class WindowAttentionQkVFn(torch.autograd.Function):
     """K1 forward (``torch.ops.mde.window_attention_qk_v``) and backward
-    over a fused (B*nW, N, 2C) qk projection and a separate (B*nW, N, C) v;
+    (``torch.ops.mde.window_attention_qk_v_bwd``) over a fused (B*nW, N, 2C) qk projection and a separate (B*nW, N, C) v;
     the gradients come back as a fused dqk and a dv, so autograd adds no
     slice or concatenation copies. The mask is a constant and gets no
     gradient."""
@@ -318,8 +355,8 @@ class WindowAttentionQkVFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         qk, v, bias, mask = ctx.saved_tensors
-        dqk, dv, dbias = window_attention_qk_v_bwd(qk, v, _contiguous_grad(dout), bias, mask,
-                                                   ctx.num_heads, ctx.scale)
+        dqk, dv, dbias = window_attention_qk_v_bwd_op(qk, v, _contiguous_grad(dout), bias,
+                                                      mask, ctx.num_heads, float(ctx.scale))
         return dqk, dv, dbias if ctx.needs_input_grad[2] else None, None, None, None
 
 

@@ -45,7 +45,9 @@ inputs, as ``torch.utils.checkpoint`` does. The replay runs under
 step left them, however early it ends.
 
 One backward pass runs through a checkpointed call: the backward takes
-each recomputed tensor once, and it is released then.
+each recomputed tensor once, and it is released then. Under a
+``torch.profiler`` profile each replay is the span ``mde.remat.replay``,
+inside the train step's ``mde.train.backward`` (``utils.profiling``).
 """
 
 from __future__ import annotations
@@ -58,6 +60,7 @@ from typing import Callable, Dict, FrozenSet, List, Optional, Tuple
 import torch
 from torch import nn
 
+from ..utils.profiling import span
 from .tnn import BatchNorm
 
 POLICIES: Dict[str, FrozenSet[str]] = {
@@ -292,6 +295,10 @@ class _Checkpoint:
             self.kept[j] = None
 
     def _replay(self) -> None:
+        with span("mde.remat.replay"):
+            self._run_replay()
+
+    def _run_replay(self) -> None:
         inputs = [t.detach().requires_grad_(g)
                   for t, g in zip(self.kept[:self.n_inputs], self.grad_flags)]
         args = _rebuild(self.template, iter(inputs))

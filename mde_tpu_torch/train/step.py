@@ -10,6 +10,14 @@ rows of the batch, averaging the gradients, the BatchNorm statistics and
 the logs over the ranks before the update; ``make_train_step_gspmd`` on
 the global batch, each rank its rows of every microbatch, with the
 global batch's BatchNorm statistics, dropout masks and loss.
+
+Under a ``torch.profiler`` profile a step of any of the three is the span
+``mde.train.step`` (counter ``images``) over ``mde.train.h2d``, each
+microbatch's ``mde.train.forward``, ``mde.train.loss`` and
+``mde.train.backward`` (the recompute's ``mde.remat.replay`` inside it),
+the data-parallel steps' ``mde.train.allreduce``, and
+``mde.train.optimizer``: ``grad_norm``, the clip, the AdamW update and
+``param_norm`` (``utils.profiling``).
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from ..ops.mlp import tp_gather
 from ..ops.resize import resize_bilinear
 from ..ops.tnn import BatchNorm, bn_freeze_scope, encoder_only
 from ..parallel.mesh import gspmd_scope, microbatch_rows
+from ..utils.profiling import count, span
 from .loss import DepthLoss
 from .optim import global_norm
 from .state import TrainState
@@ -119,51 +128,61 @@ def _make_step(opt, min_depth: float, max_depth: float, adapter: Optional[ModelA
 
     def step(state: TrainState, batch: Dict, generator: Optional[torch.Generator] = None
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        model = state.model
-        device = _model_device(model)
-        if spmd == "shard_map":
-            generator = _rank_generator(generator, mesh.rank, state.step)
-        images = torch.as_tensor(batch["image"], dtype=torch.float32, device=device)
-        depths = torch.as_tensor(batch["depth"], dtype=torch.float32, device=device)
-        b = images.shape[0]
-        if spmd == "gspmd":
-            parts = [microbatch_rows(mesh, b, num_accum, m) for m in range(num_accum)]
-        elif b % num_accum:
-            raise ValueError(f"batch {b} does not split into {num_accum} microbatches")
-        else:
-            micro = b // num_accum
-            parts = [slice(m * micro, (m + 1) * micro) for m in range(num_accum)]
-        model.train()
-        params = dict(model.named_parameters())
-        for p in params.values():
-            p.grad = None
-        sums: Dict[str, torch.Tensor] = {}
-        # the backward pass, and any recompute in it, runs inside the freeze
-        # and the global batch
-        with (bn_freeze_scope(model, predicate) if predicate else contextlib.nullcontext()), \
-                (gspmd_scope(mesh) if spmd == "gspmd" else contextlib.nullcontext()):
-            for part in parts:
-                outs, centers = adapter(model(images[part], generator=generator))
-                loss, logs = depth_loss(outs, depths[part], bin_centers=centers)
-                loss.backward()
-                for key, value in logs.items():
-                    sums[key] = sums[key] + value.detach() if key in sums else value.detach()
-        grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
-                 for n, p in params.items()}
-        for p in params.values():
-            p.grad = None
-        if num_accum > 1:
-            grads = {n: g / num_accum for n, g in grads.items()}
-        logs = {key: value / num_accum for key, value in sums.items()}
-        if spmd == "shard_map":
-            grads, logs = _rank_mean(model, grads, logs)
-        elif spmd == "gspmd":
-            grads = _gspmd_mean(model, mesh, grads)
-        logs["grad_norm"] = global_norm(list(grads.values()))
-        state.optimizer.update(grads)
-        logs["param_norm"] = global_norm(list(params.values()))
-        state.step += 1
-        return state, logs
+        with span("mde.train.step"):
+            model = state.model
+            device = _model_device(model)
+            if spmd == "shard_map":
+                generator = _rank_generator(generator, mesh.rank, state.step)
+            with span("mde.train.h2d"):
+                images = torch.as_tensor(batch["image"], dtype=torch.float32, device=device)
+                depths = torch.as_tensor(batch["depth"], dtype=torch.float32, device=device)
+            b = images.shape[0]
+            count("images", b)
+            if spmd == "gspmd":
+                parts = [microbatch_rows(mesh, b, num_accum, m) for m in range(num_accum)]
+            elif b % num_accum:
+                raise ValueError(f"batch {b} does not split into {num_accum} microbatches")
+            else:
+                micro = b // num_accum
+                parts = [slice(m * micro, (m + 1) * micro) for m in range(num_accum)]
+            model.train()
+            params = dict(model.named_parameters())
+            for p in params.values():
+                p.grad = None
+            sums: Dict[str, torch.Tensor] = {}
+            # the backward pass, and any recompute in it, runs inside the
+            # freeze and the global batch
+            with (bn_freeze_scope(model, predicate) if predicate
+                  else contextlib.nullcontext()), \
+                    (gspmd_scope(mesh) if spmd == "gspmd" else contextlib.nullcontext()):
+                for part in parts:
+                    with span("mde.train.forward"):
+                        outs, centers = adapter(model(images[part], generator=generator))
+                    with span("mde.train.loss"):
+                        loss, logs = depth_loss(outs, depths[part], bin_centers=centers)
+                    with span("mde.train.backward"):
+                        loss.backward()
+                    for key, value in logs.items():
+                        sums[key] = sums[key] + value.detach() if key in sums else value.detach()
+            grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+                     for n, p in params.items()}
+            for p in params.values():
+                p.grad = None
+            if num_accum > 1:
+                grads = {n: g / num_accum for n, g in grads.items()}
+            logs = {key: value / num_accum for key, value in sums.items()}
+            if spmd == "shard_map":
+                with span("mde.train.allreduce"):
+                    grads, logs = _rank_mean(model, grads, logs)
+            elif spmd == "gspmd":
+                with span("mde.train.allreduce"):
+                    grads = _gspmd_mean(model, mesh, grads)
+            with span("mde.train.optimizer"):
+                logs["grad_norm"] = global_norm(list(grads.values()))
+                state.optimizer.update(grads)
+                logs["param_norm"] = global_norm(list(params.values()))
+            state.step += 1
+            return state, logs
 
     return step
 

@@ -1509,3 +1509,140 @@ def test_exported_tiny_flagship_launches_as_eager(cuda, tmp_path):
     torch.cuda.synchronize()
     assert kernels.launch_counts == dict(expect, ordered_attention=0)
     assert len(weights) == 4 and all(w.shape == (48, 4, 16, 16) for w in weights)
+
+
+def _bwd_op_cases(cuda, dtype):
+    """Each backward operator's inputs at a small shape on the card: (the
+    operator's name, the plain Python entry that checks and launches its
+    kernel through ``ctypes``, the kernel, its arguments)."""
+    from mde_tpu_torch.ops.kernels import channel_attention as ca
+    from mde_tpu_torch.ops.kernels import depthwise as dw
+    from mde_tpu_torch.ops.kernels import ordered_attention as oa
+    from mde_tpu_torch.ops.kernels import window_attention as wa
+    g = torch.Generator().manual_seed(19)
+
+    def rand(*shape, dt=dtype, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to(dt).to(cuda)
+
+    mask = torch.where(torch.rand((4, 16, 16), generator=g) < 0.2, -100.0, 0.0).to(cuda)
+    idx = torch.randint(0, 16, (8, 16), generator=g, dtype=torch.int32).to(cuda)
+    f32 = torch.float32
+    bias = rand(2, 16, 16, dt=f32)
+    return [("window_attention_bwd", wa.window_attention_bwd, "window_attention_bwd",
+             (rand(32, 16, 96), rand(32, 16, 32), bias, mask, 2, 0.25)),
+            ("window_attention_qk_v_bwd", wa.window_attention_qk_v_bwd, "window_attention_bwd",
+             (rand(32, 16, 64), rand(32, 16, 32), rand(32, 16, 32), bias, mask, 2, 0.25)),
+            ("ordered_attention_bwd", oa.ordered_attention_bwd, "ordered_attention_bwd",
+             (rand(8, 16, 32), rand(8, 16, 32), rand(8, 16, 32), rand(8, 16, 32), idx,
+              rand(31, 2, dt=f32, scale=0.1), 2, 0.25, 16)),
+            ("depthwise_conv2d_dxdw", dw.depthwise_dxdw, "depthwise_conv2d_dxdw",
+             (rand(2, 8, 12, 16), rand(2, 8, 12, 16), rand(5, 5, 16, scale=0.2))),
+            ("depthwise_conv2d_dw", dw.depthwise_dw, "depthwise_conv2d_dw",
+             (rand(2, 8, 12, 16), rand(2, 8, 12, 16), rand(5, 5, 16, scale=0.2))),
+            ("channel_attention_bwd", ca.channel_attention_bwd, "channel_attention_bwd",
+             (rand(8, 16, 16), rand(8, 16, 32), rand(8, 16, 16), 2, 0.25))]
+
+
+# outputs that the kernels sum with atomics across blocks (K1's dbias, K2's
+# dtable), whose bits follow the blocks' order from one launch to the next
+ATOMIC_SUMS = {"window_attention_bwd": 1, "window_attention_qk_v_bwd": 2,
+               "ordered_attention_bwd": 3}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_ops_match_the_direct_ctypes_path(cuda, dtype):
+    """Each backward operator against its plain Python entry (the check and
+    the ``ctypes`` launch): one launch each, the same bits; the sums made
+    with atomics within 1e-5 of their size."""
+    for name, direct, kernel, args in _bwd_op_cases(cuda, dtype):
+        kernels.reset_launch_counts()
+        out = getattr(torch.ops.mde, name)(*args)
+        want = direct(*args)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts == dict(NO_LAUNCHES, **{kernel: 2}), name
+        out, want = _as_tuple(out), _as_tuple(want)
+        assert len(out) == len(want), name
+        for i, (a, b) in enumerate(zip(out, want)):
+            assert a.dtype == b.dtype and a.shape == b.shape, (name, i)
+            if ATOMIC_SUMS.get(name) == i:
+                tol = 1e-5 * max(1.0, b.abs().max().item())
+                assert (a - b).abs().max().item() <= tol, (name, i)
+            else:
+                assert torch.equal(a, b), (name, i)
+
+
+def _tiny_recomputing_step(cuda, monkeypatch):
+    """The tiny flagship in bf16 on the card, recomputing under
+    ``save_sa_conv``, its train step and a batch; one step taken."""
+    monkeypatch.setenv("MDE_REMAT_POLICY", "save_sa_conv")
+    opt = {"model": TINY, "loss": {"alpha": 10.0, "beta": 0.15, "per_image": True},
+           "optimizer": {"lr": 1e-4, "weight_decay": 0.1, "eps": 1e-6},
+           "scheduler": {"name": "onecycle"}, "train": {"grad_norm": 0.1}}
+    model = build_model(TINY, 0.001, 80.0, device=cuda, seed=7, use_checkpoint=True,
+                        dtype=torch.bfloat16, **TINY_KW)
+    state = TrainState.create(model, opt, 100)
+    step = make_train_step(opt, 0.001, 80.0)
+    rng = np.random.RandomState(6)
+    batch = {"image": torch.from_numpy(rng.rand(2, 64, 96, 3).astype(np.float32)).to(cuda),
+             "depth": torch.from_numpy(rng.uniform(0.5, 60.0, (2, 64, 96, 1))
+                                       .astype(np.float32)).to(cuda)}
+    step(state, batch)
+    torch.cuda.synchronize()
+    return lambda: step(state, batch)
+
+
+def _profiled_events(call, log_dir) -> list:
+    import json
+    from mde_tpu_torch.utils import profiling
+    with profiling.trace(str(log_dir)):
+        call()
+    (name,) = os.listdir(log_dir)
+    with open(os.path.join(log_dir, name)) as f:
+        return json.load(f)["traceEvents"]
+
+
+@pytest.mark.gpu
+def test_profiled_step_launches_inside_program_spans(cuda, monkeypatch, tmp_path):
+    """In a profiled recomputing train step every kernel launch (the CUDA
+    runtime's or driver's, in any thread) lies inside one of the program's
+    spans, which are the trace's ``mde.*`` annotations; each span has its
+    device time, and the replays sit in the backward."""
+    from mde_tpu_torch.utils import profiling
+    call = _tiny_recomputing_step(cuda, monkeypatch)
+    profiling.spans()
+    events = _profiled_events(call, tmp_path)
+    records = profiling.spans()
+    ranges = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+              if e.get("cat") == "user_annotation" and e["name"].startswith("mde.")]
+    assert len(ranges) == len(records)
+    launches = [float(e["ts"]) for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "LaunchKernel" in e["name"]]
+    assert len(launches) > 100
+    outside = [t for t in launches if not any(a <= t <= b for a, b in ranges)]
+    assert outside == []
+    assert all(r["device_ms"] is not None and r["device_ms"] >= 0 for r in records)
+    (backward,) = [r for r in records if r["name"] == "mde.train.backward"]
+    replays = [r for r in records if r["name"] == "mde.remat.replay"]
+    assert replays and all(r["parent"] == backward["id"] for r in replays)
+
+
+@pytest.mark.gpu
+def test_spans_add_no_synchronisation(cuda, monkeypatch, tmp_path):
+    """The runtime calls that make the host wait for the card in a profiled
+    train step are as many with the program's spans as without them."""
+    from mde_tpu_torch.utils import profiling
+    call = _tiny_recomputing_step(cuda, monkeypatch)
+    waits = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+             "cudaMemcpy", "cudaMemcpy2D")
+    counts = []
+    for on in (True, False):
+        if not on:
+            monkeypatch.setattr(profiling, "_recording", lambda: False)
+        events = _profiled_events(call, tmp_path / str(on))
+        counts.append(sum(e.get("cat") == "cuda_runtime" and e["name"] in waits
+                          for e in events))
+        names = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+        assert ("mde.train.step" in names) == on
+    profiling.spans()
+    assert counts[0] == counts[1] > 0
