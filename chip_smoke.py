@@ -299,6 +299,12 @@ TRAIN_OPT = {"model": FLAGSHIP,
              "scheduler": {"name": "onecycle"},
              "train": {"num_accum": 1, "grad_norm": 0.1}}
 TRAIN_TOTAL_STEPS = 1000
+# launches of one optimizer step on the card (every train step): the fused
+# AdamW's norm pass, update pass and finish (ops/kernels/adamw.py), for the
+# models of up to 640 parameter tensors that the fixed expectations below
+# count (the flagship's 520, NewCRFs' 478, oda_luna_cls's 470); train_run
+# derives each model's (optimizer_launches)
+OPTIMIZER_LAUNCHES = {"adamw": 3}
 # launches of one train step with use_checkpoint off, derived from the code:
 # 24 Swin blocks (K1), 3 repeats of 2 ordered SAs (K2) and 2 FFs (K3), each
 # forward once and backward once; K3's dw alone never runs (x needs a grad)
@@ -1260,7 +1266,8 @@ def oda_train_f32_check(dev, seed: int) -> None:
             f"centers {seen[0][1]}")
     want = ([(2, 192, 192, 1)], (2, 256))
     if (seen != [want, want] or not card[0]["loss_chamfer"] > 0
-            or counts != dict(dict.fromkeys(kernels.KERNELS, 0), **ODA_TRAIN_LAUNCHES)):
+            or counts != dict(dict.fromkeys(kernels.KERNELS, 0), **ODA_TRAIN_LAUNCHES,
+                              **OPTIMIZER_LAUNCHES)):
         raise RuntimeError(f"{tag}: the loss took {seen}, expected {want} on both devices; "
                            f"launches {counts}")
     compare_steps(tag, card, cpu)
@@ -1472,6 +1479,14 @@ def compare_steps(tag, card, cpu, labels=("card", "CPU")) -> None:
                            f"(logs {bad})")
 
 
+def optimizer_launches(model) -> dict:
+    """The fused AdamW's launches a step over ``model``'s parameters: 3 up to
+    640 tensors, two more a window of 640 past them (depthformer_v6-v8 and
+    oda_lime: 5)."""
+    from mde_tpu_torch.ops.kernels.adamw import launches
+    return {"adamw": launches(len(dict(model.named_parameters())))}
+
+
 def train_run(tag, opt, dev, expect, warmup, timed, profile, entries=None, hw=(352, 704),
               max_depth: float = 80.0, make_step=None, **overrides) -> tuple:
     """Full-width bf16 train steps at batch 4 of a fresh model of ``opt``
@@ -1501,7 +1516,7 @@ def train_run(tag, opt, dev, expect, warmup, timed, profile, entries=None, hw=(3
     torch.cuda.synchronize()
     run = dict(kernels.launch_counts)
     log(f"{tag} launches: {run}, through second entries {kernels.entry_counts}")
-    expect = dict(dict.fromkeys(kernels.KERNELS, 0), **expect)
+    expect = dict(dict.fromkeys(kernels.KERNELS, 0), **expect, **optimizer_launches(model))
     if run != expect or kernels.entry_counts != (entries or {}):
         raise RuntimeError(f"{tag}: expected {expect} kernel launches per train step "
                            f"({entries or {}} through second entries), got {run} "
@@ -1645,7 +1660,8 @@ def gspmd_turns(dev, mesh, card: str) -> dict:
         log(f"data parallel: {tag} by {name}: launches {counts[name]}, all-reduces {reduces} "
             f"(derived {derived if name == 'gspmd' else 0}), peak memory "
             f"{peaks[name] / 2 ** 30:.2f} GiB, logs {logs}")
-        expect = dict(dict.fromkeys(kernels.KERNELS, 0), **CHECKPOINT_LAUNCHES)
+        expect = dict(dict.fromkeys(kernels.KERNELS, 0), **CHECKPOINT_LAUNCHES,
+                      **OPTIMIZER_LAUNCHES)
         if (counts[name] != expect or kernels.entry_counts
                 or reduces != (derived if name == "gspmd" else 0)
                 or not all(np.isfinite(v) for v in logs.values())):
@@ -2811,7 +2827,8 @@ def driver_run(dev, card: str, bare_rate: float) -> dict:
         fit_s = time.perf_counter() - t0
         counts = dict(kernels.launch_counts)
         test_batches = len(trainer.test_loader)
-        expect = {k: DRIVER_STEPS * CHECKPOINT_LAUNCHES.get(k, 0)
+        expect = {k: DRIVER_STEPS * (CHECKPOINT_LAUNCHES.get(k, 0)
+                                     + OPTIMIZER_LAUNCHES.get(k, 0))
                   + test_batches * EVAL_LAUNCHES.get(k, 0) for k in kernels.KERNELS}
         log(f"driver: fit({DRIVER_STEPS} steps) launches {counts} (expected {DRIVER_STEPS} "
             f"recomputing steps and {test_batches} eval forward: {expect})")
@@ -2910,7 +2927,7 @@ def newcrfs_driver_run(dev, card: str, bare_rate: float) -> dict:
         fit_s = time.perf_counter() - t0
         counts, entries = dict(kernels.launch_counts), dict(kernels.entry_counts)
         evals = len(trainer.test_loader)
-        expect = {k: steps * NEWCRFS_TRAIN_LAUNCHES.get(k, 0)
+        expect = {k: steps * (NEWCRFS_TRAIN_LAUNCHES.get(k, 0) + OPTIMIZER_LAUNCHES.get(k, 0))
                   + evals * NEWCRFS_SERVE_LAUNCHES.get(k, 0) for k in kernels.KERNELS}
         expect_entries = {k: steps * v + evals * NEWCRFS_SERVE_ENTRIES.get(k, 0)
                           for k, v in NEWCRFS_TRAIN_ENTRIES.items()}
@@ -3413,6 +3430,96 @@ def tp_check(ranks: list, refs: list, card: str) -> None:
             raise RuntimeError(f"{tag}: the two ranks ended with different states")
         log(f"tensor parallel: {tag}: the two ranks ended with the same logs and state")
 
+
+# -- the optimizer: the fused AdamW kernels (ops/kernels/adamw.py) ------------
+
+# the benchmark's two configurations (benchmark/configs/), whose parameter
+# sets the optimizer phase updates
+OPTIMIZER_MODELS = {"flagship": FLAGSHIP,
+                    "oda_conv": {"name": "oda_conv", "decoder_channels": 1024}}
+# f32 bytes an updated parameter: g read for the norm, then g, p, mu, nu read
+# and p, mu, nu written
+OPTIMIZER_BYTES = 32
+
+
+def optimizer_phase(dev, card: str) -> dict:
+    """The fused AdamW on each of ``OPTIMIZER_MODELS``' parameter sets
+    (shapes from a build on the meta device, random f32 values, gradients
+    at the clip's scale) with ``TRAIN_OPT``'s options: one step against the
+    plain version from the same state (the update's largest difference
+    over its largest size; the norms against the f64 sums), then device ms a
+    step (queued), ms after a synchronisation, the host's issue time a step
+    (the card asleep), the bound (``OPTIMIZER_BYTES`` a parameter at 3.35
+    TB/s) and the plain version's ms. Returns {config: result}.
+
+    The update is compared beyond p's own rounding: an update a few ulps
+    apart (an FMA contracted in one and not the other, the clip's norm
+    summed in f64 against f32) can round p + u to the next f32 of p, which
+    at lr 4e-6 is thousandths of the update; two ulps of p are allowed."""
+    from mde_tpu_torch.models import build_model
+    from mde_tpu_torch.ops import kernels
+    from mde_tpu_torch.train.optim import AdamW, build_lr_schedule
+    out = {}
+    lr = build_lr_schedule(TRAIN_OPT, TRAIN_TOTAL_STEPS)
+    kw = dict(b1=0.9, b2=0.999, eps=1e-6, weight_decay=0.1, max_norm=0.1)
+    for name, cfg in OPTIMIZER_MODELS.items():
+        with torch.device("meta"):
+            shapes = {n: p.shape for n, p in
+                      build_model(cfg, 0.001, 80.0, device="meta").named_parameters()}
+        g = torch.Generator(device=dev).manual_seed(23)
+        params = {n: torch.randn(s, generator=g, device=dev) * 0.05 for n, s in shapes.items()}
+        grads = {n: torch.randn(s, generator=g, device=dev) * 1e-4 for n, s in shapes.items()}
+        n_params = sum(p.numel() for p in params.values())
+        fused = AdamW(params, lr, **kw)
+        plain = AdamW({n: p.clone() for n, p in params.items()}, lr, **kw)
+        plain._fused = None  # the plain version, on the card
+        start = [p.clone() for p in fused.params]
+        kernels.reset_launch_counts()
+        fused.update(grads)
+        torch.cuda.synchronize()
+        launched = kernels.launch_counts["adamw"]
+        plain.update(grads)
+        err = max(((a - b).abs() - 2 ** -22 * b.abs()).max().item()
+                  for a, b in zip(fused.params, plain.params))
+        size = max((b - p0).abs().max().item() for b, p0 in zip(plain.params, start))
+        exact = [float(torch.sqrt(sum((t.double() ** 2).sum() for t in ts)))
+                 for ts in (grads.values(), fused.params)]
+        norms = [(float(fused.grad_norm), float(plain.grad_norm)),
+                 (float(fused.param_norm), float(plain.param_norm))]
+        del start
+        err = max(err, 0.0)
+        ms = time_ms(lambda: fused.update(grads))
+        host_ms = time_ms(lambda: fused.update(grads), queued=False)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        t0 = time.perf_counter()
+        for _ in range(10):
+            fused.update(grads)
+        issue_ms = (time.perf_counter() - t0) * 1e3 / 10
+        torch.cuda.synchronize()
+        plain_ms = time_ms(lambda: plain.update(grads), iters=3, warmup=1, queued=False)
+        bound_ms = OPTIMIZER_BYTES * n_params / HBM_BYTES_PER_S * 1e3
+        out[name] = {"tensors": len(shapes), "parameters": n_params, "launches": launched,
+                     "ms": ms, "host_ms": host_ms, "issue_ms": issue_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "update_err": err / size, "norms": norms,
+                     "f64_norms": exact}
+        log(f"optimizer {name}: {len(shapes)} tensors, {n_params} parameters: fused AdamW "
+            f"{ms:.4f} ms a step on the card ({launched} launches; {100 * bound_ms / ms:.1f}% of "
+            f"the bound {bound_ms:.4f} ms, {OPTIMIZER_BYTES} B a parameter at 3.35 TB/s), "
+            f"{host_ms:.4f} ms after a synchronisation, the host's issue {issue_ms:.4f} ms; "
+            f"plain {plain_ms:.4f} ms; one step against the plain version: the update "
+            f"{err / size:.2e} of its largest beyond two ulps of p, grad_norm {norms[0]} "
+            f"(f64 {exact[0]:.7g}), param_norm {norms[1]} (f64 {exact[1]:.7g}) ({card})")
+        if (launched != 3 or not err <= 1e-5 * size
+                or any(abs(a - e) > 1e-5 * e or abs(b - e) > 1e-5 * e
+                       for (a, b), e in zip(norms, exact))):
+            raise RuntimeError(f"optimizer {name}: the fused AdamW disagrees with its plain "
+                               f"version or launched {launched} kernels")
+        del fused, plain, params, grads
+        free_garbage()
+    return out
+
+
 def kernel_phases(kernels, dev) -> tuple:
     """Build the kernels, log their registers and shared memory, and run
     every kernel phase. Returns (the main phases, the other shapes by
@@ -3514,6 +3621,8 @@ def main() -> int:
         phases, more, build = kernel_phases(kernels, dev)
     with timed("custom ops", group=True):
         op_times = custom_op_phase(dev, card)
+    with timed("optimizer", group=True):
+        optimizer = optimizer_phase(dev, card)
     with timed("flagship", group=True):
         with timed("flagship f32 forward"):
             model_f32_check(dev)
@@ -3630,6 +3739,15 @@ def main() -> int:
                                                  "plain_ms", "host_ms", "max_abs_err_bf16")}
                              for q in more[name]]} if name in more else {}))
         for name, p in report.items()]}
+    o = optimizer["flagship"]
+    line["kernels"].append({
+        "name": "adamw", "route": "cuda", "source": "mde_tpu_torch/ops/kernels/csrc/adamw.cu",
+        "replaces": "none: optax's clip_by_global_norm + adamw ran under XLA",
+        "launches": counts["adamw"], "path": "flagship bf16 train step",
+        "max_abs_err": o["update_err"], "ms": o["ms"], "plain_ms": o["plain_ms"],
+        "bound_ms": o["bound_ms"], "bound_by": "bytes", "library_ms": None,
+        "host_ms": o["host_ms"], "issue_ms": o["issue_ms"], "binding": "ctypes, AdamW.update",
+        "other_shapes": [dict(optimizer["oda_conv"], phase="oda_conv parameters")]})
     log_seconds()
     log(card)
     log(json.dumps(line))

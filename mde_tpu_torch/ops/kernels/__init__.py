@@ -4,15 +4,17 @@ Counterpart of ``mde_tpu/ops/pallas/__init__.py``. Each kernel module here
 (``window_attention``, ``ordered_attention``, ``depthwise``, ``glu_ff``,
 ``channel_attention``) holds a ``torch.autograd.Function`` whose forward
 (and, where the JAX package has one, backward) is a kernel and, beside
-each, the plain PyTorch version of the same function.
+each, the plain PyTorch version of the same function. ``adamw`` holds the
+optimizer's step (no Pallas counterpart), whose plain version is
+``train.optim.AdamW``'s foreach code.
 
 Dispatch is by device and nothing else: a tensor on the CPU takes the plain
 version, a CUDA tensor launches the kernel or raises. There is no override
 and no fallback: a failed build or launch is an error.
 
-Every entry, forward and backward, is also an operator of the ``mde``
-namespace (``torch.library.custom_op``), registered when its module is
-imported: the forwards ``torch.ops.mde.window_attention``,
+Every entry of those five, forward and backward, is also an operator of
+the ``mde`` namespace (``torch.library.custom_op``), registered when its
+module is imported: the forwards ``torch.ops.mde.window_attention``,
 ``window_attention_qk_v``, ``ordered_attention``, ``depthwise_conv2d``,
 ``glu_ff``, ``channel_attention``, so that ``torch.export`` records one
 node a call (``tools/torch_export.py``), and the backwards
@@ -56,7 +58,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 KERNELS = ("window_attention", "window_attention_bwd", "ordered_attention",
            "ordered_attention_bwd", "depthwise_conv2d", "depthwise_conv2d_dxdw",
-           "depthwise_conv2d_dw", "glu_ff", "channel_attention", "channel_attention_bwd")
+           "depthwise_conv2d_dw", "glu_ff", "channel_attention", "channel_attention_bwd",
+           "adamw")
 
 # launches of each kernel since the last reset; a wrapper adds one where it
 # launches its kernel, and nowhere else
@@ -90,6 +93,9 @@ _SIGNATURES = {
     "mde_channel_attention_smem": [_I] * 5,
     "mde_channel_attention_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P],
     "mde_channel_attention_bwd_smem": [_I] * 5,
+    "mde_adamw_norm": [_P, _I, _I, _P, _I, _I, _I, _P],
+    "mde_adamw_update": [_P, _I, _I, _P, _I, _I, _I] + [_F] * 11 + [_I, _P],
+    "mde_adamw_finish": [_P, _I, _P, _P],
 }
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -19,17 +19,26 @@ Per step, on the gradients g of the parameters p that get an update:
 ``zero_grad_bn`` gives the BatchNorm parameters no update and no moments,
 and leaves them out of the clip's norm, as optax's ``multi_transform`` with
 ``set_to_zero`` does. ``cycle_momentum`` makes b1 follow its own schedule.
+
+Each step also leaves the logs ``grad_norm`` (every gradient, before the
+clip) and ``param_norm`` (every parameter, after the update) on the
+optimizer. On the card the step is the fused kernels of
+``ops/kernels/adamw.py``: three launches up to 640 parameter tensors,
+which decide the clip on the card and read nothing back.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
+from ..ops.kernels import is_plain
+from ..ops.kernels.adamw import FusedAdamW
 from ..ops.tnn import BatchNorm
+from ..utils.profiling import count
 
 Schedule = Callable[[int], float]
 
@@ -120,8 +129,14 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
 class AdamW:
     """optax's ``chain(clip_by_global_norm, adamw)`` over ``params`` (name
     -> parameter), updating them in place; see the module docstring. It
-    holds the first and second moments and the update count. The
-    parameters named in ``no_update`` get neither (``zero_grad_bn``)."""
+    holds the first and second moments (one tensor a parameter, ``mu`` in
+    ``moment_dtype``) and the update count. The parameters named in
+    ``no_update`` get neither (``zero_grad_bn``).
+
+    On the CPU a step runs the plain version (:meth:`_plain_update`); on the
+    card the kernels of ``ops/kernels/adamw.py``, whose table of the
+    parameters and moments is built here: they are updated in place and
+    must stay the same tensors."""
 
     def __init__(self, params: Dict[str, nn.Parameter], lr: Schedule, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-6, weight_decay: float = 0.0,
@@ -132,42 +147,78 @@ class AdamW:
         self.b1_schedule = b1_schedule
         self.weight_decay, self.max_norm = weight_decay, max_norm
         self.encoder_scale = encoder_scale
-        self.names = [n for n in params if n not in set(no_update)]
+        skip = set(no_update)
+        self.names = [n for n in params if n not in skip]
         self.params = [params[n] for n in self.names]
+        # the rest get no update but count in both logged norms; every
+        # parameter in the model's order is the norms' order
+        self.rest_names = [n for n in params if n in skip]
+        self.all_names, self.all_params = list(params), list(params.values())
         self.encoder = [i for i, n in enumerate(self.names) if "encoder" in n.split(".")]
         self.mu = [torch.zeros_like(p, dtype=moment_dtype) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0
+        # the last step's logs: 0-d f32 tensors on the parameters' device
+        self.grad_norm: Optional[torch.Tensor] = None
+        self.param_norm: Optional[torch.Tensor] = None
+        self._fused = None
+        if params and not is_plain(next(iter(params.values()))):
+            self._fused = FusedAdamW(self.params, self.mu, self.nu, self.encoder,
+                                     [params[n] for n in self.rest_names])
+
+    def _hyper(self) -> Tuple[float, ...]:
+        """This step's scalars: b1, 1 - b1, b2, 1 - b2, 1 - b1^t, 1 - b2^t,
+        eps, weight decay, -lr, encoder_scale, max_norm."""
+        b1 = self.b1 if self.b1_schedule is None else self.b1_schedule(self.count)
+        t = self.count + 1
+        return (b1, 1 - b1, self.b2, 1 - self.b2, 1 - b1 ** t, 1 - self.b2 ** t, self.eps,
+                self.weight_decay, -self.lr(self.count), self.encoder_scale, self.max_norm)
 
     @torch.no_grad()
     def update(self, grads: Dict[str, torch.Tensor]) -> None:
-        """One step from ``grads`` (name -> gradient, every parameter)."""
+        """One step from ``grads`` (name -> gradient, every parameter).
+        After it ``grad_norm`` holds the gradients' global norm before the
+        clip (every parameter's) and ``param_norm`` the parameters' after
+        the update. CUDA tensors launch the kernels, CPU tensors take the
+        plain version."""
+        if self._fused is None:
+            self._plain_update(grads)
+        else:
+            out = self._fused.step([grads[n] for n in self.names + self.rest_names],
+                                   self._hyper())
+            count("fused_update", 1)
+            self.grad_norm, self.param_norm = out[0], out[1]
+        self.count += 1
+
+    def _plain_update(self, grads: Dict[str, torch.Tensor]) -> None:
+        """The plain version of a step, in foreach ops, on any device; it
+        leaves ``count`` to :meth:`update`."""
+        b1, omb1, b2, omb2, bc1, bc2, eps, wd, neg_lr, enc_scale, max_norm = self._hyper()
+        self.grad_norm = global_norm([grads[n] for n in self.all_names])
         g = [grads[n].float() for n in self.names]
-        if self.max_norm > 0:
-            norm = global_norm(g)
-            if not bool(norm < self.max_norm):
-                g = torch._foreach_mul(torch._foreach_div(g, norm), self.max_norm)
-        b1 = self.b1 if self.b1_schedule is None else self.b1_schedule(self.count)
+        if max_norm > 0:
+            norm = global_norm(g) if self.rest_names else self.grad_norm
+            if not bool(norm < max_norm):
+                g = torch._foreach_mul(torch._foreach_div(g, norm), max_norm)
         mu: List[torch.Tensor] = [m.float() for m in self.mu]
         torch._foreach_mul_(mu, b1)
-        torch._foreach_add_(mu, g, alpha=1 - b1)
-        torch._foreach_mul_(self.nu, self.b2)
-        torch._foreach_addcmul_(self.nu, g, g, value=1 - self.b2)
-        t = self.count + 1
-        mu_hat = torch._foreach_div(mu, 1 - b1 ** t)
-        denom = torch._foreach_sqrt(torch._foreach_div(self.nu, 1 - self.b2 ** t))
-        torch._foreach_add_(denom, self.eps)
+        torch._foreach_add_(mu, g, alpha=omb1)
+        torch._foreach_mul_(self.nu, b2)
+        torch._foreach_addcmul_(self.nu, g, g, value=omb2)
+        mu_hat = torch._foreach_div(mu, bc1)
+        denom = torch._foreach_sqrt(torch._foreach_div(self.nu, bc2))
+        torch._foreach_add_(denom, eps)
         u = torch._foreach_div(mu_hat, denom)
-        if self.weight_decay:
-            torch._foreach_add_(u, self.params, alpha=self.weight_decay)
-        torch._foreach_mul_(u, -self.lr(self.count))
-        if self.encoder_scale != 1.0 and self.encoder:
-            torch._foreach_mul_([u[i] for i in self.encoder], self.encoder_scale)
+        if wd:
+            torch._foreach_add_(u, self.params, alpha=wd)
+        torch._foreach_mul_(u, neg_lr)
+        if enc_scale != 1.0 and self.encoder:
+            torch._foreach_mul_([u[i] for i in self.encoder], enc_scale)
         torch._foreach_add_(self.params, u)
         for stored, new in zip(self.mu, mu):
             if stored is not new:
                 stored.copy_(new)
-        self.count = t
+        self.param_norm = global_norm(self.all_params)
 
 
 def bn_parameter_names(model: nn.Module) -> List[str]:

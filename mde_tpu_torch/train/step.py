@@ -16,8 +16,9 @@ Under a ``torch.profiler`` profile a step of any of the three is the span
 microbatch's ``mde.train.forward``, ``mde.train.loss`` and
 ``mde.train.backward`` (the recompute's ``mde.remat.replay`` inside it),
 the data-parallel steps' ``mde.train.allreduce``, and
-``mde.train.optimizer``: ``grad_norm``, the clip, the AdamW update and
-``param_norm`` (``utils.profiling``).
+``mde.train.optimizer``: the optimizer's step, which leaves ``grad_norm``
+and ``param_norm`` on the optimizer; on the card the fused kernels, whose
+span counts ``fused_update`` (``utils.profiling``).
 """
 
 from __future__ import annotations
@@ -37,7 +38,6 @@ from ..ops.tnn import BatchNorm, bn_freeze_scope, encoder_only
 from ..parallel.mesh import gspmd_scope, microbatch_rows
 from ..utils.profiling import count, span
 from .loss import DepthLoss
-from .optim import global_norm
 from .state import TrainState
 
 ModelAdapter = Callable[..., Tuple[Tuple[torch.Tensor, ...], Optional[torch.Tensor]]]
@@ -178,9 +178,9 @@ def _make_step(opt, min_depth: float, max_depth: float, adapter: Optional[ModelA
                 with span("mde.train.allreduce"):
                     grads = _gspmd_mean(model, mesh, grads)
             with span("mde.train.optimizer"):
-                logs["grad_norm"] = global_norm(list(grads.values()))
                 state.optimizer.update(grads)
-                logs["param_norm"] = global_norm(list(params.values()))
+                logs["grad_norm"] = state.optimizer.grad_norm
+                logs["param_norm"] = state.optimizer.param_norm
             state.step += 1
             return state, logs
 

@@ -62,6 +62,8 @@ BF16_REL = {"window_attention": 3e-2, "ordered_attention": 3e-2, "depthwise_conv
             "depthwise_conv2d_dxdw": 1e-2, "depthwise_conv2d_dw": 1e-4, "glu_ff": 5e-2,
             "channel_attention": 3e-2, "channel_attention_bwd": 3e-2}
 NO_LAUNCHES = dict.fromkeys(kernels.KERNELS, 0)
+# a train step's optimizer step on the card (ops/kernels/adamw.py)
+OPTIMIZER_LAUNCHES = {"adamw": 3}
 
 
 @pytest.fixture
@@ -727,7 +729,7 @@ def test_gradients_flow_through_every_wrapper(cuda):
         "window_attention": 1, "window_attention_bwd": 1, "ordered_attention": 1,
         "ordered_attention_bwd": 1, "depthwise_conv2d": 3, "depthwise_conv2d_dxdw": 2,
         "depthwise_conv2d_dw": 1, "glu_ff": 1, "channel_attention": 1,
-        "channel_attention_bwd": 1}
+        "channel_attention_bwd": 1, "adamw": 0}
     for a, b in zip(card + card2 + card3 + card4 + card5 + card6,
                     cpu + cpu2 + cpu3 + cpu4 + cpu5 + cpu6):
         scale = max(1.0, b.abs().max().item())
@@ -794,7 +796,8 @@ def test_tiny_train_step_on_card_matches_cpu(cuda, monkeypatch):
             torch.cuda.synchronize()
             assert kernels.launch_counts == dict(
                 NO_LAUNCHES, window_attention=6, window_attention_bwd=6, ordered_attention=4,
-                ordered_attention_bwd=4, depthwise_conv2d=4, depthwise_conv2d_dxdw=4)
+                ordered_attention_bwd=4, depthwise_conv2d=4, depthwise_conv2d_dxdw=4,
+                **OPTIMIZER_LAUNCHES)
         results.append(({k: float(v) for k, v in logs.items()}, grads,
                         {k: v.detach().cpu() for k, v in model.state_dict().items()}))
     (logs, grads, weights), (ref_logs, ref_grads, ref_weights) = results
@@ -1159,7 +1162,8 @@ def test_attention_dropout_step_leaves_the_kernels_as_jax_does(cuda, name, rate)
     _, logs = make_train_step(opt, 0.001, 80.0)(state, batch,
                                                 torch.Generator(device=cuda).manual_seed(16))
     torch.cuda.synchronize()
-    assert kernels.launch_counts == dict(NO_LAUNCHES, **(dropping if rate else usual))
+    assert kernels.launch_counts == dict(NO_LAUNCHES, **(dropping if rate else usual),
+                                         **OPTIMIZER_LAUNCHES)
     assert all(np.isfinite(float(v)) for v in logs.values())
 
 
@@ -1285,7 +1289,7 @@ def test_tiny_efficientnet_train_step_on_card_matches_cpu(cuda, name):
         _, logs = make_train_step(opt, 0.001, 80.0)(state, batch)
         if dev.type == "cuda":
             torch.cuda.synchronize()
-            assert kernels.launch_counts == NO_LAUNCHES
+            assert kernels.launch_counts == dict(NO_LAUNCHES, **OPTIMIZER_LAUNCHES)
         results.append(({k: float(v) for k, v in logs.items()}, grads,
                         {k: v.detach().cpu() for k, v in model.state_dict().items()}))
     (logs, grads, weights), (ref_logs, ref_grads, ref_weights) = results
@@ -1414,7 +1418,7 @@ def test_tiny_oda_train_step_on_card_matches_cpu(cuda, name):
         if dev.type == "cuda":
             torch.cuda.synchronize()
             assert kernels.launch_counts == dict(NO_LAUNCHES, window_attention=8,
-                                                 window_attention_bwd=8)
+                                                 window_attention_bwd=8, **OPTIMIZER_LAUNCHES)
         results.append(({k: float(v) for k, v in logs.items()}, grads,
                         {k: v.detach().cpu() for k, v in model.state_dict().items()}))
     (logs, grads, weights), (ref_logs, ref_grads, ref_weights) = results
