@@ -15,6 +15,13 @@ Parameter names follow the reference torch state dict (``backbone.*``,
 ``crf{k}.*``, ``disp_head1.conv1``; ``mask_head.{0,2}`` with the mask
 upsample), the names ``mde_tpu.core.checkpoint.convert_newcrfs_model``
 converts from.
+
+Under a ``torch.profiler`` profile a forward is the spans
+``mde.newcrfs.encoder``, ``mde.newcrfs.psp``, ``mde.newcrfs.crf`` (one a
+stage, coarsest first, each with the pixel shuffle after it; counters
+``tokens``, the B * H * W of the stage's map, and ``pad_tokens``, the
+tokens its zero padding to window multiples adds) and ``mde.newcrfs.head``
+(``utils.profiling``; inside ``mde.serve.forward`` when served).
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from ...ops.conv import ZeroPadConv
 from ...ops.pixel_shuffle import pixel_shuffle
 from ...ops.resize import adaptive_avg_pool2d, resize_bilinear
 from ...ops.tnn import BatchNorm, GroupNorm
+from ...utils.profiling import count, span
 from ..swin import SwinTransformer
 from .layers import NewCRF
 
@@ -178,18 +186,27 @@ class NewCRFDepth(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        feats = self.backbone(x.to(self.dtype), generator)
-        e = self.decoder(feats[3])
+        with span("mde.newcrfs.encoder"):
+            feats = self.backbone(x.to(self.dtype), generator)
+        with span("mde.newcrfs.psp"):
+            e = self.decoder(feats[3])
         for k in (3, 2, 1, 0):
-            e = getattr(self, f"crf{k}")(feats[k], e, generator)
-            if k:
-                e = pixel_shuffle(e, 2)
-        d = self.disp_head1(e)
-        if self.up_mode == "mask":
-            d = convex_upsample_4x(d, self.mask_head(e))
-        else:
-            d = resize_bilinear(d, (d.shape[1] * 4, d.shape[2] * 4), align_corners=False)
-        return d * self.max_depth
+            with span("mde.newcrfs.crf"):
+                crf = getattr(self, f"crf{k}")
+                b, h, w, _ = feats[k].shape
+                r = crf.crf_layer.blocks[0].window_size
+                count("tokens", b * h * w)
+                count("pad_tokens", b * ((h + (-h) % r) * (w + (-w) % r) - h * w))
+                e = crf(feats[k], e, generator)
+                if k:
+                    e = pixel_shuffle(e, 2)
+        with span("mde.newcrfs.head"):
+            d = self.disp_head1(e)
+            if self.up_mode == "mask":
+                d = convex_upsample_4x(d, self.mask_head(e))
+            else:
+                d = resize_bilinear(d, (d.shape[1] * 4, d.shape[2] * 4), align_corners=False)
+            return d * self.max_depth
 
     @classmethod
     def build(cls, opt, min_depth: float, max_depth: float, **overrides):

@@ -9,6 +9,10 @@ kernel entries as operators, on the CPU.
   phases under it, the recompute's replays under the backward, the
   counters, and the same names as ``user_annotation`` events of the
   Chrome trace.
+- A tiny NeW CRFs served under a profile: its encoder, PSP, four CRF stage
+  and head spans in order under ``mde.serve.forward``, each stage's
+  ``tokens`` and ``pad_tokens`` from its map's shape; served without one,
+  no span and the same bits.
 - Each of the six backward operators (``torch.ops.mde.*_bwd``,
   ``depthwise_conv2d_dxdw``, ``depthwise_conv2d_dw``) exists, its fake
   gives the shapes and dtypes of its outputs, and it and the gradient
@@ -238,3 +242,43 @@ def test_backward_op_without_bias_returns_an_empty_gradient(name, absent):
     assert got[-1].shape == (0,) and got[-1].dtype == torch.float32 and want[-1] is None
     for a, b in zip(got[:-1], want[:-1]):
         assert torch.equal(a, b)
+
+
+# a tiny NeW CRFs at window 7 on 62x90 frames: maps 16x23, 8x12, 4x6, 2x3
+NEWCRFS = dict(name="newcrfs", version="custom07")
+NEWCRFS_ENC = dict(embed_dim=8, depths=(1, 1, 1, 1), num_heads=(1, 2, 2, 4),
+                   in_channels=(8, 16, 32, 64), crf_dims=(8, 16, 32, 64))
+
+
+@pytest.fixture(scope="module")
+def newcrfs_served():
+    """The tiny NeW CRFs' depth for two frames: (untraced, traced, the
+    spans of the traced call)."""
+    model = build_model(NEWCRFS, 0.001, 80.0, device="cpu", seed=0,
+                        encoder_kwargs=NEWCRFS_ENC)
+    images = np.random.RandomState(1).rand(2, 62, 90, 3).astype(np.float32)
+    predictor = Predictor(model)
+    profiling.spans()
+    plain = predictor.predict(images)
+    assert profiling.spans() == []
+    with profiling.profiler(host=True):
+        traced = predictor.predict(images)
+    return plain, traced, profiling.spans()
+
+
+def test_newcrfs_spans_nest_under_the_forward(newcrfs_served):
+    _, _, records = newcrfs_served
+    (forward,) = [r for r in records if r["name"] == "mde.serve.forward"]
+    inside = [r for r in records if r["parent"] == forward["id"]]
+    assert [r["name"] for r in inside] == ["mde.newcrfs.encoder", "mde.newcrfs.psp"] + [
+        "mde.newcrfs.crf"] * 4 + ["mde.newcrfs.head"]
+    maps = [(2, 3), (4, 6), (8, 12), (16, 23)]  # crf3 first
+    for r, (h, w) in zip(inside[2:6], maps):
+        padded = (-(-h // 7) * 7) * (-(-w // 7) * 7)
+        assert r["counters"] == {"tokens": 2 * h * w, "pad_tokens": 2 * (padded - h * w)}
+    assert all(r["counters"] == {} for r in inside if r["name"] != "mde.newcrfs.crf")
+
+
+def test_newcrfs_depth_is_the_same_traced(newcrfs_served):
+    plain, traced, _ = newcrfs_served
+    assert plain.shape == (2, 62, 90, 1) and torch.equal(plain, traced)
